@@ -1,0 +1,109 @@
+"""Model factories: the flagship configuration and builders from CLI args.
+
+Counterpart of ``__graft_entry__._flagship`` and of ``get_vae_model`` /
+``get_dalle`` in ``mmvid_tpu/factories.py`` (mask-predict models; the
+pretrained-CLIP graft, fixed language model and ART-V come later).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mmvid_tpu_torch.models.axial import AxialPositionalEmbedding
+from mmvid_tpu_torch.models.bert import BertConfig
+from mmvid_tpu_torch.models.clip import ClipStackConfig
+from mmvid_tpu_torch.models.mmvid import MMVIDBert
+from mmvid_tpu_torch.models.vqgan import VQGanConfig, VQGanVAE
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter from ``generator`` (a CPU generator), in
+    ``named_modules`` order: embeddings N(0, 1), the VQGAN codebook
+    U(-1/n, 1/n), norms ones/zeros, biases zeros, other weights
+    N(0, 1/fan_in)."""
+    for name, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+                val = (torch.ones if pname == 'weight' else torch.zeros)(
+                    p.shape)
+            elif 'bias' in pname:
+                val = torch.zeros(p.shape)
+            elif name.endswith('quantize.embedding'):
+                n = p.shape[0]
+                val = (torch.rand(p.shape, generator=generator) * 2 - 1) / n
+            elif isinstance(mod, (nn.Embedding, AxialPositionalEmbedding)):
+                val = torch.randn(p.shape, generator=generator)
+            else:
+                fan_in = p[0].numel()
+                val = (torch.randn(p.shape, generator=generator)
+                       * fan_in ** -0.5)
+            p.copy_(val)
+
+
+def flagship(tiny: bool = False, dtype=torch.float32, device='cpu',
+             seed: int = 0):
+    """Flagship text-to-video model (scripts/mmvoxceleb/text_to_video):
+    768 x 12-layer backbone, 8 frames at 128 px -> 8x8 tokens each,
+    text_seq_len 50; ``tiny`` is the JAX package's CPU test size.  Weights
+    are drawn from ``torch.Generator().manual_seed(seed)``.  Returns
+    (model, vae)."""
+    if tiny:
+        vq_cfg = VQGanConfig(resolution=16, ch=32, ch_mult=(1, 2),
+                             num_res_blocks=1, z_channels=64, embed_dim=64,
+                             n_embed=1024, attn_resolutions=())
+        vae = VQGanVAE(image_size=16, cfg=vq_cfg, dtype=dtype)
+        cfg = BertConfig(dim=64, num_text_tokens=100, text_seq_len=8,
+                         num_visuals=0, num_targets=2, num_image_tokens=1024,
+                         image_fmap_size=8, image_size=16,
+                         clip=ClipStackConfig(width=64, layers=2, heads=2))
+    else:
+        vae = VQGanVAE(image_size=128, dtype=dtype)
+        cfg = BertConfig(dim=768, num_text_tokens=49408, text_seq_len=50,
+                         num_visuals=0, num_targets=8, num_image_tokens=1024,
+                         image_fmap_size=8, image_size=128,
+                         clip=ClipStackConfig(width=768, layers=12,
+                                              heads=12))
+    model = MMVIDBert(cfg, vae, dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval(), model.vae
+
+
+def build_clip_config(which_transformer: str) -> ClipStackConfig:
+    if which_transformer == 'openai_clip_visual':
+        return ClipStackConfig(width=768, layers=12, heads=12)
+    if which_transformer == 'openai_clip_text':
+        return ClipStackConfig(width=512, layers=12, heads=8)
+    if which_transformer.startswith('custom:'):
+        # 'custom:<width>:<layers>:<heads>'
+        _, w, l, h = which_transformer.split(':')
+        return ClipStackConfig(width=int(w), layers=int(l), heads=int(h))
+    raise NotImplementedError(which_transformer)
+
+
+def get_vae_model(args, dtype=torch.float32) -> VQGanVAE:
+    """The vqgan1024 decoder at ``args.image_size``."""
+    kind = getattr(args, 'which_vae', 'vqgan1024')
+    if kind != 'vqgan1024':
+        raise NotImplementedError(f'which_vae={kind!r}; only vqgan1024')
+    image_size = args.image_size or 256
+    return VQGanVAE(image_size=image_size,
+                    cfg=VQGanConfig(resolution=image_size), dtype=dtype)
+
+
+def get_dalle(args, vae: VQGanVAE, dtype=torch.float32) -> MMVIDBert:
+    """MMVIDBert from CLI args (weights left to the caller)."""
+    clip_cfg = build_clip_config(args.which_transformer)
+    if args.dim != clip_cfg.width:
+        raise ValueError(f'--dim {args.dim} must match the '
+                         f'{args.which_transformer} width {clip_cfg.width}')
+    cfg = BertConfig(
+        dim=args.dim, num_text_tokens=49408, text_seq_len=args.text_seq_len,
+        num_visuals=args.num_visuals, num_targets=args.num_targets,
+        num_image_tokens=vae.num_tokens, image_fmap_size=vae.fmap_size,
+        image_size=vae.image_size, insert_sep=args.insert_sep,
+        use_separate_visual_emb=args.use_separate_visual_emb,
+        fixed_language_model=args.fixed_language_model,
+        text_emb_bottleneck=args.text_emb_bottleneck, clip=clip_cfg)
+    return MMVIDBert(cfg, vae, dtype=dtype)

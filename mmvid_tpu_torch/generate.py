@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Batch generation CLI of the port: prompts in, videos out.
+
+Counterpart of the repository's ``generate.py`` (mask-predict sampling).
+Loads a reference ``dalle.pt`` once, then streams prompt batches through
+``MMVIDBert.generate_images``, padding the last batch to the static batch
+size.
+
+Usage:
+    python -m mmvid_tpu_torch.generate --dalle_path run/dalle.pt \\
+        --prompts "a person with wavy hair is talking" --out_dir out/ \\
+        --format gif
+    python -m mmvid_tpu_torch.generate --dalle_path ... --prompt_file p.txt
+
+``load_model`` and ``generate_videos`` need only torch and numpy;
+``main`` also writes files through ``mmvid_tpu.utils.html`` (PIL,
+imageio), imported when it writes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+from typing import Iterator, List, NamedTuple
+
+import torch
+
+from mmvid_tpu_torch import factories
+from mmvid_tpu_torch.models.mmvid import DEFAULT_MP_CONFIG
+from mmvid_tpu_torch.tokenizer import SimpleTokenizer
+from mmvid_tpu_torch.weights import load_weights, read_dalle_checkpoint
+
+_HPARAM_KEYS = ('dim', 'text_seq_len', 'num_targets', 'num_visuals',
+                'which_transformer', 'image_size', 'insert_sep',
+                'use_separate_visual_emb', 'fixed_language_model',
+                'text_emb_bottleneck', 'loss_img_weight', 'ar')
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument('--dalle_path', required=True,
+                   help='reference-format dalle.pt')
+    p.add_argument('--prompts', nargs='*', default=None)
+    p.add_argument('--prompt_file', default=None,
+                   help='one prompt per line')
+    p.add_argument('--out_dir', default='generated')
+    p.add_argument('--format', default='gif', choices=['gif', 'mp4', 'png'])
+    p.add_argument('--batch_size', type=int, default=16)
+    p.add_argument('--mask_predict_steps', type=int, default=0,
+                   help='0 = use mp_T (20)')
+    p.add_argument('--dynamic', action='store_true')
+    p.add_argument('--fps', type=int, default=4)
+    p.add_argument('--seed', type=int, default=42)
+    p.add_argument('--bf16', action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument('--device', default='cuda',
+                   help="torch device; 'cpu' runs the plain versions of "
+                        'the kernels')
+    # model shape overrides for checkpoints without hparams
+    p.add_argument('--dim', type=int, default=768)
+    p.add_argument('--text_seq_len', type=int, default=50)
+    p.add_argument('--num_targets', type=int, default=8)
+    p.add_argument('--num_visuals', type=int, default=0)
+    p.add_argument('--image_size', type=int, default=128)
+    p.add_argument('--which_transformer', default='openai_clip_visual')
+    p.add_argument('--vae_path', default=None,
+                   help='taming VQGAN .ckpt, for a dalle.pt without '
+                        'vae.model.* weights')
+    p.add_argument('--fixed_language_model', default=None)
+    p.add_argument('--text_emb_bottleneck', default=None)
+    p.add_argument('--insert_sep', action='store_true')
+    p.add_argument('--use_separate_visual_emb', action='store_true')
+    p.add_argument('--loss_img_weight', type=int, default=7)
+    return p.parse_args(argv)
+
+
+def load_model(args):
+    """(model on args.device in eval mode, tokenizer) from
+    ``args.dalle_path``; the checkpoint's hparams override the shape
+    flags."""
+    ckpt = read_dalle_checkpoint(args.dalle_path)
+    for k in _HPARAM_KEYS:
+        if ckpt['hparams'].get(k) is not None:
+            setattr(args, k, ckpt['hparams'][k])
+    if getattr(args, 'ar', False):
+        raise NotImplementedError('ART-V checkpoints are not ported yet '
+                                  '(ROADMAP.md queue A, item 9)')
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    vae = factories.get_vae_model(args, dtype=dtype)
+    model = factories.get_dalle(args, vae, dtype=dtype)
+    weights = dict(ckpt['weights'])
+    if args.vae_path:
+        sd = torch.load(args.vae_path, map_location='cpu',
+                        weights_only=False)['state_dict']
+        weights.update({f'vae.model.{k}': v for k, v in sd.items()
+                        if not k.startswith(('loss.', 'colorize'))})
+    load_weights(model, weights)
+    return model.to(args.device).eval(), SimpleTokenizer()
+
+
+class Batch(NamedTuple):
+    prompts: List[str]
+    videos: torch.Tensor   # [len(prompts), T, H, W, 3] in [0, 1]
+    tokens: torch.Tensor   # [len(prompts), T * n] int64
+
+
+def generate_videos(model, tokenizer, prompts, batch_size: int,
+                    generator: torch.Generator, mask_predict_steps: int = 0,
+                    dynamic: bool = False,
+                    mp_config=None) -> Iterator[Batch]:
+    """Yield one Batch per ``batch_size`` prompts; the last batch is
+    padded with empty prompts to keep the batch shape static, and the
+    padding is dropped from what is yielded.  ``generator`` lives on the
+    model's device."""
+    device = next(model.parameters()).device
+    cfg = model.cfg
+    for i in range(0, len(prompts), batch_size):
+        chunk = list(prompts[i:i + batch_size])
+        pad = batch_size - len(chunk)
+        toks = tokenizer.tokenize(chunk + [''] * pad, cfg.text_seq_len,
+                                  truncate_text=True)
+        text = torch.as_tensor(toks, dtype=torch.long).to(device)
+        videos, seq = model.generate_images(
+            generator, text, mask_predict_steps=mask_predict_steps,
+            dynamic=dynamic, mp_config=mp_config or DEFAULT_MP_CONFIG)
+        yield Batch(chunk, videos[:len(chunk)], seq[:len(chunk)])
+
+
+def main(args=None):
+    args = args or parse_args()
+    from mmvid_tpu.utils.html import (
+        save_gif,
+        save_image_array,
+        save_mp4,
+        tile_video_row,
+    )
+
+    prompts = list(args.prompts or [])
+    if args.prompt_file:
+        with open(args.prompt_file) as f:
+            prompts += [line.strip() for line in f if line.strip()]
+    if not prompts:
+        raise SystemExit('no prompts given')
+    model, tokenizer = load_model(args)
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    generator = torch.Generator(device=args.device).manual_seed(args.seed)
+
+    t0 = time.time()
+    n_done = 0
+    for batch in generate_videos(model, tokenizer, prompts, args.batch_size,
+                                 generator, args.mask_predict_steps,
+                                 args.dynamic):
+        videos = batch.videos.float().cpu().numpy()
+        for j, (prompt, vid) in enumerate(zip(batch.prompts, videos)):
+            stem = (f'{n_done + j:04d}_'
+                    + '_'.join(prompt.split()[:6])[:48])
+            if args.format == 'gif':
+                save_gif(str(out_dir / f'{stem}.gif'), vid, args.fps)
+            elif args.format == 'mp4':
+                save_mp4(str(out_dir / f'{stem}.mp4'), vid, args.fps)
+            else:
+                save_image_array(str(out_dir / f'{stem}.png'),
+                                 tile_video_row(vid))
+            (out_dir / f'{stem}.txt').write_text(prompt)
+        n_done += len(batch.prompts)
+        fps = n_done * model.cfg.num_targets / (time.time() - t0)
+        print(f'{n_done}/{len(prompts)} prompts ({fps:.1f} frames/sec '
+              f'incl. IO)')
+    print(f'wrote {n_done} videos to {out_dir}')
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,242 @@
+"""BERT-style non-autoregressive multimodal video transformer in PyTorch.
+
+Counterpart of ``mmvid_tpu/models/bert.py`` (the sampling surface: config,
+embeddings, transformer forward and heads; losses come with training).
+
+Sequence layout:
+  [REL](1) | text(text_seq_len) | visual(num_visuals*n (+SEP)) |
+  [ST1],[VID](2) | target(num_targets*n)          n = fmap^2 (64 for 128px)
+
+Submodule and parameter names are the reference ``dalle.pt`` ``weights``
+names (``text_emb``, ``transformer.transformer.resblocks.{i}``,
+``to_logits.{0,1}`` ...), so ``state_dict()`` is a reference-format payload.
+
+The sequence runs at its true length (565 for the flagship): the JAX
+package pads it to a multiple of 64 for the TPU's tiling, while the CUDA
+attention kernel masks its own ragged edge, so no padding is needed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mmvid_tpu_torch.models.axial import (
+    AxialPositionalEmbedding,
+    AxialPositionalEmbeddingList,
+)
+from mmvid_tpu_torch.models.clip import (
+    ClipStackConfig,
+    TransformerStack,
+    build_attention_mask,
+    layer_norm_fp32,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    dim: int = 768
+    num_text_tokens: int = 10000       # raw vocab; padding ids appended below
+    text_seq_len: int = 50
+    num_visuals: int = 0
+    num_targets: int = 8
+    num_image_tokens: int = 1024
+    image_fmap_size: int = 8
+    image_size: int = 128
+    insert_sep: bool = False
+    use_separate_visual_emb: bool = False
+    fixed_language_model: Optional[str] = None
+    text_emb_bottleneck: Optional[int] = None
+    stable: bool = False
+    clip: ClipStackConfig = ClipStackConfig()
+
+    @property
+    def effective_text_seq_len(self) -> int:
+        return 1 if self.fixed_language_model else self.text_seq_len
+
+    @property
+    def effective_num_text_tokens(self) -> int:
+        # one unique padding token per text position
+        if self.fixed_language_model:
+            return 1
+        return self.num_text_tokens + self.text_seq_len
+
+    @property
+    def image_seq_len(self) -> int:
+        return self.image_fmap_size ** 2
+
+    @property
+    def visual_seq_len(self) -> int:
+        return (self.num_visuals * self.image_seq_len
+                + self.num_visuals * int(self.insert_sep))
+
+    @property
+    def target_seq_len(self) -> int:
+        return self.num_targets * self.image_seq_len
+
+    @property
+    def before_control_seq_len(self) -> int:
+        return 1  # [REL]
+
+    @property
+    def after_control_seq_len(self) -> int:
+        return 2  # [ST1], [VID]
+
+    @property
+    def control_seq_len(self) -> int:
+        return (self.before_control_seq_len + self.effective_text_seq_len
+                + self.visual_seq_len + self.after_control_seq_len)
+
+    @property
+    def total_seq_len(self) -> int:
+        return self.control_seq_len + self.target_seq_len
+
+    @property
+    def rel_tok_index(self) -> int:
+        return 0
+
+    @property
+    def st1_tok_index(self) -> int:
+        return (self.before_control_seq_len + self.effective_text_seq_len
+                + self.visual_seq_len)
+
+    @property
+    def vid_tok_index(self) -> int:
+        return self.st1_tok_index + 1
+
+    @property
+    def txt_tok_index(self) -> int:
+        return self.before_control_seq_len
+
+    @property
+    def mask_token(self) -> int:
+        return self.num_image_tokens      # [MASK]
+
+    @property
+    def sep_token(self) -> int:
+        return self.num_image_tokens + 1  # [SEP]
+
+
+def _head(dim: int, out: int, dtype) -> nn.Sequential:
+    """Sequential(LayerNorm, Linear): the reference's to_logits* layout."""
+    return nn.Sequential(nn.LayerNorm(dim, eps=1e-5),
+                         nn.Linear(dim, out, dtype=dtype))
+
+
+class BertCore(nn.Module):
+    """All learned parameters of the BERT plus its forward passes."""
+
+    def __init__(self, cfg: BertConfig, dtype=torch.float32):
+        super().__init__()
+        if cfg.fixed_language_model is not None:
+            raise NotImplementedError(
+                'fixed_language_model text features are not ported yet '
+                '(ROADMAP.md queue A, item 12)')
+        self.cfg, self.dtype = cfg, dtype
+        d = cfg.dim
+        self.text_emb = nn.Embedding(cfg.effective_num_text_tokens, d)
+        self.text_pos_emb = nn.Embedding(cfg.effective_text_seq_len, d)
+        self.image_emb = nn.Embedding(cfg.num_image_tokens + 2, d)
+        self.target_pos_emb = AxialPositionalEmbedding(
+            d, (cfg.num_targets, cfg.image_fmap_size, cfg.image_fmap_size))
+        if cfg.num_visuals > 0:
+            if cfg.use_separate_visual_emb:
+                self.visual_emb = nn.Embedding(cfg.num_image_tokens + 2, d)
+            self.visual_pos_emb = AxialPositionalEmbeddingList(
+                d, cfg.num_visuals,
+                (cfg.image_fmap_size, cfg.image_fmap_size))
+        self.special_emb = nn.Embedding(5, d)
+        self.special_pos_emb = nn.Embedding(5, d)
+        # the reference nests the resblock stack one level deeper
+        # (OpenAICLIPTransformer.transformer), hence transformer.transformer
+        self.transformer = nn.ModuleDict(
+            {'transformer': TransformerStack(cfg.clip, dtype=dtype)})
+        self.to_logits = _head(d, cfg.num_image_tokens, dtype)
+        self.to_logits_rel = _head(d, 1, dtype)
+        self.to_logits_vid = _head(d, 1, dtype)
+
+    def control_embedding(self, text, visual_tokens=None):
+        """[REL] | text | visual | [ST1][VID] -> [B, control_seq_len, D]
+        fp32.  text: [B, text_seq_len] int tokens, padding id 0 remapped to
+        a unique id per position; visual_tokens: [B, visual_seq_len] int
+        tokens when cfg.num_visuals > 0."""
+        cfg = self.cfg
+        b, dev = text.shape[0], text.device
+        before_tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        parts = [self.special_emb(before_tok)
+                 + self.special_pos_emb(before_tok)]
+
+        pos = torch.arange(cfg.text_seq_len, device=dev)
+        text_range = pos + (cfg.effective_num_text_tokens - cfg.text_seq_len)
+        text = torch.where(text == 0, text_range[None, :], text)
+        parts.append(self.text_emb(text) + self.text_pos_emb(pos)[None])
+
+        if cfg.num_visuals > 0:
+            if visual_tokens is None:
+                raise ValueError('num_visuals > 0 needs visual_tokens')
+            emb = (self.visual_emb if cfg.use_separate_visual_emb
+                   else self.image_emb)(visual_tokens)
+            parts.append(emb + self.visual_pos_emb(emb))
+
+        after_tok = torch.tensor([1, 2], device=dev).expand(b, 2)
+        parts.append(self.special_emb(after_tok)
+                     + self.special_pos_emb(after_tok))
+        return torch.cat([p.float() for p in parts], dim=1)
+
+    def target_embedding(self, target_tokens):
+        """image_emb(tokens) + axial target positional embedding."""
+        emb = self.image_emb(target_tokens)
+        return emb + self.target_pos_emb(emb)
+
+    def transformer_forward(self, tokens_emb):
+        """Full-sequence forward under the mask_prev mask; a shorter
+        sequence gets the full-layout mask sliced [:L, :L]."""
+        cfg = self.cfg
+        L = tokens_emb.shape[1]
+        mask = build_attention_mask(
+            cfg.total_seq_len, 'mask_prev',
+            index=(cfg.st1_tok_index, cfg.vid_tok_index),
+            device=tokens_emb.device)[:L, :L].contiguous()
+        out = self.transformer['transformer'](tokens_emb, mask)
+        if self.cfg.stable:
+            out = out / out.amax(dim=-1, keepdim=True)
+        return out
+
+    def _apply_head(self, head: nn.Sequential, h):
+        return head[1](layer_norm_fp32(head[0], h, self.dtype)).float()
+
+    def to_logits_msm(self, h):
+        return self._apply_head(self.to_logits, h)
+
+    def to_logits_rel_vid(self, out):
+        """(REL logit [B], VID logit [B]) from the full hidden sequence."""
+        cfg = self.cfg
+        rel = self._apply_head(self.to_logits_rel, out[:, cfg.rel_tok_index])
+        vid = self._apply_head(self.to_logits_vid, out[:, cfg.vid_tok_index])
+        return rel[..., 0], vid[..., 0]
+
+    def _forward_tokens(self, control_emb, target_emb):
+        tokens = torch.cat([control_emb, target_emb.float()], dim=1)
+        return self.transformer_forward(tokens)
+
+    def forward_full(self, control_emb, target_emb):
+        """control | target -> (msm_logits, rel_logit, vid_logit, hidden)."""
+        out = self._forward_tokens(control_emb, target_emb)
+        rel, vid = self.to_logits_rel_vid(out)
+        logits = self.to_logits_msm(out[:, self.cfg.control_seq_len:])
+        return logits, rel, vid, out
+
+    def forward_hidden(self, control_emb, target_emb):
+        """Like forward_full, but the RAW target hidden rows in place of the
+        MSM logits: the fused sample head applies to_logits itself."""
+        out = self._forward_tokens(control_emb, target_emb)
+        rel, vid = self.to_logits_rel_vid(out)
+        return out[:, self.cfg.control_seq_len:], rel, vid
+
+    def forward(self, text, visual_tokens, target_tokens):
+        control = self.control_embedding(text, visual_tokens)
+        return self.forward_full(control,
+                                 self.target_embedding(target_tokens))

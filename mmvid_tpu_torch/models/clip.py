@@ -1,0 +1,142 @@
+"""CLIP-architecture transformer backbone in PyTorch.
+
+Counterpart of ``mmvid_tpu/models/clip.py`` (sequential stack only).
+Modules and parameters carry the reference ``dalle.pt`` names
+(``resblocks.{i}.attn.in_proj_weight``, ``ln_1``, ``mlp.c_fc`` ...), so a
+reference state_dict loads unchanged.
+
+Precision: the stack casts x to the compute dtype on entry and back to fp32
+on exit; every LayerNorm is an fp32 island whose output is cast back to the
+compute dtype.  Attention goes through
+:func:`mmvid_tpu_torch.ops.attention.fused_attention_blhd` (the CUDA kernel
+on the card, the plain version on the CPU).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mmvid_tpu_torch.ops.attention import fused_attention_blhd
+
+NEG_INF = -1e9  # finite stand-in for -inf: keeps softmax NaN-free in bf16
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipStackConfig:
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+
+def build_attention_mask(context_length: int, mask_type: str = 'causal',
+                         index: Optional[Sequence[int]] = None,
+                         device=None) -> torch.Tensor:
+    """Additive fp32 [L, L] mask.
+
+    ``causal``: token i attends to keys <= i.
+    ``mask_prev``: bidirectional except rows in ``index`` (the [ST1] and
+    [VID] estimation tokens), which cannot see keys before their own
+    position.
+    """
+    if mask_type == 'causal':
+        mask = torch.full((context_length, context_length), NEG_INF,
+                          dtype=torch.float32, device=device).triu(1)
+    elif mask_type == 'mask_prev':
+        mask = torch.zeros((context_length, context_length),
+                           dtype=torch.float32, device=device)
+        for i in index or ():
+            mask[i, :i] = NEG_INF
+    else:
+        raise NotImplementedError(mask_type)
+    return mask
+
+
+def layer_norm_fp32(ln: nn.LayerNorm, x, dtype):
+    """fp32 LayerNorm island: statistics and affine in fp32, output cast to
+    ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(dtype)
+
+
+class QuickGELU(nn.Module):
+    def forward(self, x):
+        return x * torch.sigmoid(1.702 * x)
+
+
+class Mlp(nn.Module):
+    def __init__(self, width: int, dtype=torch.float32):
+        super().__init__()
+        self.c_fc = nn.Linear(width, 4 * width, dtype=dtype)
+        self.gelu = QuickGELU()
+        self.c_proj = nn.Linear(4 * width, width, dtype=dtype)
+
+    def forward(self, x):
+        return self.c_proj(self.gelu(self.c_fc(x)))
+
+
+class MultiHeadAttention(nn.Module):
+    """Self-attention with torch ``nn.MultiheadAttention``'s parameter
+    layout: one packed ``in_proj_weight`` [3D, D] and ``out_proj``."""
+
+    def __init__(self, width: int, heads: int, dtype=torch.float32):
+        super().__init__()
+        self.width, self.heads = width, heads
+        self.in_proj_weight = nn.Parameter(
+            torch.empty(3 * width, width, dtype=dtype))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * width, dtype=dtype))
+        nn.init.xavier_uniform_(self.in_proj_weight)
+        self.out_proj = nn.Linear(width, width, dtype=dtype)
+
+    def forward(self, x, mask=None):
+        b, l, d = x.shape
+        h, hd = self.heads, d // self.heads
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        # q, k, v stay strided views of the packed projection: the kernel
+        # takes their strides, so no copy is made
+        q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, l, h, hd)
+                   for i in range(3))
+        if mask is not None:
+            mask = mask[:l, :l].contiguous()
+        out = fused_attention_blhd(q, k, v, mask)
+        return self.out_proj(out.reshape(b, l, d))
+
+
+class ResidualAttentionBlock(nn.Module):
+    def __init__(self, width: int, heads: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.attn = MultiHeadAttention(width, heads, dtype=dtype)
+        self.ln_1 = nn.LayerNorm(width, eps=1e-5)
+        self.mlp = Mlp(width, dtype=dtype)
+        self.ln_2 = nn.LayerNorm(width, eps=1e-5)
+
+    def forward(self, x, mask=None):
+        x = x + self.attn(layer_norm_fp32(self.ln_1, x, self.dtype), mask)
+        return x + self.mlp(layer_norm_fp32(self.ln_2, x, self.dtype))
+
+
+class TransformerStack(nn.Module):
+    """The resblock stack of the MMVID backbone; every block gets the same
+    additive [L, L] mask."""
+
+    def __init__(self, cfg: ClipStackConfig, dtype=torch.float32):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        self.resblocks = nn.ModuleList(
+            ResidualAttentionBlock(cfg.width, cfg.heads, dtype=dtype)
+            for _ in range(cfg.layers))
+
+    def forward(self, x, mask=None):
+        x = x.to(self.dtype)
+        for block in self.resblocks:
+            x = block(x, mask)
+        return x.float()

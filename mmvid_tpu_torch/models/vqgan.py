@@ -1,0 +1,231 @@
+"""VQGAN decoder (taming-transformers VQModel, decode half) in PyTorch.
+
+Counterpart of the decode path of ``mmvid_tpu/models/vqgan.py``: codebook
+lookup -> 1x1 post_quant_conv -> Decoder -> [0, 1] images.  Modules carry
+taming's state_dict names (``decoder.mid.block_1``,
+``decoder.up.{i}.block.{j}``, ``quantize.embedding.weight`` ...).  The
+encoder comes with the encode path.
+
+Layouts: ids [B, n] in and images [B, H, W, 3] in [0, 1] out, as in the
+JAX package; NCHW inside.  GroupNorm(32, eps 1e-6) runs in fp32 whatever
+the compute dtype; convolutions run in the compute dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class VQGanConfig:
+    """vqgan.1024.config.yml defaults."""
+    embed_dim: int = 256
+    n_embed: int = 1024
+    double_z: bool = False
+    z_channels: int = 256
+    resolution: int = 256
+    in_channels: int = 3
+    out_ch: int = 3
+    ch: int = 128
+    ch_mult: Sequence[int] = (1, 1, 2, 2, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: Sequence[int] = (16,)
+    dropout: float = 0.0
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.ch_mult) - 1
+
+    def fmap_size(self, image_size: int) -> int:
+        return image_size // (2 ** self.num_layers)
+
+
+def _norm(channels: int) -> nn.GroupNorm:
+    return nn.GroupNorm(32, channels, eps=1e-6)
+
+
+def _norm_silu(norm: nn.GroupNorm, x, dtype):
+    """fp32 GroupNorm + SiLU island, output cast to ``dtype``."""
+    h = F.group_norm(x.float(), norm.num_groups, norm.weight.float(),
+                     norm.bias.float(), norm.eps)
+    return F.silu(h).to(dtype)
+
+
+def _conv(cin: int, cout: int, k: int, dtype) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, padding=k // 2, dtype=dtype)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = _norm(in_channels)
+        self.conv1 = _conv(in_channels, out_channels, 3, dtype)
+        self.norm2 = _norm(out_channels)
+        self.conv2 = _conv(out_channels, out_channels, 3, dtype)
+        if in_channels != out_channels:
+            self.nin_shortcut = _conv(in_channels, out_channels, 1, dtype)
+
+    def forward(self, x):
+        h = self.conv1(_norm_silu(self.norm1, x, self.dtype))
+        h = self.conv2(_norm_silu(self.norm2, h, self.dtype))
+        if hasattr(self, 'nin_shortcut'):
+            x = self.nin_shortcut(x.to(self.dtype))
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Single-head spatial self-attention."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.norm = _norm(channels)
+        self.q = _conv(channels, channels, 1, dtype)
+        self.k = _conv(channels, channels, 1, dtype)
+        self.v = _conv(channels, channels, 1, dtype)
+        self.proj_out = _conv(channels, channels, 1, dtype)
+
+    def forward(self, x):
+        b, c, hh, ww = x.shape
+        h = F.group_norm(x.float(), self.norm.num_groups,
+                         self.norm.weight.float(), self.norm.bias.float(),
+                         self.norm.eps).to(self.dtype)
+        # products of compute-dtype values summed in fp32
+        q = self.q(h).reshape(b, c, hh * ww).float()
+        k = self.k(h).reshape(b, c, hh * ww).float()
+        v = self.v(h).reshape(b, c, hh * ww).float()
+        attn = torch.bmm(q.transpose(1, 2), k) * (c ** -0.5)   # [b, i, j]
+        attn = torch.softmax(attn, dim=-1).to(self.dtype).float()
+        out = torch.bmm(v, attn.transpose(1, 2))               # [b, c, i]
+        out = out.reshape(b, c, hh, ww).to(self.dtype)
+        return x + self.proj_out(out)
+
+
+class Upsample(nn.Module):
+    """Nearest x2 + conv."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.conv = _conv(channels, channels, 3, dtype)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode='nearest'))
+
+
+class _Mid(nn.Module):
+    def __init__(self, ch: int, dtype):
+        super().__init__()
+        self.block_1 = ResnetBlock(ch, ch, dtype)
+        self.attn_1 = AttnBlock(ch, dtype)
+        self.block_2 = ResnetBlock(ch, ch, dtype)
+
+    def forward(self, h):
+        return self.block_2(self.attn_1(self.block_1(h)))
+
+
+class _UpLevel(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.block = nn.ModuleList()
+        self.attn = nn.ModuleList()
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VQGanConfig, dtype=torch.float32):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        n_res = len(cfg.ch_mult)
+        block_in = cfg.ch * cfg.ch_mult[-1]
+        curr_res = cfg.resolution // 2 ** (n_res - 1)
+        self.conv_in = _conv(cfg.z_channels, block_in, 3, dtype)
+        self.mid = _Mid(block_in, dtype)
+        levels = [None] * n_res
+        for i_level in reversed(range(n_res)):
+            level = _UpLevel()
+            block_out = cfg.ch * cfg.ch_mult[i_level]
+            for _ in range(cfg.num_res_blocks + 1):
+                level.block.append(ResnetBlock(block_in, block_out, dtype))
+                block_in = block_out
+                if curr_res in cfg.attn_resolutions:
+                    level.attn.append(AttnBlock(block_in, dtype))
+            if i_level != 0:
+                level.upsample = Upsample(block_in, dtype)
+                curr_res *= 2
+            levels[i_level] = level
+        self.up = nn.ModuleList(levels)
+        self.norm_out = _norm(block_in)
+        self.conv_out = _conv(block_in, cfg.out_ch, 3, dtype)
+
+    def forward(self, z):
+        h = self.mid(self.conv_in(z.to(self.dtype)))
+        for i_level in reversed(range(len(self.up))):
+            level = self.up[i_level]
+            for i_block, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[i_block](h)
+            if i_level != 0:
+                h = level.upsample(h)
+        return self.conv_out(_norm_silu(self.norm_out, h, self.dtype))
+
+
+class VectorQuantizer(nn.Module):
+    """The codebook (decode side: lookup only)."""
+
+    def __init__(self, n_embed: int, embed_dim: int):
+        super().__init__()
+        self.embedding = nn.Embedding(n_embed, embed_dim)
+
+    def lookup(self, indices):
+        return self.embedding(indices)
+
+
+class VQModel(nn.Module):
+    """Decode half of taming's VQModel."""
+
+    def __init__(self, cfg: VQGanConfig, dtype=torch.float32):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        self.decoder = Decoder(cfg, dtype)
+        self.quantize = VectorQuantizer(cfg.n_embed, cfg.embed_dim)
+        self.post_quant_conv = _conv(cfg.embed_dim, cfg.z_channels, 1, dtype)
+
+    def decode_code(self, code):
+        """code [B, h, w] int -> image [B, 3, H, W] in about [-1, 1]."""
+        quant = self.quantize.lookup(code).to(self.dtype)
+        quant = quant.permute(0, 3, 1, 2)
+        return self.decoder(self.post_quant_conv(quant))
+
+
+class VQGanVAE(nn.Module):
+    """MMVID-facing VQGAN wrapper (decode).  ``image_size`` overrides the
+    config resolution, as in the JAX package."""
+
+    def __init__(self, image_size: int | None = None,
+                 cfg: VQGanConfig | None = None, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg or VQGanConfig()
+        if image_size:
+            self.cfg = dataclasses.replace(self.cfg, resolution=image_size)
+        self.model = VQModel(self.cfg, dtype)
+        self.image_size = image_size or 256
+        self.num_layers = self.cfg.num_layers
+        self.num_tokens = self.cfg.n_embed
+        self.fmap_size = self.image_size // (2 ** self.num_layers)
+        self.image_seq_len = self.fmap_size ** 2
+
+    @torch.no_grad()
+    def decode(self, seq):
+        """seq [B, n] ids -> images [B, H, W, 3] in [0, 1] (compute
+        dtype)."""
+        b, n = seq.shape
+        f = int(round(n ** 0.5))
+        img = self.model.decode_code(seq.reshape(b, f, f))
+        return (img.permute(0, 2, 3, 1).clamp(-1.0, 1.0) + 1.0) * 0.5

@@ -1,0 +1,96 @@
+"""Full-sequence self-attention: the plain PyTorch version and the wrapper
+of the hand-written CUDA kernel (``csrc/attention.cu``).
+
+Counterpart of ``mmvid_tpu/ops/attention.py``.  Both versions compute
+``softmax(q * scale @ k^T + mask) @ v`` per (batch, head) with fp32 logits,
+softmax and accumulation, in the residual stream's ``[B, L, H, D]`` layout.
+
+Dispatch rule of :func:`fused_attention_blhd`: a CPU tensor goes to
+:func:`attention_reference`; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mmvid_tpu_torch.ops import _build
+
+# Kernel launches since the last reset (chip_smoke.py reads it to show the
+# main path ran through the kernel).
+launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64)
+_fn = None
+
+
+def attention_reference(q, k, v, mask, scale):
+    """q, k, v [B, L, H, D]; mask additive fp32 [L, L] -> [B, L, H, D] in
+    q's dtype (``_attention_xla``'s math, mmvid_tpu/ops/attention.py)."""
+    logits = torch.einsum('blhd,bmhd->bhlm', q.float() * scale, k.float())
+    logits = logits + mask[None, None]
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum('bhlm,bmhd->blhd', p, v.float())
+    return out.to(q.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.library().mmvid_attention_fwd
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check_cuda_args(q, k, v, mask):
+    b, l, h, d = q.shape
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f'{name}: {t.device}/{t.dtype}, expected '
+                             f'{q.device}/{q.dtype}')
+        if t.shape != q.shape:
+            raise ValueError(f'{name} shape {tuple(t.shape)} != '
+                             f'{tuple(q.shape)}')
+        if t.stride(-1) != 1:
+            raise ValueError(f'{name} needs unit stride over the head dim')
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f'attention kernel takes fp32 or bf16, not '
+                         f'{q.dtype}')
+    if d not in _HEAD_DIMS:
+        raise ValueError(f'attention kernel takes head dims {_HEAD_DIMS}, '
+                         f'not {d}')
+    if (mask.device != q.device or mask.dtype != torch.float32
+            or mask.shape != (l, l) or not mask.is_contiguous()):
+        raise ValueError('mask must be a contiguous fp32 [L, L] tensor on '
+                         "q's device")
+
+
+def fused_attention_blhd(q, k, v, mask=None):
+    """q, k, v [B, L, H, D] (any strides with a unit head-dim stride);
+    additive mask [L, L] or None -> [B, L, H, D] contiguous, q's dtype.
+    Logits are scaled by D ** -0.5."""
+    global launches
+    b, l, h, d = q.shape
+    scale = d ** -0.5
+    if mask is None:
+        mask = torch.zeros((l, l), dtype=torch.float32, device=q.device)
+    if q.device.type == 'cpu':
+        return attention_reference(q, k, v, mask, scale)
+    if q.device.type != 'cuda':
+        raise ValueError(f'no attention path for device {q.device}')
+    _check_cuda_args(q, k, v, mask)
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    rc = _kernel()(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), mask.data_ptr(), out.data_ptr(), b, l, h,
+                   strides, float(scale), _build.stream_handle(q.device))
+    _build.check(rc, 'attention kernel launch')
+    launches += 1
+    return out
