@@ -1,20 +1,40 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``mmvid_tpu_torch``) on one GPU.
 
-Drives the port's main path -- flagship text-to-video mask-predict sampling
-at full width (768 x 12-layer backbone, 20 rounds, VQGAN decode of 8 frames
-at 128 px) on weights drawn from a seed -- through ``factories.flagship``
-and ``generate.generate_videos``.  Phases, in order; any failure exits
-non-zero and prints no result line:
+Drives the port's two sampling paths at full width on weights drawn from a
+seed: flagship text-to-video mask-predict sampling (768 x 12-layer
+backbone, 20 rounds, VQGAN decode of 8 frames at 128 px) through
+``factories.flagship`` and ``generate.generate_videos``; and the text+mask
+visual-control recipe (scripts/mmvoxceleb/text_and_mask/test.sh: one
+control frame through the cvae encoder and the nearest-code kernel, the
+mask_8x8 erase, sequence 629) through ``factories.get_vae_model`` /
+``get_dalle`` and ``MMVIDBert.generate_images``, with the fused LN+QKV
+gate off and then on.  Both paths' models, inputs and batch-16 timings
+come from ``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``,
+``measure``).  Phases, in order; any failure exits non-zero and
+prints no result line:
 
 1. device: CUDA is required; prints the card's name and power limit.
-2. build: compiles ``mmvid_tpu_torch/csrc`` with nvcc (sm_90a).
-3. attention kernel vs its plain version, fp32 (TF32 off) and bf16.
+2. build: compiles ``mmvid_tpu_torch/csrc`` with nvcc (sm_90a), one nvcc
+   per source in parallel.
+3. attention kernel vs its plain version, fp32 (TF32 off) and bf16, and
+   beside ``F.scaled_dot_product_attention`` with the same float mask, at
+   each path's sequence and mask_prev rows: text+mask (L 629), flagship
+   (L 565), tiny (L 139).
 4. sample-head kernel vs its plain version: exact at temp 0 for Y given
    the chosen token, token histograms in distribution (TV bounds).
-5. tiny model on the card vs the same weights on the CPU (plain paths).
-6. main path: 6 prompts at batch 4, launch counts, output checks,
-   determinism by seed; then one batch of 16 timed at steady state.
+5. nearest-code kernel vs its plain version: ids equal on a randn
+   codebook; within 1e-5 of the best score on the random-init codebook.
+6. fused LN+QKV kernel vs its plain version, bf16 (the kernel's only
+   dtype; fp32 must raise on the card).
+7. tiny models on the card vs the same weights on the CPU: the flagship,
+   and the text+mask model's cvae ids and forward logits.
+8. flagship path: 6 prompts at batch 4, launch counts, output checks,
+   determinism by seed; then ``breakdown.measure`` of a batch of 16.
+9. text+mask path: one batch of 16, launch counts, output checks,
+   determinism by seed, then ``breakdown.measure``; then again with
+   MMVID_FUSED_LNQKV=1 (launch counts, tokens against the gate-off run,
+   ``breakdown.measure``).
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -24,6 +44,7 @@ Prints the kernels' JSON line, then as its last line
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -41,6 +62,37 @@ ATTN_TOL = {'float32': 1e-4, 'bfloat16': 2e-2}   # max abs error
 # and the plain LN statistics differ in the last fp32 bit, which flips the
 # rounding of a few elements and moves a logit by ~1e-3.
 Y_TOL = {'float32': 1e-5, 'bfloat16': 2e-3}
+# fused LN+QKV kernel (bf16) vs plain: |kernel - plain| <= tol * (1 +
+# |plain|) elementwise (rtol = atol = tol, the CPU tests' form): h and the
+# output are rounded to bf16, and a last-bit difference of the LN
+# statistics can flip one rounding, one bf16 ulp (2^-8 relative; 0.03125
+# at |qkv| in [4, 8))
+LNQKV_TOL = 2e-2
+# chosen code's score within this of the best (fp64) on the random-init
+# codebook U(-1/1024, 1/1024), whose scores differ by ~1e-5 between codes
+CODE_GAP_TOL = 1e-5
+
+# NVIDIA H100 SXM peaks (data sheet, dense): the bounds of the kernels line
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12}
+
+
+def bound(nbytes: float, flops: float, kind: str):
+    """(least ms the card could take, what bounds it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def reset_counts():
+    from mmvid_tpu_torch.breakdown import KERNELS
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def read_counts():
+    from mmvid_tpu_torch.breakdown import KERNELS
+    return {name: mod.launches for name, mod in KERNELS.items()}
 
 
 def fail(msg: str):
@@ -48,8 +100,11 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def cuda_time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of ``reps`` single-call CUDA-event timings, in ms."""
+def cuda_time_ms(fn, calls: int = 20, reps: int = 5,
+                 warmup: int = 3) -> float:
+    """Device time per call, in ms: CUDA events around ``calls``
+    back-to-back calls (so the host queues ahead and its launch overhead
+    stays out of the device time), over ``calls``; median of ``reps``."""
     import torch
     for _ in range(warmup):
         fn()
@@ -58,10 +113,11 @@ def cuda_time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -96,8 +152,10 @@ def phase_attention():
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain = fp32
     dev = torch.device('cuda')
     rows = {}
-    # (B, L, H, D, mask_prev index): the flagship and the tiny config
-    for b, l, h, d, idx in ((16, 565, 12, 64, (51, 52)),
+    # (B, L, H, D, mask_prev rows): the text+mask path, the flagship and
+    # the tiny config
+    for b, l, h, d, idx in ((16, 629, 12, 64, (115, 116)),
+                            (16, 565, 12, 64, (51, 52)),
                             (16, 139, 2, 32, (9, 10))):
         mask = build_attention_mask(l, 'mask_prev', index=idx, device=dev)
         g = torch.Generator(device=dev).manual_seed(l)
@@ -115,13 +173,28 @@ def phase_attention():
                                                              mask))
             plain_ms = cuda_time_ms(
                 lambda: A.attention_reference(qd, kd, vd, mask, d ** -0.5))
+            # one PyTorch call for the same function: [B, H, L, D] views
+            # and the same additive mask in q's dtype
+            qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+            mt = mask.to(dtype)
+            lib = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mt).transpose(1, 2)
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            lib_ms = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mt))
             print(f'[attention] B={b} L={l} H={h} D={d} {name}: max abs '
                   f'err {err:.3e} (tol {tol}) kernel {ms:.4f} ms plain '
-                  f'{plain_ms:.4f} ms', flush=True)
+                  f'{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms (err vs plain '
+                  f'{lib_err:.3e})', flush=True)
             if not err <= tol:
                 fail(f'attention {name} D={d}: max abs err {err} > {tol}')
-            rows[(d, name)] = (err, ms, plain_ms)
-    return rows[(64, 'bfloat16')]
+            nbytes = 4 * b * l * h * d * qd.element_size() + l * l * 4
+            rows[(l, name)] = (err, ms, plain_ms, lib_ms) + bound(
+                nbytes, 4 * b * h * l * l * d,
+                'bf16' if dtype == torch.bfloat16 else 'fp32')
+    # the main paths' rows: text+mask (the kernels line), flagship
+    return rows[(629, 'bfloat16')], rows[(565, 'bfloat16')]
 
 
 def _tv(p, q):
@@ -191,7 +264,102 @@ def phase_sample_head():
     plain_ms = cuda_time_ms(plain)
     print(f'[sample_head] M={m}: kernel {ms:.4f} ms plain (noise draw '
           f'included) {plain_ms:.4f} ms', flush=True)
-    return y_err, ms, plain_ms
+    # x fp32 read once, W bf16 read once, Y and tok written once
+    nbytes = m * d * 4 + d * v * 2 + (2 * d + v) * 4 + m * (4 + 8)
+    return (y_err, ms, plain_ms, None) + bound(nbytes, 2 * m * d * v, 'bf16')
+
+
+def phase_codebook():
+    """Nearest-code kernel vs plain at the text+mask path's shape (M = 16
+    control frames x 64 latents, D 256, K 1024)."""
+    import torch
+    from mmvid_tpu_torch.ops import codebook as C
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    m, d, k = 1024, 256, 1024
+    g = torch.Generator(device=dev).manual_seed(11)
+    z = torch.randn((m, d), generator=g, device=dev)
+    spread = torch.randn((k, d), generator=g, device=dev)
+    init = (torch.rand((k, d), generator=g, device=dev) * 2 - 1) / k
+
+    def gap(cb, idx):
+        """best score - chosen score, in fp64, per row."""
+        s = z.double() @ cb.double().t() - 0.5 * cb.double().square().sum(
+            -1)[None]
+        return s.max(-1).values - s.gather(1, idx[:, None])[:, 0]
+
+    idx = C.nearest_codebook_indices(z, spread)
+    ref = C.nearest_codebook_reference(z, spread)
+    torch.cuda.synchronize()
+    n_diff = int((idx != ref).sum())
+    idx0 = C.nearest_codebook_indices(z, init)
+    gaps = torch.cat([gap(spread, idx), gap(init, idx0)])
+    err = gaps.max().item()
+    ms = cuda_time_ms(lambda: C.nearest_codebook_indices(z, init))
+    plain_ms = cuda_time_ms(lambda: C.nearest_codebook_reference(z, init))
+    print(f'[codebook] M={m} D={d} K={k} fp32: randn codebook ids '
+          f'differing from plain {n_diff}; max score gap to the best '
+          f'(randn and random-init codebooks) {err:.3e} (tol '
+          f'{CODE_GAP_TOL}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms',
+          flush=True)
+    if n_diff or not (idx.min() >= 0 and idx.max() < k):
+        fail(f'codebook kernel ids differ from plain in {n_diff} rows')
+    if not err <= CODE_GAP_TOL:
+        fail(f'codebook kernel score gap {err} > {CODE_GAP_TOL}')
+    nbytes = (m * d + k * d) * 4 + m * 8
+    return (err, ms, plain_ms, None) + bound(nbytes, 2 * m * k * d, 'fp32')
+
+
+def phase_ln_qkv():
+    """Fused LN+QKV kernel vs plain at the text+mask backbone's shape
+    (M = 16 x 629 rows, D 768, packed W [2304, 768]), bf16; fp32 must
+    raise on the card without a launch."""
+    import torch
+    import torch.nn.functional as F
+    from mmvid_tpu_torch.ops import fused_ln_qkv as Q
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    m, d = 16 * 629, 768
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((m, d), generator=g, device=dev) * 2 + 0.5
+    ln_w = 1 + 0.1 * torch.randn((d,), generator=g, device=dev)
+    ln_b = 0.1 * torch.randn((d,), generator=g, device=dev)
+    w = torch.randn((3 * d, d), generator=g, device=dev) * d ** -0.5
+    b = 0.1 * torch.randn((3 * d,), generator=g, device=dev)
+    before = Q.launches
+    try:
+        Q.fused_ln_qkv(x, ln_w, ln_b, w, b)
+        fail('LN+QKV kernel accepted fp32 on the card')
+    except ValueError:
+        pass
+    if Q.launches != before:
+        fail('LN+QKV counted a launch for a refused fp32 call')
+    xd, wd, bd = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    out = Q.fused_ln_qkv(xd, ln_w, ln_b, wd, bd)
+    ref = Q.ln_qkv_reference(xd, ln_w, ln_b, wd, bd)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    tol = LNQKV_TOL
+    within = bool((diff <= tol * (1 + ref.float().abs())).all())
+    ms = cuda_time_ms(lambda: Q.fused_ln_qkv(xd, ln_w, ln_b, wd, bd))
+    plain_ms = cuda_time_ms(lambda: Q.ln_qkv_reference(xd, ln_w, ln_b, wd,
+                                                       bd))
+    # what the backbone runs with the gate off
+    unfused_ms = cuda_time_ms(lambda: F.linear(F.layer_norm(
+        xd.float(), (d,), ln_w, ln_b, 1e-5).bfloat16(), wd, bd))
+    print(f'[ln_qkv] M={m} D={d} bfloat16: max abs err {err:.3e} (|plain| '
+          f'max {ref.float().abs().max().item():.3f}; within {tol} * (1 + '
+          f'|plain|): {within}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms '
+          f'unfused F.layer_norm+F.linear {unfused_ms:.4f} ms; fp32 '
+          f'refused', flush=True)
+    if not within:
+        fail(f'LN+QKV: error beyond {tol} * (1 + |plain|)')
+    nbytes = (m * d + 3 * d * d + 3 * d + 3 * m * d) * 2 + 2 * d * 4
+    return (err, ms, plain_ms, None) + bound(nbytes, 2 * m * d * 3 * d,
+                                             'bf16')
 
 
 def phase_tiny_reference():
@@ -202,7 +370,7 @@ def phase_tiny_reference():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu, _ = factories.flagship(tiny=True, seed=3)
+    cpu, _ = factories.flagship(tiny=True, device='cpu', seed=3)
     gpu, _ = factories.flagship(tiny=True, device='cuda', seed=3)
     cfg = cpu.cfg
     g = torch.Generator().manual_seed(3)
@@ -218,30 +386,61 @@ def phase_tiny_reference():
     img_err = (img.cpu() - img_ref).abs().max().item()
     print(f'[tiny] logits/rel/vid max abs err {errs}, decode {img_err:.3e} '
           f'(tol 1e-3, fp32, TF32 off)', flush=True)
-    torch.backends.cudnn.allow_tf32 = True
     if not (max(errs) <= 1e-3 and img_err <= 1e-3):
         fail('tiny model on the card disagrees with the CPU')
+
+    # the tiny text+mask model: cvae ids (codebook with spread, in both)
+    # and the forward logits with the visual segment
+    cpu, _ = factories.flagship(tiny=True, device='cpu', seed=4,
+                                use_cvae=True)
+    gpu, _ = factories.flagship(tiny=True, device='cuda', seed=4,
+                                use_cvae=True)
+    spread = torch.randn((1024, 64), generator=g)
+    frames = torch.rand((2, 1, 16, 16, 3), generator=g)
+    with torch.no_grad():
+        for model in (cpu, gpu):
+            model.cvae.model.quantize.embedding.weight.copy_(spread)
+        ids = cpu.get_image_tokens(frames, which_vae='cvae')
+        ids_gpu = gpu.get_image_tokens(frames.cuda(), which_vae='cvae')
+        vis = cpu.prepare_visual_tokens(g, frames, vc_mode='mask_8x8',
+                                        face_mode='mask')
+        ref = cpu.core(text, vis, tgt)
+        out = gpu.core(text.cuda(), vis.cuda(), tgt.cuda())
+    n_diff = int((ids_gpu.cpu() != ids).sum())
+    errs = [(a.cpu() - r).abs().max().item()
+            for a, r in zip(out[:3], ref[:3])]
+    print(f'[tiny] text+mask: cvae ids differing {n_diff} of '
+          f'{ids.numel()}; logits/rel/vid max abs err {errs} (tol 1e-3)',
+          flush=True)
+    torch.backends.cudnn.allow_tf32 = True
+    if n_diff or not max(errs) <= 1e-3:
+        fail('tiny text+mask model on the card disagrees with the CPU')
+
+
+def report(tag: str, res: dict):
+    """Print ``breakdown.measure``'s result: a summary and its JSON."""
+    print(f'[{tag}] batch {res["batch"]}, {res["steps"]} steps: '
+          f'{res["s_per_batch"]:.4f} s per batch (median of '
+          f'{len(res["s_all"])}: {[round(t, 4) for t in res["s_all"]]}), '
+          f'{res["frames_per_s"]:.2f} frames/s, peak memory '
+          f'{res["peak_memory_bytes"]} B, device idle '
+          f'{res["idle_share"]:.4f}', flush=True)
+    print(f'[{tag}] breakdown {json.dumps(res)}', flush=True)
 
 
 def phase_main_path():
     import torch
-    from mmvid_tpu_torch import factories, generate
-    from mmvid_tpu_torch.ops import attention as A
-    from mmvid_tpu_torch.ops import sample_head as S
+    from mmvid_tpu_torch import breakdown, generate
     from mmvid_tpu_torch.tokenizer import SimpleTokenizer
 
     t0 = time.perf_counter()
-    model, _ = factories.flagship(tiny=False, dtype=torch.bfloat16,
-                                  device='cuda', seed=0)
+    model = breakdown.build('flagship')
     tokenizer = SimpleTokenizer()
     torch.cuda.synchronize()
     print(f'[main] flagship built in {time.perf_counter() - t0:.2f} s',
           flush=True)
     cfg = model.cfg
-    prompts = ['a woman with wavy hair is talking', 'a man is smiling',
-               'a young person with glasses speaks',
-               'an old man with a beard is talking', 'she laughs',
-               'a man with black hair and a mustache is talking']
+    prompts = breakdown.PROMPTS[:6]
     steps, batch = 20, 4
 
     def run():
@@ -252,13 +451,13 @@ def phase_main_path():
         torch.cuda.synchronize()
         return out
 
-    A.launches = 0
-    S.launches = 0
+    reset_counts()
     out = run()
-    counts = {'attention': A.launches, 'sample_head': S.launches}
+    counts = read_counts()
     n_batches = -(-len(prompts) // batch)
     want = {'attention': cfg.clip.layers * steps * n_batches,
-            'sample_head': steps * n_batches}
+            'sample_head': steps * n_batches, 'codebook': 0,
+            'fused_ln_qkv': 0}
     print(f'[main] launches {counts} (expected {want})', flush=True)
     if counts != want:
         fail(f'launch counts {counts} != {want}')
@@ -283,55 +482,127 @@ def phase_main_path():
           f'same tokens: {same}', flush=True)
     if not same:
         fail('the same seed gave different tokens')
-
-    # one batch of 16 at steady state
-    prompts16 = (prompts * 3)[:16]
-    gen = torch.Generator(device='cuda').manual_seed(1)
-    list(generate.generate_videos(model, tokenizer, prompts16, 16, gen,
-                                  mask_predict_steps=steps, dynamic=False))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = list(generate.generate_videos(model, tokenizer, prompts16, 16,
-                                            gen, mask_predict_steps=steps,
-                                            dynamic=False))
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    dt = statistics.median(times)
-    fps = 16 * cfg.num_targets / dt
-    mem = torch.cuda.max_memory_allocated()
-    print(f'[main] batch 16, {steps} steps: {dt:.4f} s per batch (median of '
-          f'{len(times)}: {[round(t, 4) for t in times]}), {fps:.2f} '
-          f'frames/s, peak memory {mem} B ({mem / 2 ** 30:.2f} GiB)',
-          flush=True)
-    if not torch.isfinite(res[0].videos.float()).all():
-        fail('batch-16 videos not finite')
+    report('main', breakdown.measure(model, 'flagship'))
     return counts
+
+
+def phase_text_mask():
+    """The text+mask recipe at full width: cvae encode of one control frame,
+    nearest code, mask_8x8 erase (face_mode 'mask', as utils/viz.py sets
+    it at test time), the separate visual embedding, 20 rounds of
+    mask-predict over L = 629, VQGAN decode; then the same with
+    MMVID_FUSED_LNQKV=1."""
+    import torch
+    from mmvid_tpu_torch import breakdown
+
+    os.environ.pop('MMVID_FUSED_LNQKV', None)
+    t0 = time.perf_counter()
+    model = breakdown.build('text_mask')
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    print(f'[text+mask] built in {time.perf_counter() - t0:.2f} s: sequence '
+          f'{cfg.total_seq_len}, [ST1]/[VID] at {cfg.st1_tok_index}/'
+          f'{cfg.vid_tok_index}, separate visual_emb '
+          f'{cfg.use_separate_visual_emb}', flush=True)
+    if (cfg.total_seq_len, cfg.st1_tok_index) != (629, 115):
+        fail(f'text+mask layout: L {cfg.total_seq_len}, [ST1] at '
+             f'{cfg.st1_tok_index}')
+    b, steps = breakdown.BATCH, breakdown.STEPS
+    text, control = breakdown.inputs(model, 'text_mask', b)
+
+    def run(seed=0):
+        gen = torch.Generator(device='cuda').manual_seed(seed)
+        out = model.generate_images(gen, text, mask_predict_steps=steps,
+                                    dynamic=False, **control)
+        torch.cuda.synchronize()
+        return out
+
+    reset_counts()
+    videos, tokens = run()
+    counts = read_counts()
+    want = {'attention': cfg.clip.layers * steps, 'sample_head': steps,
+            'codebook': 1, 'fused_ln_qkv': 0}
+    print(f'[text+mask] launches {counts} (expected {want})', flush=True)
+    if counts != want:
+        fail(f'text+mask launch counts {counts} != {want}')
+    vid = videos.float()
+    vshape = (b, cfg.num_targets, cfg.image_size, cfg.image_size, 3)
+    if tuple(vid.shape) != vshape:
+        fail(f'text+mask videos {tuple(vid.shape)} != {vshape}')
+    if not (torch.isfinite(vid).all() and vid.min() >= 0 and vid.max() <= 1):
+        fail('text+mask videos not finite or outside [0, 1]')
+    if not (tokens.min() >= 0 and tokens.max() < cfg.num_image_tokens):
+        fail('text+mask tokens outside the codebook')
+    # the control: cvae ids inside the 6x6 window, [MASK] around it
+    vis = model.prepare_visual_tokens(None, **control).view(b, 8, 8)
+    inner = vis[:, 1:7, 1:7]
+    ring_masked = int((vis == cfg.mask_token).sum()) == b * (64 - 36)
+    if not (ring_masked and inner.max() < cfg.num_image_tokens):
+        fail('text+mask control tokens are not the mask_8x8 pattern')
+    _, again = run()
+    same = torch.equal(tokens, again)
+    print(f'[text+mask] videos {vshape}, finite in [0,1], tokens < '
+          f'{cfg.num_image_tokens}, control = mask_8x8 window, same seed '
+          f'same tokens: {same}', flush=True)
+    if not same:
+        fail('text+mask: the same seed gave different tokens')
+    report('text+mask', breakdown.measure(model, 'text_mask'))
+
+    os.environ['MMVID_FUSED_LNQKV'] = '1'
+    try:
+        reset_counts()
+        _, ftokens = run()
+        fcounts = read_counts()
+        fwant = dict(want, fused_ln_qkv=cfg.clip.layers * steps)
+        n_diff = int((ftokens != tokens).sum())
+        print(f'[text+mask fused] launches {fcounts} (expected {fwant}); '
+              f'tokens differing from the gate-off run: {n_diff} of '
+              f'{tokens.numel()} (bf16 roundings of h may flip)', flush=True)
+        if fcounts != fwant:
+            fail(f'fused launch counts {fcounts} != {fwant}')
+        if not (ftokens.min() >= 0 and ftokens.max() < cfg.num_image_tokens):
+            fail('fused path tokens outside the codebook')
+        report('text+mask fused', breakdown.measure(model, 'text_mask'))
+    finally:
+        os.environ.pop('MMVID_FUSED_LNQKV', None)
+    return counts, fcounts
 
 
 def main():
     import torch
     t_start = time.perf_counter()
+    os.environ.pop('MMVID_FUSED_LNQKV', None)  # the default path first
     phase_device()
     phase_build()
-    attn_err, attn_ms, attn_plain = phase_attention()
-    sh_err, sh_ms, sh_plain = phase_sample_head()
+    attention, attention_flagship = phase_attention()
+    rows = {'attention': attention,
+            'sample_head': phase_sample_head(),
+            'codebook': phase_codebook(),
+            'fused_ln_qkv': phase_ln_qkv()}
     phase_tiny_reference()
-    counts = phase_main_path()
-    kernels = [
-        {'name': 'attention', 'route': 'cuda',
-         'source': 'mmvid_tpu_torch/csrc/attention.cu',
-         'replaces': 'mmvid_tpu/ops/attention.py:211',
-         'launches': counts['attention'], 'max_abs_err': attn_err,
-         'ms': attn_ms, 'plain_ms': attn_plain},
-        {'name': 'sample_head', 'route': 'cuda',
-         'source': 'mmvid_tpu_torch/csrc/sample_head.cu',
-         'replaces': 'mmvid_tpu/ops/sample_head.py:97',
-         'launches': counts['sample_head'], 'max_abs_err': sh_err,
-         'ms': sh_ms, 'plain_ms': sh_plain},
-    ]
+    flagship = phase_main_path()
+    text_mask, fused = phase_text_mask()
+    sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
+               'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
+               'codebook': 'mmvid_tpu/ops/codebook.py:59',
+               'fused_ln_qkv': 'mmvid_tpu/ops/fused_ln_qkv.py:65'}
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'bound_by')
+    kernels = []
+    for name, row in rows.items():
+        # launches: the text+mask run (the fused kernel: with its gate on);
+        # the numbers: at the text+mask path's shapes
+        launches = (fused if name == 'fused_ln_qkv' else text_mask)[name]
+        entry = {'name': name, 'route': 'cuda',
+                 'source': f'mmvid_tpu_torch/csrc/{name}.cu',
+                 'replaces': sources[name], 'launches': launches,
+                 **dict(zip(keys, row)),
+                 'launches_by_path': {'flagship': flagship[name],
+                                      'text_mask': text_mask[name],
+                                      'text_mask_fused': fused[name]}}
+        if name == 'attention':
+            entry['at_flagship_L565'] = dict(zip(keys, attention_flagship))
+        kernels.append(entry)
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -6,9 +6,10 @@ PyTorch idiom inside: ``nn.Module``s, explicit devices and
 Pallas kernels are hand-written CUDA kernels here (``csrc/``), each beside
 a plain PyTorch version that the CPU takes.
 
-Imports ``torch`` and never ``jax``; from ``mmvid_tpu`` it reads only the
-BPE vocabulary file and, for carrying JAX params over, the numpy-only
-``mmvid_tpu.utils.torch_compat``.
+Imports ``torch`` and never ``jax``, and no module of ``mmvid_tpu``: it
+keeps its own numpy-only copy of the JAX-params converter
+(``utils/torch_compat.py``).  From ``mmvid_tpu`` it reads only a data file,
+the BPE vocabulary.
 """
 
 __version__ = "0.1.0"

@@ -59,13 +59,6 @@ __device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
   return -logf(-logf(u + 1e-20f) + 1e-20f);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // s * exp(m - m_new), with an empty partial (s == 0, m == -inf) staying 0
 __device__ __forceinline__ float rescale(float s, float m, float m_new) {
   return s > 0.f ? s * expf(m - m_new) : 0.f;

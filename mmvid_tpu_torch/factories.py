@@ -1,11 +1,16 @@
 """Model factories: the flagship configuration and builders from CLI args.
 
 Counterpart of ``__graft_entry__._flagship`` and of ``get_vae_model`` /
-``get_dalle`` in ``mmvid_tpu/factories.py`` (mask-predict models; the
-pretrained-CLIP graft, fixed language model and ART-V come later).
+``get_dalle`` in ``mmvid_tpu/factories.py`` (mask-predict models, with the
+cvae of the visual-control recipes; the pretrained-CLIP graft, fixed
+language model and ART-V come later).  Every factory puts the model on
+``device``, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
+
+import argparse
+import dataclasses
 
 import torch
 from torch import nn
@@ -42,30 +47,37 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             p.copy_(val)
 
 
-def flagship(tiny: bool = False, dtype=torch.float32, device='cpu',
-             seed: int = 0):
+def flagship(tiny: bool = False, dtype=torch.float32, device='cuda',
+             seed: int = 0, use_cvae: bool = False):
     """Flagship text-to-video model (scripts/mmvoxceleb/text_to_video):
     768 x 12-layer backbone, 8 frames at 128 px -> 8x8 tokens each,
-    text_seq_len 50; ``tiny`` is the JAX package's CPU test size.  Weights
-    are drawn from ``torch.Generator().manual_seed(seed)``.  Returns
+    text_seq_len 50; ``tiny`` is the JAX package's CPU test size.
+    ``use_cvae`` adds one visual control frame tokenized by a cvae of the
+    same VQGAN architecture (the text+mask recipe's layout).  Weights are
+    drawn from ``torch.Generator().manual_seed(seed)``.  Returns
     (model, vae)."""
     if tiny:
         vq_cfg = VQGanConfig(resolution=16, ch=32, ch_mult=(1, 2),
                              num_res_blocks=1, z_channels=64, embed_dim=64,
                              n_embed=1024, attn_resolutions=())
-        vae = VQGanVAE(image_size=16, cfg=vq_cfg, dtype=dtype)
+        image_size = 16
         cfg = BertConfig(dim=64, num_text_tokens=100, text_seq_len=8,
                          num_visuals=0, num_targets=2, num_image_tokens=1024,
                          image_fmap_size=8, image_size=16,
                          clip=ClipStackConfig(width=64, layers=2, heads=2))
     else:
-        vae = VQGanVAE(image_size=128, dtype=dtype)
+        vq_cfg, image_size = VQGanConfig(), 128
         cfg = BertConfig(dim=768, num_text_tokens=49408, text_seq_len=50,
                          num_visuals=0, num_targets=8, num_image_tokens=1024,
                          image_fmap_size=8, image_size=128,
                          clip=ClipStackConfig(width=768, layers=12,
                                               heads=12))
-    model = MMVIDBert(cfg, vae, dtype=dtype)
+    vae = VQGanVAE(image_size=image_size, cfg=vq_cfg, dtype=dtype)
+    cvae = None
+    if use_cvae:
+        cfg = dataclasses.replace(cfg, num_visuals=1)
+        cvae = VQGanVAE(image_size=image_size, cfg=vq_cfg, dtype=dtype)
+    model = MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval(), model.vae
 
@@ -82,18 +94,37 @@ def build_clip_config(which_transformer: str) -> ClipStackConfig:
     raise NotImplementedError(which_transformer)
 
 
-def get_vae_model(args, dtype=torch.float32) -> VQGanVAE:
-    """The vqgan1024 decoder at ``args.image_size``."""
+def text_and_mask_args():
+    """The model flags of the released text+mask recipe
+    (scripts/mmvoxceleb/text_and_mask/test.sh) as ``test.py`` reads them:
+    the openai_clip_visual backbone, 50 text tokens, one control frame
+    tokenized by a cvae, 8 targets at 128 px, vc_mode mask_8x8, 20
+    mask-predict rounds, batch 16."""
+    return argparse.Namespace(
+        which_transformer='openai_clip_visual', dim=768, text_seq_len=50,
+        num_visuals=1, num_targets=8, image_size=128, use_cvae=True,
+        vc_mode='mask_8x8', mp_T=20, batch_size=16, which_vae='vqgan1024',
+        insert_sep=False, use_separate_visual_emb=False,
+        fixed_language_model=None, text_emb_bottleneck=None)
+
+
+def get_vae_model(args, dtype=torch.float32, device='cuda') -> VQGanVAE:
+    """The vqgan1024 tokenizer at ``args.image_size``: the targets' vae
+    and, for the visual-control recipes, the cvae are each one call (the
+    same architecture); weights left to the caller."""
     kind = getattr(args, 'which_vae', 'vqgan1024')
     if kind != 'vqgan1024':
         raise NotImplementedError(f'which_vae={kind!r}; only vqgan1024')
     image_size = args.image_size or 256
     return VQGanVAE(image_size=image_size,
-                    cfg=VQGanConfig(resolution=image_size), dtype=dtype)
+                    cfg=VQGanConfig(resolution=image_size),
+                    dtype=dtype).to(device)
 
 
-def get_dalle(args, vae: VQGanVAE, dtype=torch.float32) -> MMVIDBert:
-    """MMVIDBert from CLI args (weights left to the caller)."""
+def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
+              dtype=torch.float32, device='cuda') -> MMVIDBert:
+    """MMVIDBert from CLI args, with ``cvae`` tokenizing the visual
+    controls when given (weights left to the caller)."""
     clip_cfg = build_clip_config(args.which_transformer)
     if args.dim != clip_cfg.width:
         raise ValueError(f'--dim {args.dim} must match the '
@@ -106,4 +137,4 @@ def get_dalle(args, vae: VQGanVAE, dtype=torch.float32) -> MMVIDBert:
         use_separate_visual_emb=args.use_separate_visual_emb,
         fixed_language_model=args.fixed_language_model,
         text_emb_bottleneck=args.text_emb_bottleneck, clip=clip_cfg)
-    return MMVIDBert(cfg, vae, dtype=dtype)
+    return MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype).to(device)

@@ -13,8 +13,8 @@ Usage:
     python -m mmvid_tpu_torch.generate --dalle_path ... --prompt_file p.txt
 
 ``load_model`` and ``generate_videos`` need only torch and numpy;
-``main`` also writes files through ``mmvid_tpu.utils.html`` (PIL,
-imageio), imported when it writes.
+``main`` also writes files through ``mmvid_tpu_torch.utils.html``, whose
+writers import PIL or imageio when they write.
 """
 
 from __future__ import annotations
@@ -29,6 +29,12 @@ import torch
 from mmvid_tpu_torch import factories
 from mmvid_tpu_torch.models.mmvid import DEFAULT_MP_CONFIG
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
+from mmvid_tpu_torch.utils.html import (
+    save_gif,
+    save_image_array,
+    save_mp4,
+    tile_video_row,
+)
 from mmvid_tpu_torch.weights import load_weights, read_dalle_checkpoint
 
 _HPARAM_KEYS = ('dim', 'text_seq_len', 'num_targets', 'num_visuals',
@@ -87,16 +93,21 @@ def load_model(args):
         raise NotImplementedError('ART-V checkpoints are not ported yet '
                                   '(ROADMAP.md queue A, item 9)')
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    vae = factories.get_vae_model(args, dtype=dtype)
-    model = factories.get_dalle(args, vae, dtype=dtype)
     weights = dict(ckpt['weights'])
+    vae = factories.get_vae_model(args, dtype=dtype, device=args.device)
+    cvae = None
+    if any(k.startswith('cvae.model.') for k in weights):
+        cvae = factories.get_vae_model(args, dtype=dtype,
+                                       device=args.device)
+    model = factories.get_dalle(args, vae, cvae, dtype=dtype,
+                                device=args.device)
     if args.vae_path:
         sd = torch.load(args.vae_path, map_location='cpu',
                         weights_only=False)['state_dict']
         weights.update({f'vae.model.{k}': v for k, v in sd.items()
                         if not k.startswith(('loss.', 'colorize'))})
     load_weights(model, weights)
-    return model.to(args.device).eval(), SimpleTokenizer()
+    return model.eval(), SimpleTokenizer()
 
 
 class Batch(NamedTuple):
@@ -129,13 +140,6 @@ def generate_videos(model, tokenizer, prompts, batch_size: int,
 
 def main(args=None):
     args = args or parse_args()
-    from mmvid_tpu.utils.html import (
-        save_gif,
-        save_image_array,
-        save_mp4,
-        tile_video_row,
-    )
-
     prompts = list(args.prompts or [])
     if args.prompt_file:
         with open(args.prompt_file) as f:

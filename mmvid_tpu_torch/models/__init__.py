@@ -1,2 +1,3 @@
 """Models of the port: backbone (``clip``), ``axial``, ``bert``,
-``sampler``, ``vqgan`` (decoder) and the top-level ``mmvid``."""
+``sampler``, ``vqgan`` (encoder and decoder), the visual-control erasers
+(``masking``) and the top-level ``mmvid``."""

@@ -9,12 +9,16 @@ Precision: the stack casts x to the compute dtype on entry and back to fp32
 on exit; every LayerNorm is an fp32 island whose output is cast back to the
 compute dtype.  Attention goes through
 :func:`mmvid_tpu_torch.ops.attention.fused_attention_blhd` (the CUDA kernel
-on the card, the plain version on the CPU).
+on the card, the plain version on the CPU).  With ``MMVID_FUSED_LNQKV=1``
+and a width that is a multiple of 128, ``ln_1`` and the QKV projection go
+through :func:`mmvid_tpu_torch.ops.fused_ln_qkv.fused_ln_qkv` instead (the
+flag is read at every block's forward; off by default).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmvid_tpu_torch.ops.attention import fused_attention_blhd
+from mmvid_tpu_torch.ops.fused_ln_qkv import fused_ln_qkv
 
 NEG_INF = -1e9  # finite stand-in for -inf: keeps softmax NaN-free in bf16
 
@@ -97,9 +102,15 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(width, width, dtype=dtype)
 
     def forward(self, x, mask=None):
-        b, l, d = x.shape
+        return self.attend(
+            F.linear(x, self.in_proj_weight, self.in_proj_bias), mask)
+
+    def attend(self, qkv, mask=None):
+        """Attention and out_proj from the packed projection qkv
+        [B, L, 3D]."""
+        b, l, d3 = qkv.shape
+        d = d3 // 3
         h, hd = self.heads, d // self.heads
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         # q, k, v stay strided views of the packed projection: the kernel
         # takes their strides, so no copy is made
         q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, l, h, hd)
@@ -120,7 +131,17 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(width, eps=1e-5)
 
     def forward(self, x, mask=None):
-        x = x + self.attn(layer_norm_fp32(self.ln_1, x, self.dtype), mask)
+        if (os.environ.get('MMVID_FUSED_LNQKV') == '1'
+                and self.attn.width % 128 == 0):
+            # ln_1 and the QKV projection in one kernel (the JAX package's
+            # gate, mmvid_tpu/models/clip.py ResidualAttentionBlock)
+            qkv = fused_ln_qkv(x, self.ln_1.weight, self.ln_1.bias,
+                               self.attn.in_proj_weight,
+                               self.attn.in_proj_bias)
+            x = x + self.attn.attend(qkv, mask)
+        else:
+            x = x + self.attn(layer_norm_fp32(self.ln_1, x, self.dtype),
+                              mask)
         return x + self.mlp(layer_norm_fp32(self.ln_2, x, self.dtype))
 
 

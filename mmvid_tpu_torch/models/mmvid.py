@@ -1,16 +1,24 @@
-"""Top-level MMVID model in PyTorch: BertCore + VQGAN decoder, with batched
+"""Top-level MMVID model in PyTorch: BertCore + the VQGAN tokenizers (vae
+for the targets, an optional cvae for visual controls), with batched
 mask-predict generation.
 
-Counterpart of ``mmvid_tpu/models/mmvid.py`` (the generation surface).
-PyTorch runs eagerly, so there is no trace cache.
+Counterpart of ``mmvid_tpu/models/mmvid.py`` (the generation surface:
+tokenization, the visual-control pipeline, ``generate_images``).  PyTorch
+runs eagerly, so there is no trace cache.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
 
 from mmvid_tpu_torch.models.bert import BertConfig, BertCore
+from mmvid_tpu_torch.models.masking import (
+    erase_codebook_face,
+    random_erase_codebook,
+)
 from mmvid_tpu_torch.models.sampler import (
     arrange_preserve_tokens,
     build_spec,
@@ -29,35 +37,117 @@ DEFAULT_MP_CONFIG = {
 
 
 class MMVIDBert(nn.Module):
-    """Holds ``core`` (BertCore) and ``vae`` (its ``model`` is the VQGAN).
+    """Holds ``core`` (BertCore), ``vae`` and, for visual controls, ``cvae``
+    (each VQGanVAE's ``model`` is the VQGAN).  Given a cvae, the config's
+    ``use_separate_visual_emb`` is forced on, as in the JAX package.
 
     ``core``'s submodules are registered on this module directly (the same
     objects, so ``core`` sees every load and device move), which makes
     ``state_dict()`` the reference ``dalle.pt`` ``weights`` payload:
     ``transformer.*``, ``to_logits.*``, ``image_emb.weight`` ...,
-    ``vae.model.*``."""
+    ``vae.model.*``, ``cvae.model.*``."""
 
-    def __init__(self, cfg: BertConfig, vae: VQGanVAE, dtype=torch.float32):
+    def __init__(self, cfg: BertConfig, vae: VQGanVAE,
+                 cvae: VQGanVAE | None = None, dtype=torch.float32):
         super().__init__()
+        if cvae is not None:
+            cfg = dataclasses.replace(cfg, use_separate_visual_emb=True)
         core = BertCore(cfg, dtype=dtype)
         for name, child in core.named_children():
             self.add_module(name, child)
         object.__setattr__(self, 'core', core)  # not a second registration
         self.vae = vae
+        self.cvae = cvae
         self.cfg = cfg
+
+    # -- tokenization --------------------------------------------------
+
+    def _tokenizer(self, which_vae: str) -> VQGanVAE:
+        if which_vae == 'cvae' and self.cvae is not None:
+            return self.cvae
+        return self.vae
+
+    @torch.no_grad()
+    def get_image_tokens(self, images, which_vae='vae', insert_sep=False):
+        """images [B, T, H, W, 3] (or [B, H, W, 3]) in [0, 1] -> ids
+        [B, T*n (+T)] int64."""
+        if images.dim() == 4:
+            images = images[:, None]
+        b, t = images.shape[:2]
+        flat = images.reshape((b * t,) + images.shape[2:])
+        toks = self._tokenizer(which_vae).get_codebook_indices(flat)
+        toks = toks.reshape(b, t, -1)
+        if insert_sep:
+            sep = torch.full((b, t, 1), self.cfg.sep_token,
+                             dtype=toks.dtype, device=toks.device)
+            toks = torch.cat([toks, sep], dim=2)
+        return toks.reshape(b, -1)
+
+    @torch.no_grad()
+    def prepare_visual_tokens(self, generator, visual, *, erase_visual=False,
+                              erase_visual_half=False, vc_mode=None,
+                              face_mode=None, visual_aug_mode=None):
+        """Visual-control pipeline: frames [B, V, H, W, 3] in [0, 1] (or
+        token ids [B, visual_seq_len]) -> tokenized through the cvae ->
+        optional random erase (``erase_visual``) -> structured erase per
+        ``vc_mode``.  ``generator`` draws the random erasers."""
+        cfg = self.cfg
+        if visual is None:
+            return None
+        if visual.dim() >= 4 and visual.is_floating_point():
+            if visual_aug_mode == 'motion_color':
+                raise NotImplementedError(
+                    "visual_aug_mode='motion_color' needs models/warp.py, "
+                    'not ported yet (ROADMAP.md queue A, item 6b)')
+            tokens = self.get_image_tokens(visual, which_vae='cvae',
+                                           insert_sep=cfg.insert_sep)
+        else:
+            tokens = visual  # already token ids
+        if cfg.insert_sep:
+            if erase_visual or vc_mode is not None:
+                raise NotImplementedError(
+                    'erase_visual/vc_mode with insert_sep: unsupported in '
+                    'the JAX package too (ROADMAP.md queue A, item 6b)')
+            return tokens
+        if erase_visual:
+            tokens = random_erase_codebook(generator, tokens, cfg,
+                                           erase_half=erase_visual_half)
+        if vc_mode is not None:
+            tokens = erase_codebook_face(generator, tokens, cfg, vc_mode,
+                                         face_mode)
+        return tokens
+
+    def fully_masked_visual(self, batch: int, device=None):
+        """[batch, visual_seq_len] of [MASK]: no visual control."""
+        return torch.full((batch, self.cfg.visual_seq_len),
+                          self.cfg.mask_token, dtype=torch.long,
+                          device=device)
+
+    @torch.no_grad()
+    def recon_images(self, images, which_vae='vae'):
+        """Tokenize and decode (a round trip, for visualisation): any frame
+        count -> [B, T, H, W, 3] in [0, 1]."""
+        toks = self.get_image_tokens(images, which_vae=which_vae)
+        b = toks.shape[0]
+        t = toks.shape[1] // self.cfg.image_seq_len
+        imgs = self._tokenizer(which_vae).decode(
+            toks.reshape(b * t, self.cfg.image_seq_len))
+        return imgs.reshape((b, t) + imgs.shape[1:])
+
+    # -- generation ----------------------------------------------------
 
     @torch.no_grad()
     def generate_images(self, generator, text, *, visual=None,
+                        erase_visual=False, vc_mode=None, face_mode=None,
                         mask_predict_steps=0, preserve=None, t_overlap=1,
                         long_mode='long', dynamic=True, mp_config=None,
                         decode=True):
-        """text [B, text_seq_len] int -> (videos [B, T, H, W, 3] in [0, 1]
+        """text [B, text_seq_len] int; visual: control frames
+        [B, V, H, W, 3] in [0, 1] or ids, used when cfg.num_visuals > 0
+        (none: a fully [MASK] control) -> (videos [B, T, H, W, 3] in [0, 1]
         or None when ``decode`` is False, img_seq [B, T*n] int64).
-        ``generator`` is a torch.Generator on the model's device."""
-        if visual is not None:
-            raise NotImplementedError(
-                'visual controls need the VQGAN encoder and the cvae, not '
-                'ported yet (ROADMAP.md queue A, items 5-6)')
+        ``generator`` is a torch.Generator on the model's device; it draws
+        the random erasers first, then the sampler's noise."""
         cfg = self.cfg
         mp_config = mp_config or DEFAULT_MP_CONFIG
         pmask, N = preserve_layout(cfg, long_mode, t_overlap,
@@ -65,10 +155,15 @@ class MMVIDBert(nn.Module):
         spec = build_spec(mp_config, N, steps=mask_predict_steps,
                           dynamic=dynamic)
         visual_tokens = None
-        if cfg.num_visuals > 0:  # no visual control: all [MASK]
-            visual_tokens = torch.full(
-                (text.shape[0], cfg.visual_seq_len), cfg.mask_token,
-                dtype=torch.long, device=text.device)
+        if cfg.num_visuals > 0:
+            if visual is not None:
+                visual_tokens = self.prepare_visual_tokens(
+                    generator, visual, erase_visual=erase_visual,
+                    erase_visual_half=True, vc_mode=vc_mode,
+                    face_mode=face_mode)
+            else:
+                visual_tokens = self.fully_masked_visual(text.shape[0],
+                                                         text.device)
         control_emb = self.core.control_embedding(text, visual_tokens)
         ptoks = None
         if preserve is not None:

@@ -1,14 +1,19 @@
-"""VQGAN decoder (taming-transformers VQModel, decode half) in PyTorch.
+"""VQGAN image tokenizer (taming-transformers VQModel) in PyTorch.
 
-Counterpart of the decode path of ``mmvid_tpu/models/vqgan.py``: codebook
-lookup -> 1x1 post_quant_conv -> Decoder -> [0, 1] images.  Modules carry
-taming's state_dict names (``decoder.mid.block_1``,
-``decoder.up.{i}.block.{j}``, ``quantize.embedding.weight`` ...).  The
-encoder comes with the encode path.
+Counterpart of ``mmvid_tpu/models/vqgan.py``'s runtime surface:
 
-Layouts: ids [B, n] in and images [B, H, W, 3] in [0, 1] out, as in the
-JAX package; NCHW inside.  GroupNorm(32, eps 1e-6) runs in fp32 whatever
-the compute dtype; convolutions run in the compute dtype.
+* encode: [0, 1] images -> [-1, 1] -> Encoder -> 1x1 quant_conv -> fp32
+  latents -> nearest codebook entry (``ops/codebook.py``) -> ids;
+* decode: ids -> codebook lookup -> 1x1 post_quant_conv -> Decoder ->
+  [0, 1] images.
+
+Modules carry taming's state_dict names (``encoder.down.{i}.block.{j}``,
+``encoder.down.{i}.downsample.conv``, ``decoder.up.{i}.block.{j}``,
+``quantize.embedding.weight``, ``quant_conv`` ...).
+
+Layouts: images [B, H, W, 3] and ids [B, n] at the public methods, as in
+the JAX package; NCHW inside.  GroupNorm(32, eps 1e-6) and SiLU run in fp32
+whatever the compute dtype; convolutions run in the compute dtype.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mmvid_tpu_torch.ops.codebook import nearest_codebook_indices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +126,18 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode='nearest'))
 
 
+class Downsample(nn.Module):
+    """Asymmetric (0, 1, 0, 1) padding, then a VALID stride-2 3x3 conv."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0,
+                              dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class _Mid(nn.Module):
     def __init__(self, ch: int, dtype):
         super().__init__()
@@ -130,11 +149,60 @@ class _Mid(nn.Module):
         return self.block_2(self.attn_1(self.block_1(h)))
 
 
-class _UpLevel(nn.Module):
+class _Level(nn.Module):
+    """One resolution of the encoder (``down.{i}``) or decoder
+    (``up.{i}``): resnet blocks, their attention blocks, and the
+    resampler.  The callers loop over its blocks inline: a call that
+    takes h would keep the level's input alive through the level (one
+    more full-resolution activation at the decode's peak)."""
+
     def __init__(self):
         super().__init__()
         self.block = nn.ModuleList()
         self.attn = nn.ModuleList()
+
+
+class Encoder(nn.Module):
+    """[B, 3, H, W] in [-1, 1] -> latents [B, z_channels, h, w]."""
+
+    def __init__(self, cfg: VQGanConfig, dtype=torch.float32):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        n_res = len(cfg.ch_mult)
+        in_ch_mult = (1,) + tuple(cfg.ch_mult)
+        curr_res = cfg.resolution
+        self.conv_in = _conv(cfg.in_channels, cfg.ch, 3, dtype)
+        levels = []
+        for i_level in range(n_res):
+            level = _Level()
+            block_in = cfg.ch * in_ch_mult[i_level]
+            block_out = cfg.ch * cfg.ch_mult[i_level]
+            for _ in range(cfg.num_res_blocks):
+                level.block.append(ResnetBlock(block_in, block_out, dtype))
+                block_in = block_out
+                if curr_res in cfg.attn_resolutions:
+                    level.attn.append(AttnBlock(block_in, dtype))
+            if i_level != n_res - 1:
+                level.downsample = Downsample(block_in, dtype)
+                curr_res //= 2
+            levels.append(level)
+        self.down = nn.ModuleList(levels)
+        self.mid = _Mid(block_in, dtype)
+        self.norm_out = _norm(block_in)
+        z_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = _conv(block_in, z_ch, 3, dtype)
+
+    def forward(self, x):
+        h = self.conv_in(x.to(self.dtype))
+        for level in self.down:
+            for i_block, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[i_block](h)
+            if hasattr(level, 'downsample'):
+                h = level.downsample(h)
+        h = self.mid(h)
+        return self.conv_out(_norm_silu(self.norm_out, h, self.dtype))
 
 
 class Decoder(nn.Module):
@@ -148,7 +216,7 @@ class Decoder(nn.Module):
         self.mid = _Mid(block_in, dtype)
         levels = [None] * n_res
         for i_level in reversed(range(n_res)):
-            level = _UpLevel()
+            level = _Level()
             block_out = cfg.ch * cfg.ch_mult[i_level]
             for _ in range(cfg.num_res_blocks + 1):
                 level.block.append(ResnetBlock(block_in, block_out, dtype))
@@ -177,7 +245,7 @@ class Decoder(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """The codebook (decode side: lookup only)."""
+    """The codebook [n_embed, embed_dim], kept in fp32."""
 
     def __init__(self, n_embed: int, embed_dim: int):
         super().__init__()
@@ -186,9 +254,16 @@ class VectorQuantizer(nn.Module):
     def lookup(self, indices):
         return self.embedding(indices)
 
+    def nearest(self, z):
+        """z [..., embed_dim] -> [...] int64 ids of the nearest codes (fp32
+        scores; the CUDA kernel on the card)."""
+        return nearest_codebook_indices(z, self.embedding.weight)
+
 
 class VQModel(nn.Module):
-    """Decode half of taming's VQModel."""
+    """taming's VQModel, runtime surface (encode to ids, decode ids).
+    The encoder is registered after the decode half, so the decode half's
+    weights drawn by ``factories.init_weights`` do not depend on it."""
 
     def __init__(self, cfg: VQGanConfig, dtype=torch.float32):
         super().__init__()
@@ -196,6 +271,19 @@ class VQModel(nn.Module):
         self.decoder = Decoder(cfg, dtype)
         self.quantize = VectorQuantizer(cfg.n_embed, cfg.embed_dim)
         self.post_quant_conv = _conv(cfg.embed_dim, cfg.z_channels, 1, dtype)
+        self.encoder = Encoder(cfg, dtype)
+        self.quant_conv = _conv(cfg.z_channels, cfg.embed_dim, 1, dtype)
+
+    def encode_latents(self, x):
+        """x [B, 3, H, W] in [-1, 1] -> fp32 latents [B, h, w, embed_dim]
+        (cast to fp32 before the codebook search, as the JAX package
+        does)."""
+        h = self.quant_conv(self.encoder(x)).float()
+        return h.permute(0, 2, 3, 1)
+
+    def encode_indices(self, x):
+        """x [B, 3, H, W] in [-1, 1] -> ids [B, h, w] int64."""
+        return self.quantize.nearest(self.encode_latents(x))
 
     def decode_code(self, code):
         """code [B, h, w] int -> image [B, 3, H, W] in about [-1, 1]."""
@@ -205,8 +293,8 @@ class VQModel(nn.Module):
 
 
 class VQGanVAE(nn.Module):
-    """MMVID-facing VQGAN wrapper (decode).  ``image_size`` overrides the
-    config resolution, as in the JAX package."""
+    """MMVID-facing VQGAN wrapper.  ``image_size`` overrides the config
+    resolution, as in the JAX package."""
 
     def __init__(self, image_size: int | None = None,
                  cfg: VQGanConfig | None = None, dtype=torch.float32):
@@ -220,6 +308,13 @@ class VQGanVAE(nn.Module):
         self.num_tokens = self.cfg.n_embed
         self.fmap_size = self.image_size // (2 ** self.num_layers)
         self.image_seq_len = self.fmap_size ** 2
+
+    @torch.no_grad()
+    def get_codebook_indices(self, img):
+        """img [B, H, W, 3] in [0, 1] -> ids [B, n] int64."""
+        x = (2.0 * img - 1.0).permute(0, 3, 1, 2)
+        idx = self.model.encode_indices(x)
+        return idx.reshape(idx.shape[0], -1)
 
     @torch.no_grad()
     def decode(self, seq):

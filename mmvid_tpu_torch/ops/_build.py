@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``mmvid_tpu_torch/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with :mod:`ctypes`.  The
-build happens at first use, never at import, into ``mmvid_tpu_torch/_build``
-under a file name keyed by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads the library already built.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and the objects are linked
+into one shared library with a plain C interface, loaded with
+:mod:`ctypes`.  The build happens at first use, never at import, into
+``mmvid_tpu_torch/_build`` under a file name keyed by a hash of the sources
+and flags, so a changed source rebuilds and an unchanged one loads the
+library already built.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.  Each C
 entry point returns ``cudaGetLastError()`` after its launch; :func:`check`
@@ -25,7 +27,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
+              '-O3', '-Xcompiler', '-fPIC', '-lineinfo')
 
 _lib = None
 
@@ -60,6 +62,19 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise on the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({proc.returncode}): '
+                               f'{" ".join(cmd)}\n{out}')
+    return outs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels (if not built for these sources) and return the
     library path.  ``verbose`` adds ``-Xptxas -v`` and prints its report
@@ -69,22 +84,17 @@ def build(verbose: bool = False) -> Path:
     if lib_path.exists() and not verbose:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(['-Xptxas', '-v'] if verbose else []),
-           f'-I{CSRC_DIR}', '-o', tmp, *map(str, _sources())]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f'nvcc failed ({res.returncode}): {" ".join(cmd)}\n'
-                f'{res.stdout}\n{res.stderr}')
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = _sources()
+        objs = [str(Path(tmp) / f'{p.stem}.o') for p in srcs]
+        ptxas = ['-Xptxas', '-v'] if verbose else []
+        outs = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, f'-I{CSRC_DIR}', '-c',
+                          '-o', o, str(p)] for p, o in zip(srcs, objs)])
+        lib_tmp = str(Path(tmp) / lib_path.name)
+        _run_all([[nvcc, *NVCC_FLAGS, '-shared', '-o', lib_tmp, *objs]])
         if verbose:
-            print(res.stdout + res.stderr, flush=True)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            print(''.join(outs), flush=True)
+        os.replace(lib_tmp, lib_path)
     return lib_path
 
 

@@ -2,13 +2,10 @@
 
 The port's modules carry the reference state_dict names, so a ``weights``
 payload loads with ``load_state_dict`` and the port's ``state_dict()`` is
-such a payload.  JAX params cross over through the JAX package's numpy-only
-converter ``mmvid_tpu.utils.torch_compat.bert_params_to_torch`` (the module
-imports neither jax nor flax).
-
-The port has no VQGAN encoder yet, so the encoder's keys
-(``vae.model.encoder.*``, ``vae.model.quant_conv.*``) are dropped on load;
-every other key must match exactly.
+such a payload: the BERT's keys, ``vae.model.*`` (the target VQGAN, encoder
+included) and, for a model with visual controls, ``cvae.model.*``.  JAX
+params cross over through the port's own numpy-only converter
+(``mmvid_tpu_torch.utils.torch_compat``).  Every key must match exactly.
 """
 
 from __future__ import annotations
@@ -18,15 +15,14 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-ENCODER_PREFIXES = ('vae.model.encoder.', 'vae.model.quant_conv.')
+from mmvid_tpu_torch.utils.torch_compat import bert_params_to_torch
 
 
 def load_weights(model: torch.nn.Module, weights: Mapping) -> None:
     """Load a reference-format ``weights`` dict (numpy arrays or tensors)
-    into ``model``; raises if any key other than the encoder's is missing
-    or unexpected."""
+    into ``model``; raises if any key is missing or unexpected."""
     sd = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
-          for k, v in weights.items() if not k.startswith(ENCODER_PREFIXES)}
+          for k, v in weights.items()}
     res = model.load_state_dict(sd, strict=False)
     if res.missing_keys or res.unexpected_keys:
         raise KeyError(f'weights do not match the model: missing '
@@ -35,10 +31,12 @@ def load_weights(model: torch.nn.Module, weights: Mapping) -> None:
 
 
 def load_jax_params(model: torch.nn.Module, params: Dict,
-                    vae_params: Dict | None = None) -> None:
-    """Load JAX BertCore params (and VQModel params) into the port."""
-    from mmvid_tpu.utils.torch_compat import bert_params_to_torch
-    load_weights(model, bert_params_to_torch(params, vae_params))
+                    vae_params: Dict | None = None,
+                    cvae_params: Dict | None = None) -> None:
+    """Load JAX BertCore params (and the vae's and cvae's VQModel params)
+    into the port."""
+    load_weights(model, bert_params_to_torch(params, vae_params,
+                                             cvae_params))
 
 
 def read_dalle_checkpoint(path: str) -> Dict:

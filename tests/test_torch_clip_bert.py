@@ -65,7 +65,7 @@ def jax_tiny(seed=0):
 
 def port_tiny(jmodel, jvae):
     """The port's tiny flagship carrying the JAX weights."""
-    pmodel, _ = factories.flagship(tiny=True, seed=1)
+    pmodel, _ = factories.flagship(tiny=True, device='cpu', seed=1)
     load_jax_params(pmodel, jmodel.params, jvae.params)
     return pmodel
 

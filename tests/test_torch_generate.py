@@ -1,11 +1,14 @@
-"""The port's whole sampling slice, entry points and packaging, on the CPU.
+"""The port's whole sampling slices, entry points and packaging, on the CPU.
 
 * ``MMVIDBert.generate_images`` vs the JAX package's, with ``build_spec``
   patched to the deterministic test hook in both: tokens equal, videos
-  within 1e-4 (fp32 decode, sums in another order).
+  within 1e-4 (fp32 decode, sums in another order).  Text to video, and
+  visual control (the text+mask recipe: cvae encode, ``mask_8x8`` erase,
+  separate visual embedding) at the tiny size.
 * The tokenizer, checkpoint interchange with the JAX package's writer and
-  reader, ``generate.main``, the import boundary (no jax, flax, regex, PIL
-  or imageio on the card path), and the no-fallback rules.
+  reader (encoder and cvae keys included), ``generate.main``, the import
+  boundary (nothing of jax, flax, mmvid_tpu, regex, PIL or imageio on the
+  card path), and the no-fallback rules.
 """
 
 import dataclasses
@@ -32,10 +35,12 @@ from mmvid_tpu_torch import factories, generate
 from mmvid_tpu_torch.models import mmvid as pmmvid
 from mmvid_tpu_torch.ops import _build
 from mmvid_tpu_torch.ops import attention as A
+from mmvid_tpu_torch.ops import codebook as C
 from mmvid_tpu_torch.ops import sample_head as S
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
-from mmvid_tpu_torch.weights import ENCODER_PREFIXES, read_dalle_checkpoint
+from mmvid_tpu_torch.weights import read_dalle_checkpoint
 from test_torch_clip_bert import jax_tiny, port_tiny
+from test_torch_encode import jax_tiny_visual, port_tiny_visual
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPTS = ['a woman with wavy hair is talking', 'un homme sourit à 3 h',
@@ -79,12 +84,79 @@ def test_generate_images_slice_matches_jax(pair, monkeypatch):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_generate_images_visual_not_ported(pair):
-    _, _, pmodel = pair
+@pytest.fixture(scope='module')
+def visual_pair():
+    jmodel, jvae, jcvae = jax_tiny_visual(seed=6)
+    return jmodel, jvae, jcvae, port_tiny_visual(jmodel, jvae, jcvae)
+
+
+def test_generate_images_visual_slice_matches_jax(visual_pair, monkeypatch):
+    """The text+mask path: control frames -> cvae encode -> nearest code
+    -> mask_8x8 erase (face_mode 'mask') -> visual_emb -> mask-predict ->
+    decode."""
+    jmodel, _, _, pmodel = visual_pair
+    monkeypatch.setattr(jmmvid, 'build_spec',
+                        _deterministic(jmmvid.build_spec))
+    monkeypatch.setattr(pmmvid, 'build_spec',
+                        _deterministic(pmmvid.build_spec))
+    cfg = jmodel.cfg
+    assert pmodel.cfg.total_seq_len == cfg.total_seq_len == 203
+    rng = np.random.RandomState(1)
+    text = rng.randint(0, cfg.num_text_tokens,
+                       (2, cfg.text_seq_len)).astype(np.int32)
+    visual = rng.rand(2, 1, 16, 16, 3).astype(np.float32)
+    kw = dict(vc_mode='mask_8x8', face_mode='mask', mask_predict_steps=6,
+              dynamic=False)
+    want_v, want_t = jmodel.generate_images(
+        jax.random.PRNGKey(0), jnp.asarray(text),
+        visual=jnp.asarray(visual), **kw)
+    for mod in (A, S, C):
+        monkeypatch.setattr(mod, 'launches', 0)
+    got_v, got_t = pmodel.generate_images(
+        torch.Generator().manual_seed(0), torch.from_numpy(text),
+        visual=torch.from_numpy(visual), **kw)
+    assert (A.launches, S.launches, C.launches) == (0, 0, 0)  # CPU: plain
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+    assert got_v.shape == (2, cfg.num_targets, 16, 16, 3)
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v),
+                               rtol=1e-4, atol=1e-4)
+    # the control is what the JAX package builds, and it steers the tokens
+    want_vis = jmodel.prepare_visual_tokens(
+        jax.random.PRNGKey(0), jnp.asarray(visual), vc_mode='mask_8x8',
+        face_mode='mask')
+    got_vis = pmodel.prepare_visual_tokens(
+        torch.Generator(), torch.from_numpy(visual), vc_mode='mask_8x8',
+        face_mode='mask')
+    np.testing.assert_array_equal(got_vis.numpy(), np.asarray(want_vis))
+    _, no_vis = pmodel.generate_images(
+        torch.Generator().manual_seed(0), torch.from_numpy(text),
+        decode=False, **kw)
+    assert not torch.equal(no_vis, got_t)
+
+
+def test_generate_images_visual_not_ported(visual_pair):
+    """What the visual path still lacks raises, pointing at the roadmap:
+    the motion-color augmentation (needs models/warp.py) and erasers with
+    insert_sep (unsupported in the JAX package too)."""
+    _, _, _, pmodel = visual_pair
+    frames = torch.zeros((1, 1, 16, 16, 3))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        pmodel.generate_images(torch.Generator(),
-                               torch.ones((1, 8), dtype=torch.long),
-                               visual=torch.zeros((1, 1, 16, 16, 3)))
+        pmodel.prepare_visual_tokens(torch.Generator(), frames,
+                                     visual_aug_mode='motion_color')
+    sep_model, _ = factories.flagship(tiny=True, device='cpu',
+                                      use_cvae=True)
+    sep_model.cfg = dataclasses.replace(sep_model.cfg, insert_sep=True)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        sep_model.prepare_visual_tokens(torch.Generator(), frames,
+                                        vc_mode='mask_8x8')
+
+
+def test_cvae_forces_separate_visual_emb():
+    model, _ = factories.flagship(tiny=True, device='cpu', use_cvae=True)
+    assert model.cfg.use_separate_visual_emb and model.cfg.num_visuals == 1
+    assert 'visual_emb.weight' in model.state_dict()
+    assert any(k.startswith('cvae.model.encoder.')
+               for k in model.state_dict())
 
 
 def test_tokenizer_ids_match_jax_package():
@@ -101,21 +173,23 @@ def test_tokenizer_ids_match_jax_package():
 
 
 def test_card_path_imports_no_jax():
-    """Every module of the port, plus the JAX-params bridge it loads on
-    demand, imports no jax, flax, regex, PIL or imageio, and nothing of
-    mmvid_tpu beyond the numpy-only torch_compat."""
+    """Every module of the port, and what generate.main imports lazily
+    (its file writers), import no jax, flax, regex, PIL or imageio, and
+    nothing of mmvid_tpu at all."""
     code = (
         'import importlib, pkgutil, sys\n'
         'import mmvid_tpu_torch\n'
         'for m in pkgutil.walk_packages(mmvid_tpu_torch.__path__, '
         "'mmvid_tpu_torch.'):\n"
         '    importlib.import_module(m.name)\n'
-        'import mmvid_tpu.utils.torch_compat\n'
+        'from mmvid_tpu_torch import generate, weights\n'
+        'import mmvid_tpu_torch.utils.html as html\n'
+        'assert generate.save_gif is html.save_gif\n'
+        "assert weights.bert_params_to_torch.__module__ == "
+        "'mmvid_tpu_torch.utils.torch_compat'\n"
+        "weights.bert_params_to_torch({'text_emb': {'embedding': [[0.0]]}})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'regex', 'PIL', 'imageio')]\n"
-        "bad += [m for m in sys.modules if m.split('.')[0] == 'mmvid_tpu' "
-        "and m not in ('mmvid_tpu', 'mmvid_tpu.utils', "
-        "'mmvid_tpu.utils.torch_compat')]\n"
+        "('jax', 'flax', 'regex', 'PIL', 'imageio', 'mmvid_tpu')]\n"
         'assert not bad, bad\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
@@ -131,21 +205,26 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
-def test_checkpoint_interchange_with_jax(pair, tmp_path):
-    jmodel, jvae, _ = pair
+def test_checkpoint_interchange_with_jax(visual_pair, tmp_path):
+    """A text+mask checkpoint crosses both ways with every key: the BERT,
+    vae.model.* and cvae.model.*, encoders included; none is dropped."""
+    jmodel, jvae, jcvae, _ = visual_pair
     # JAX writer -> port reader
     path = tmp_path / 'jax_dalle.pt'
     save_dalle_checkpoint(str(path), params=jmodel.params,
-                          vae_params=jvae.params, hparams={'dim': 64})
+                          vae_params=jvae.params, cvae_params=jcvae.params,
+                          hparams={'dim': 64})
     ckpt = read_dalle_checkpoint(str(path))
     assert ckpt['hparams'] == {'dim': 64}
-    pmodel, _ = factories.flagship(tiny=True, seed=9)
+    pmodel, _ = factories.flagship(tiny=True, device='cpu', seed=9,
+                                   use_cvae=True)
     from mmvid_tpu_torch.weights import load_weights
     load_weights(pmodel, ckpt['weights'])
-    want = bert_params_to_torch(jmodel.params, jvae.params)
+    want = bert_params_to_torch(jmodel.params, jvae.params, jcvae.params)
     got = pmodel.state_dict()
-    assert set(got) == {k for k in want if not k.startswith(
-        ENCODER_PREFIXES)}
+    assert set(got) == set(want)
+    assert any(k.startswith('vae.model.encoder.') for k in got)
+    assert any(k.startswith('cvae.model.quant_conv.') for k in got)
     for k, v in got.items():
         np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
     # port writer -> JAX reader
@@ -154,20 +233,14 @@ def test_checkpoint_interchange_with_jax(pair, tmp_path):
                path2)
     back = load_dalle_checkpoint(str(path2))
     assert back['iter'] == 3
-    for p, v in _flat(jmodel.params):
-        node = back['params']
-        for k in p:
-            node = node[k]
-        np.testing.assert_array_equal(np.asarray(node), v,
-                                      err_msg='/'.join(p))
-    for p, v in _flat(jvae.params):
-        if p[0] in ('encoder', 'quant_conv'):
-            continue
-        node = back['vae']
-        for k in p:
-            node = node[k]
-        np.testing.assert_array_equal(np.asarray(node), v,
-                                      err_msg='/'.join(p))
+    for tree, key in ((jmodel.params, 'params'), (jvae.params, 'vae'),
+                      (jcvae.params, 'cvae')):
+        for p, v in _flat(tree):
+            node = back[key]
+            for k in p:
+                node = node[k]
+            np.testing.assert_array_equal(np.asarray(node), v,
+                                          err_msg=f'{key}: {"/".join(p)}')
 
 
 def test_load_weights_rejects_mismatch(pair):
@@ -190,7 +263,8 @@ def test_generate_main_writes_pngs(tmp_path, vae_in_dalle):
                            use_separate_visual_emb=False,
                            fixed_language_model=None,
                            text_emb_bottleneck=None)
-    model = factories.get_dalle(args, factories.get_vae_model(args))
+    model = factories.get_dalle(
+        args, factories.get_vae_model(args, device='cpu'), device='cpu')
     factories.init_weights(model, torch.Generator().manual_seed(0))
     sd = model.state_dict()
     argv = []

@@ -14,6 +14,8 @@ import torch
 
 from mmvid_tpu_torch.models.clip import build_attention_mask
 from mmvid_tpu_torch.ops import attention as A
+from mmvid_tpu_torch.ops import codebook as C
+from mmvid_tpu_torch.ops import fused_ln_qkv as Q
 from mmvid_tpu_torch.ops import sample_head as S
 
 
@@ -27,16 +29,20 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize('l,h,d', [(565, 12, 64), (139, 2, 32)])
-def test_attention_kernel_matches_plain(cuda_device, dtype, tol, l, h, d):
-    """bf16 tolerance: outputs rounded to bf16 from fp32 sums taken in
-    another order (online softmax), up to 2 bf16 ulps at |out| ~ 2."""
+@pytest.mark.parametrize('b,l,h,d,idx', [
+    (3, 565, 12, 64, (51, 52)),     # flagship
+    (16, 629, 12, 64, (115, 116)),  # text+mask, at its batch
+    (3, 139, 2, 32, (9, 10))])      # tiny
+def test_attention_kernel_matches_plain(cuda_device, dtype, tol, b, l, h, d,
+                                        idx):
+    """Each path's sequence and mask_prev rows.  bf16 tolerance: outputs
+    rounded to bf16 from fp32 sums taken in another order (online
+    softmax), up to 2 bf16 ulps at |out| ~ 2."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn((3, l, h, d), generator=g, device=cuda_device
+    q, k, v = (torch.randn((b, l, h, d), generator=g, device=cuda_device
                            ).to(dtype) for _ in range(3))
-    mask = build_attention_mask(l, 'mask_prev', index=(l // 4, l // 4 + 1),
-                                device=cuda_device)
+    mask = build_attention_mask(l, 'mask_prev', index=idx, device=cuda_device)
     before = A.launches
     out = A.fused_attention_blhd(q, k, v, mask)
     assert A.launches == before + 1
@@ -69,3 +75,82 @@ def test_sample_head_kernel_temp0_matches_plain(cuda_device, w_dtype, tol, m):
     probs = torch.softmax(S.head_logits(x, ln_w, ln_b, w, b), -1)
     want = probs.gather(1, tok[:, None])[:, 0]
     assert (y - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,d,k', [(1024, 256, 1024), (128, 64, 1024),
+                                   (300, 128, 200)])
+def test_codebook_kernel_matches_plain(cuda_device, m, d, k):
+    """Ids equal on a randn codebook (spread scores): the text+mask
+    shape, the tiny cvae's, and ragged M and K; an exact tie takes the
+    lowest index."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    z = torch.randn((m, d), generator=g, device=cuda_device)
+    cb = torch.randn((k, d), generator=g, device=cuda_device)
+    cb[7] = cb[3]
+    z[0] = cb[3]
+    before = C.launches
+    idx = C.nearest_codebook_indices(z, cb)
+    assert C.launches == before + 1
+    assert idx.dtype == torch.int64 and int(idx[0]) == 3
+    want = C.nearest_codebook_reference(z, cb)
+    assert torch.equal(idx[1:], want[1:])
+
+
+@pytest.mark.cuda
+def test_codebook_kernel_near_ties_random_init(cuda_device):
+    """U(-1/1024, 1/1024) codebook: codes differ by ~1e-5 in score, so
+    the chosen code's score must be within 1e-5 of the best (fp64)."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    z = torch.randn((1024, 256), generator=g, device=cuda_device)
+    cb = (torch.rand((1024, 256), generator=g, device=cuda_device) * 2
+          - 1) / 1024
+    idx = C.nearest_codebook_indices(z, cb)
+    s = z.double() @ cb.double().t() - 0.5 * cb.double().square().sum(-1)
+    gap = s.max(-1).values - s.gather(1, idx[:, None])[:, 0]
+    assert gap.max().item() <= 1e-5
+
+
+def _ln_qkv_inputs(device, b, l, d, dtype):
+    g = torch.Generator(device=device).manual_seed(2)
+    x = (torch.randn((b, l, d), generator=g, device=device) * 2
+         + 0.5).to(dtype)
+    ln_w = 1 + 0.1 * torch.randn((d,), generator=g, device=device)
+    ln_b = 0.1 * torch.randn((d,), generator=g, device=device)
+    w = (torch.randn((3 * d, d), generator=g, device=device)
+         * d ** -0.5).to(dtype)
+    bias = (0.1 * torch.randn((3 * d,), generator=g, device=device)
+            ).to(dtype)
+    return x, ln_w, ln_b, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,l,d', [(16, 629, 768), (2, 37, 128)])
+def test_ln_qkv_kernel_matches_plain(cuda_device, b, l, d):
+    """The text+mask backbone's shape and the CPU tests' width-128 shape
+    (ragged rows), in bf16 within 2e-2 * (1 + |plain|) (assert_allclose's
+    form with rtol = atol): h and the output are rounded to bf16, and a
+    last-bit difference of the LN statistics flips one rounding, one bf16
+    ulp (2^-8 relative)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, ln_w, ln_b, w, bias = _ln_qkv_inputs(cuda_device, b, l, d,
+                                            torch.bfloat16)
+    before = Q.launches
+    out = Q.fused_ln_qkv(x, ln_w, ln_b, w, bias)
+    assert Q.launches == before + 1
+    assert out.shape == (b, l, 3 * d) and out.dtype == torch.bfloat16
+    want = Q.ln_qkv_reference(x, ln_w, ln_b, w, bias)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_ln_qkv_kernel_rejects_fp32(cuda_device):
+    """The kernel is bf16 only: fp32 on the card raises, launching
+    nothing (fp32 takes the plain version on the CPU)."""
+    args = _ln_qkv_inputs(cuda_device, 2, 37, 128, torch.float32)
+    before = Q.launches
+    with pytest.raises(ValueError, match='bf16'):
+        Q.fused_ln_qkv(*args)
+    assert Q.launches == before

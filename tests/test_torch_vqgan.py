@@ -1,7 +1,8 @@
 """Port's VQGAN decoder (mmvid_tpu_torch.models.vqgan) vs the JAX package:
 ids [B, n] -> images [B, H, W, 3] in [0, 1], fp32, weights carried over
-from JAX.  Tolerance 1e-4: fp32 convolutions summed in another order, and
-flax's one-pass GroupNorm variance against torch's two-pass."""
+from JAX (the encode half is held in tests/test_torch_encode.py).
+Tolerance 1e-4: fp32 convolutions summed in another order, and flax's
+one-pass GroupNorm variance against torch's two-pass."""
 
 import numpy as np
 import pytest
@@ -47,10 +48,7 @@ def test_decode_matches_jax(name):
     jvae = JaxVAE(image_size=16, cfg=JaxVQCfg(**kw), params={})
     jvae.params = jax.jit(jvae.init_params)(jax.random.PRNGKey(2))
     pvae = VQGanVAE(image_size=16, cfg=VQGanConfig(**kw))
-    sd = vqgan_params_to_torch(jvae.params)
-    load_weights(pvae.model, {k: v for k, v in sd.items()
-                              if not k.startswith(('encoder.',
-                                                   'quant_conv.'))})
+    load_weights(pvae.model, vqgan_params_to_torch(jvae.params))
     ids = np.random.RandomState(0).randint(
         0, kw['n_embed'], (3, pvae.image_seq_len)).astype(np.int32)
     want = np.asarray(jvae.decode(jnp.asarray(ids)))
