@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``mmvid_tpu_torch``) on one GPU.
 
-Drives the port's two sampling paths at full width on weights drawn from a
-seed: flagship text-to-video mask-predict sampling (768 x 12-layer
+Drives the port's three sampling paths at full width on weights drawn from
+a seed: flagship text-to-video mask-predict sampling (768 x 12-layer
 backbone, 20 rounds, VQGAN decode of 8 frames at 128 px) through
-``factories.flagship`` and ``generate.generate_videos``; and the text+mask
+``factories.flagship`` and ``generate.generate_videos``; the text+mask
 visual-control recipe (scripts/mmvoxceleb/text_and_mask/test.sh: one
 control frame through the cvae encoder and the nearest-code kernel, the
 mask_8x8 erase, sequence 629) through ``factories.get_vae_model`` /
 ``get_dalle`` and ``MMVIDBert.generate_images``, with the fused LN+QKV
-gate off and then on.  Both paths' models, inputs and batch-16 timings
-come from ``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``,
-``measure``).  Phases, in order; any failure exits non-zero and
-prints no result line:
+gate off and then on; and ART-V, the autoregressive sampler (the same
+backbone from the text-to-video flags with ``--ar``: a prefill of the
+115-position control prefix, then 511 KV-cached decode steps), through
+``generate.generate_videos``, with the whole-step decode kernel's gate
+(``MMVID_ARTV_FUSED``) on and then off.  The paths' models, inputs and
+batch-16 timings come from ``mmvid_tpu_torch.breakdown`` (``build``,
+``inputs``, ``measure``).  Phases, in order; any failure exits non-zero
+and prints no result line:
 
 1. device: CUDA is required; prints the card's name and power limit.
 2. build: compiles ``mmvid_tpu_torch/csrc`` with nvcc (sm_90a), one nvcc
@@ -27,17 +31,29 @@ prints no result line:
    codebook; within 1e-5 of the best score on the random-init codebook.
 6. fused LN+QKV kernel vs its plain version, bf16 (the kernel's only
    dtype; fp32 must raise on the card).
-7. tiny models on the card vs the same weights on the CPU: the flagship,
-   and the text+mask model's cvae ids and forward logits.
-8. flagship path: 6 prompts at batch 4, launch counts, output checks,
-   determinism by seed; then ``breakdown.measure`` of a batch of 16.
-9. text+mask path: one batch of 16, launch counts, output checks,
-   determinism by seed, then ``breakdown.measure``; then again with
-   MMVID_FUSED_LNQKV=1 (launch counts, tokens against the gate-off run,
-   ``breakdown.measure``).
+7. ART-V decode-step kernels vs their plain version: bf16 at full width
+   (B 16, 12 layers, W 626) at pos 115, 370 and 625, fp32 and bf16 at a
+   small shape; times and bounds per pos.
+8. grid-step probe vs its plain version: 64 chained calls at 1, 12 and
+   192 launches a call, and the cost of one launch.
+9. tiny models on the card vs the same weights on the CPU: the flagship,
+   the text+mask model's cvae ids and forward logits, and ART-V's greedy
+   tokens with MMVID_ARTV_FUSED=1.
+10. flagship path: 6 prompts at batch 4, launch counts, output checks,
+    determinism by seed; then ``breakdown.measure`` of a batch of 16.
+11. text+mask path: one batch of 16, launch counts, output checks,
+    determinism by seed, then ``breakdown.measure``; then again with
+    MMVID_FUSED_LNQKV=1 (launch counts, tokens against the gate-off run,
+    ``breakdown.measure``).
+12. ART-V path: the 16 prompts in one batch with MMVID_ARTV_FUSED=1
+    (511 decode-kernel launches), then with the gate off (no launch):
+    output checks for each, determinism by seed with the gate on, the
+    tokens that differ between the two, ``breakdown.measure`` for each
+    (one timed call of each with the gate off, seconds a batch).
 
-Prints the kernels' JSON line, then as its last line
-``{"ok": true, "device": {...}}``.  Run from the repository root:
+Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
+then as its last line ``{"ok": true, "device": {...}}``.  Run from the
+repository root:
 ``python3 chip_smoke.py``.
 """
 
@@ -71,6 +87,21 @@ LNQKV_TOL = 2e-2
 # chosen code's score within this of the best (fp64) on the random-init
 # codebook U(-1/1024, 1/1024), whose scores differ by ~1e-5 between codes
 CODE_GAP_TOL = 1e-5
+# ART-V decode step vs plain: fp32 max abs (sums in another order); bf16
+# y within tol * (1 + |plain|), k_new and v_new within one bf16 ulp of
+# max(|plain|, 1): the kernel rounds h, the probabilities and the MLP
+# activations at the plain version's places, and a last-bit difference of
+# an fp32 sum flips one rounding, which moves later values by about 1e-4
+DECODE_TOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+# bf16 through 12 random blocks: such flips grow, and moving x by one fp32
+# ulp alone moves the plain version's own y and k, v about as far as the
+# kernel's whole step differs from it (phase_artv_decode prints both), so
+# the whole step is held within this * (1 + |plain|) and each block (fed
+# the plain version's input) within DECODE_TOL
+DECODE_DEEP_TOL = 5e-2
+# grid-step probe vs plain, fp32 outputs of bf16 products summed in
+# another order
+PROBE_TOL = 1e-4
 
 # NVIDIA H100 SXM peaks (data sheet, dense): the bounds of the kernels line
 PEAK_BYTES_PER_S = 3.35e12
@@ -93,6 +124,12 @@ def reset_counts():
 def read_counts():
     from mmvid_tpu_torch.breakdown import KERNELS
     return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def expected(**launches):
+    """Launch counts of a path: the given kernels, every other one 0."""
+    from mmvid_tpu_torch.breakdown import KERNELS
+    return dict(dict.fromkeys(KERNELS, 0), **launches)
 
 
 def fail(msg: str):
@@ -362,6 +399,174 @@ def phase_ln_qkv():
                                              'bf16')
 
 
+def decode_bound(n_layers, b, d, pos, itemsize=2):
+    """(ms, 'bytes'|'operations') of one ART-V step: every weight read
+    once, the live cache rows < pos read once, x read and y, k_new, v_new
+    written once; the products and the attention's operations."""
+    nbytes = (n_layers * (12 * d * d * itemsize + 2 * b * pos * d * itemsize
+                          + 2 * b * d * itemsize + 14 * d * 4)
+              + 2 * b * d * 4)
+    flops = n_layers * (2 * b * 12 * d * d + 4 * b * (pos + 1) * d)
+    return bound(nbytes, flops, 'bf16' if itemsize == 2 else 'fp32')
+
+
+def _decode_errs(got, want):
+    """(max |dy|, max |dy| / (1 + |plain y|), max k/v error in bf16 ulps of
+    max(|plain|, 1), max k/v error / (1 + |plain|), max |dk|, |dv|)."""
+    import torch
+    dy = (got[0] - want[0]).abs()
+    ulps = rel = kv = 0.0
+    for g, w in zip(got[1:], want[1:]):
+        g, w = g.float(), w.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1.0)))
+                         - 7)
+        ulps = max(ulps, ((g - w).abs() / ulp).max().item())
+        rel = max(rel, ((g - w).abs() / (1 + w.abs())).max().item())
+        kv = max(kv, (g - w).abs().max().item())
+    return (dy.max().item(), (dy / (1 + want[0].abs())).max().item(), ulps,
+            rel, kv)
+
+
+def _decode_ok(errs, dtype, deep=False):
+    err, rel, ulps, kv_rel, kv = errs
+    if dtype == 'float32':
+        return max(err, kv) <= DECODE_TOL['float32']
+    if deep:
+        return max(rel, kv_rel) <= DECODE_DEEP_TOL
+    return rel <= DECODE_TOL['bfloat16'] and ulps <= 1.0
+
+
+def phase_artv_decode():
+    """The ART-V decode step's kernels vs the plain version: fp32 and bf16
+    at a small shape (2 layers, D 128, 2 heads, B 2, W 256) at pos 1, 64
+    and 200; at full width (B 16, 12 layers, D 768, 12 heads, caches W 626
+    from a seed) fp32 at pos 370, and bf16 at pos 115 (the first step), 370
+    (the mean) and 625 (the last), block by block and whole, timed."""
+    import torch
+    from mmvid_tpu_torch.ops import artv_decode as AD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    cases = [(2, 2, 256, 128, 2, dt, pos)
+             for dt in (torch.float32, torch.bfloat16) for pos in (1, 64, 200)]
+    cases.append((12, 16, 626, 768, 12, torch.float32, 370))
+    for n_layers, b, w, d, heads, dtype, pos in cases:
+        g = torch.Generator(device=dev).manual_seed(pos)
+        x, p, ck, cv = AD.random_inputs(n_layers, b, w, d, dtype, g, dev)
+        got = AD.decode_token_step(x, p, ck, cv, pos, heads)
+        want = AD.decode_token_step_reference(x, p, ck, cv, pos, heads)
+        torch.cuda.synchronize()
+        errs = _decode_errs(got, want)
+        name = str(dtype).split('.')[-1]
+        ok = _decode_ok(errs, name)
+        print(f'[artv_decode] L{n_layers} B{b} W{w} D{d} H{heads} {name} pos '
+              f'{pos}: max abs err y {errs[0]:.3e} ({errs[1]:.3e} of 1 + '
+              f'|plain|), k/v {errs[4]:.3e} ({errs[2]:.2f} bf16 ulps) '
+              f'(within tolerance: {ok})', flush=True)
+        if not ok:
+            fail(f'ART-V decode L{n_layers} {name} pos {pos} beyond '
+                 f'tolerance')
+    g = torch.Generator(device=dev).manual_seed(17)
+    n_layers, b, w, d, heads = 12, 16, 626, 768, 12
+    x, p, ck, cv = AD.random_inputs(n_layers, b, w, d, torch.bfloat16, g,
+                                    dev)
+    # x moved by at most one fp32 ulp: how far the plain version itself
+    # moves through 12 blocks (what DECODE_DEEP_TOL allows for)
+    x_ulp = x * (1 + 1e-7)
+    by_pos = {}
+    for pos in (115, 370, 625):
+        got = AD.decode_token_step(x, p, ck, cv, pos, heads)
+        want = AD.decode_token_step_reference(x, p, ck, cv, pos, heads)
+        whole = _decode_errs(got, want)
+        own = _decode_errs(AD.decode_token_step_reference(
+            x_ulp, p, ck, cv, pos, heads), want)
+        blocks, xi = [], x
+        for i in range(n_layers):
+            args = (AD.layer_params(p, i), ck[i:i + 1], cv[i:i + 1], pos,
+                    heads)
+            ref = AD.decode_token_step_reference(xi, *args)
+            blocks.append(_decode_errs(AD.decode_token_step(xi, *args), ref))
+            xi = ref[0]
+        torch.cuda.synchronize()
+        worst = tuple(max(e[j] for e in blocks) for j in range(5))
+        ok = (_decode_ok(whole, 'bfloat16', deep=True)
+              and all(_decode_ok(e, 'bfloat16') for e in blocks))
+        ms = cuda_time_ms(lambda: AD.decode_token_step(x, p, ck, cv, pos,
+                                                       heads))
+        plain_ms = cuda_time_ms(lambda: AD.decode_token_step_reference(
+            x, p, ck, cv, pos, heads))
+        bms, by = decode_bound(n_layers, b, d, pos)
+        print(f'[artv_decode] L12 B16 W626 D768 H12 bfloat16 pos {pos}: '
+              f'block by block max abs err y {worst[0]:.3e} ({worst[1]:.3e} '
+              f'of 1 + |plain|), k/v {worst[2]:.2f} bf16 ulps; whole step y '
+              f'{whole[0]:.3e} ({whole[1]:.3e}), k/v {whole[3]:.3e} of 1 + '
+              f'|plain| (within tolerance: {ok}); the plain version with x '
+              f'moved by one fp32 ulp: y {own[1]:.3e} of 1 + |plain|, k/v '
+              f'{own[2]:.2f} bf16 ulps; kernel {ms:.4f} ms plain '
+              f'{plain_ms:.4f} ms bound {bms:.4f} ms ({by})', flush=True)
+        if not ok:
+            fail(f'ART-V decode bf16 full width pos {pos} beyond tolerance')
+        by_pos[pos] = {'max_abs_err': whole[0], 'rel_err': whole[1],
+                       'block_max_abs_err': worst[0],
+                       'block_kv_ulps': worst[2],
+                       'plain_own_rel_err': own[1],
+                       'plain_own_kv_ulps': own[2], 'ms': ms,
+                       'plain_ms': plain_ms, 'library_ms': None,
+                       'bound_ms': bms, 'bound_by': by}
+    mid = by_pos[370]
+    return (max(e['max_abs_err'] for e in by_pos.values()), mid['ms'],
+            mid['plain_ms'], None, mid['bound_ms'], mid['bound_by']), by_pos
+
+
+def phase_gridstep():
+    """The grid-step probe vs its plain version, and 64 chained calls at
+    1, 12 and 192 launches a call: the cost of a launch on this card."""
+    import torch
+    from mmvid_tpu_torch.ops import gridstep as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(19)
+    x, w = G.probe_inputs(g, dev)
+    wt = G.prepare_weights(w)
+
+    def plain():
+        y = x
+        for _ in range(G.CALLS):
+            y = G.probe_call_reference(y, wt)
+        return y
+
+    want = plain()
+    outs, times = {}, {}
+    for n in G.LAUNCHES_PER_CALL:
+        outs[n] = G.probe(x, wt, n)
+        times[n] = cuda_time_ms(lambda: G.probe(x, wt, n), calls=3)
+    torch.cuda.synchronize()
+    err = max((o - want).abs().max().item() for o in outs.values())
+    same = all(torch.equal(o, outs[1]) for o in outs.values())
+    plain_ms = cuda_time_ms(plain, calls=3)
+    n1, n12, n192 = G.LAUNCHES_PER_CALL
+    per_launch = (times[n192] - times[n12]) / (G.CALLS * (n192 - n12)) * 1e3
+    per_barrier = (times[n12] - times[n1]) / (G.CALLS * (n12 - n1)) * 1e3
+    d, layers = G.DIM, G.LAYERS
+    nbytes = layers * d * d * 2 + 2 * G.BATCH * d * 4
+    bms, by = bound(nbytes, 2 * G.BATCH * d * d * layers * G.CALLS, 'bf16')
+    print(f'[gridstep] {G.CALLS} chained calls of {layers} layers, x '
+          f'[{G.BATCH}, {d}]: max abs err vs plain {err:.3e} (tol '
+          f'{PROBE_TOL}), launch structures bitwise equal: {same}; '
+          f'1 launch a call {times[n1]:.4f} ms, {n12} {times[n12]:.4f} ms, '
+          f'{n192} {times[n192]:.4f} ms, plain {plain_ms:.4f} ms, bound '
+          f'{bms:.4f} ms ({by}); {per_launch:.3f} us per launch, '
+          f'{per_barrier:.3f} us per layer launch over a grid barrier',
+          flush=True)
+    if not (err <= PROBE_TOL and same):
+        fail('grid-step probe disagrees with its plain version')
+    return (err, times[n1], plain_ms, None, bms, by), {
+        'ms_12_launches': times[n12], 'ms_192_launches': times[n192],
+        'us_per_launch': per_launch, 'us_per_layer_launch_vs_barrier':
+        per_barrier}
+
+
 def phase_tiny_reference():
     """The tiny model on the card (kernels) against the same weights on the
     CPU (plain versions, the path the CPU tests hold against JAX)."""
@@ -417,6 +622,38 @@ def phase_tiny_reference():
         fail('tiny text+mask model on the card disagrees with the CPU')
 
 
+def phase_tiny_artv():
+    """The tiny fp32 ART-V with MMVID_ARTV_FUSED=1 on the card (the decode
+    kernels) against the same weights on the CPU (the plain step, the path
+    the CPU tests hold against JAX): greedy tokens equal."""
+    import torch
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch.ops import artv_decode as AD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, _ = factories.artv_tiny(device='cpu', seed=3)
+    gpu, _ = factories.artv_tiny(device='cuda', seed=3)
+    g = torch.Generator().manual_seed(3)
+    text = torch.randint(1, 50, (2, cpu.cfg.text_seq_len), generator=g)
+    os.environ['MMVID_ARTV_FUSED'] = '1'
+    try:
+        before = AD.launches
+        _, want = cpu.generate_images(torch.Generator().manual_seed(0),
+                                      text, temperature=1e-6, decode=False)
+        _, got = gpu.generate_images(
+            torch.Generator(device='cuda').manual_seed(0), text.cuda(),
+            temperature=1e-6, decode=False)
+        steps = AD.launches - before
+    finally:
+        os.environ.pop('MMVID_ARTV_FUSED', None)
+    n_diff = int((got.cpu() != want).sum())
+    print(f'[tiny] ART-V fp32 greedy, MMVID_ARTV_FUSED=1: tokens differing '
+          f'card vs CPU {n_diff} of {want.numel()} ({steps} decode-kernel '
+          f'steps on the card)', flush=True)
+    if n_diff or steps != cpu.cfg.target_seq_len - 1:
+        fail('tiny ART-V on the card disagrees with the CPU')
+
+
 def report(tag: str, res: dict):
     """Print ``breakdown.measure``'s result: a summary and its JSON."""
     print(f'[{tag}] batch {res["batch"]}, {res["steps"]} steps: '
@@ -455,9 +692,8 @@ def phase_main_path():
     out = run()
     counts = read_counts()
     n_batches = -(-len(prompts) // batch)
-    want = {'attention': cfg.clip.layers * steps * n_batches,
-            'sample_head': steps * n_batches, 'codebook': 0,
-            'fused_ln_qkv': 0}
+    want = expected(attention=cfg.clip.layers * steps * n_batches,
+                    sample_head=steps * n_batches)
     print(f'[main] launches {counts} (expected {want})', flush=True)
     if counts != want:
         fail(f'launch counts {counts} != {want}')
@@ -520,8 +756,8 @@ def phase_text_mask():
     reset_counts()
     videos, tokens = run()
     counts = read_counts()
-    want = {'attention': cfg.clip.layers * steps, 'sample_head': steps,
-            'codebook': 1, 'fused_ln_qkv': 0}
+    want = expected(attention=cfg.clip.layers * steps, sample_head=steps,
+                    codebook=1)
     print(f'[text+mask] launches {counts} (expected {want})', flush=True)
     if counts != want:
         fail(f'text+mask launch counts {counts} != {want}')
@@ -568,40 +804,153 @@ def phase_text_mask():
     return counts, fcounts
 
 
+def _check_videos(tag, cfg, videos, tokens):
+    import torch
+    vid = videos.float()
+    vshape = (tokens.shape[0], cfg.num_targets, cfg.image_size,
+              cfg.image_size, 3)
+    if tuple(vid.shape) != vshape:
+        fail(f'{tag} videos {tuple(vid.shape)} != {vshape}')
+    if not (torch.isfinite(vid).all() and vid.min() >= 0 and vid.max() <= 1):
+        fail(f'{tag} videos not finite or outside [0, 1]')
+    if not (tokens.min() >= 0 and tokens.max() < cfg.num_image_tokens):
+        fail(f'{tag} tokens outside the codebook')
+
+
+def phase_artv():
+    """ART-V at full width (the text-to-video flags with --ar: 768 x 12
+    layers, control prefix 115, 511 decode steps, cache widths 179 ..
+    626): the 16 prompts in one batch through generate.generate_videos,
+    first with MMVID_ARTV_FUSED=1 (the decode kernels), then with the gate
+    off (plain torch ops)."""
+    import torch
+    from mmvid_tpu_torch import breakdown, generate
+    from mmvid_tpu_torch.tokenizer import SimpleTokenizer
+
+    t0 = time.perf_counter()
+    model = breakdown.build('artv')
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    print(f'[artv] built in {time.perf_counter() - t0:.2f} s: sequence '
+          f'{cfg.total_seq_len}, control prefix {cfg.control_seq_len + 1}, '
+          f'vocabulary {cfg.total_tokens}', flush=True)
+    if (cfg.total_seq_len, cfg.control_seq_len + 1,
+            cfg.total_tokens) != (626, 115, 51570):
+        fail('ART-V layout differs from the text-to-video recipe with --ar')
+    tokenizer = SimpleTokenizer()
+    steps = cfg.target_seq_len - 1
+
+    def run():
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        out = list(generate.generate_videos(model, tokenizer,
+                                            breakdown.PROMPTS,
+                                            breakdown.BATCH, gen))
+        torch.cuda.synchronize()
+        return out[0]
+
+    counts, tokens = {}, {}
+    for tag, gate in (('artv fused', '1'), ('artv', '0')):
+        os.environ['MMVID_ARTV_FUSED'] = gate
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = run()
+            dt = time.perf_counter() - t0
+            counts[tag] = read_counts()
+            want = expected(artv_decode=steps if gate == '1' else 0)
+            print(f'[{tag}] launches {counts[tag]} (expected {want}); first '
+                  f'batch {dt:.3f} s', flush=True)
+            if counts[tag] != want:
+                fail(f'{tag} launch counts {counts[tag]} != {want}')
+            _check_videos(tag, cfg, out.videos, out.tokens)
+            tokens[tag] = out.tokens
+            if gate == '1':
+                same = torch.equal(out.tokens, run().tokens)
+                print(f'[{tag}] videos {tuple(out.videos.shape)}, finite in '
+                      f'[0,1], tokens < {cfg.num_image_tokens}, same seed '
+                      f'same tokens: {same}', flush=True)
+                if not same:
+                    fail(f'{tag}: the same seed gave different tokens')
+                report(tag, breakdown.measure(model, 'artv'))
+            else:
+                # host-bound at seconds a batch: one timed call of each,
+                # the batch above its warm-up
+                print(f'[{tag}] videos {tuple(out.videos.shape)}, finite in '
+                      f'[0,1], tokens < {cfg.num_image_tokens}', flush=True)
+                report(tag, breakdown.measure(model, 'artv', reps=1,
+                                              warm=False))
+        finally:
+            os.environ.pop('MMVID_ARTV_FUSED', None)
+    n_diff = int((tokens['artv fused'] != tokens['artv']).sum())
+    print(f'[artv] tokens differing between the gate-on and gate-off runs '
+          f'under one seed: {n_diff} of {tokens["artv"].numel()} (bf16 '
+          f'roundings flip near-ties, and a flipped token changes every '
+          f'later step of its row)', flush=True)
+    return counts['artv'], counts['artv fused']
+
+
+def timed(phase, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f'[time] {phase.__name__} {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    return out
+
+
 def main():
     import torch
     t_start = time.perf_counter()
-    os.environ.pop('MMVID_FUSED_LNQKV', None)  # the default path first
+    # the default paths first
+    os.environ.pop('MMVID_FUSED_LNQKV', None)
+    os.environ.pop('MMVID_ARTV_FUSED', None)
     phase_device()
-    phase_build()
-    attention, attention_flagship = phase_attention()
+    timed(phase_build)
+    attention, attention_flagship = timed(phase_attention)
+    artv_decode, decode_by_pos = timed(phase_artv_decode)
+    gridstep, probe = timed(phase_gridstep)
     rows = {'attention': attention,
-            'sample_head': phase_sample_head(),
-            'codebook': phase_codebook(),
-            'fused_ln_qkv': phase_ln_qkv()}
-    phase_tiny_reference()
-    flagship = phase_main_path()
-    text_mask, fused = phase_text_mask()
+            'sample_head': timed(phase_sample_head),
+            'codebook': timed(phase_codebook),
+            'fused_ln_qkv': timed(phase_ln_qkv),
+            'artv_decode': artv_decode, 'gridstep': gridstep}
+    timed(phase_tiny_reference)
+    timed(phase_tiny_artv)
+    flagship = timed(phase_main_path)
+    text_mask, fused = timed(phase_text_mask)
+    artv, artv_fused = timed(phase_artv)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
                'codebook': 'mmvid_tpu/ops/codebook.py:59',
-               'fused_ln_qkv': 'mmvid_tpu/ops/fused_ln_qkv.py:65'}
+               'fused_ln_qkv': 'mmvid_tpu/ops/fused_ln_qkv.py:65',
+               'artv_decode': 'mmvid_tpu/ops/artv_decode.py:284',
+               'gridstep': 'scripts/probe_gridstep.py:36'}
+    # launches: the main path that runs the kernel (the gated kernels
+    # with their gate on; the probe runs on none); the numbers: at that
+    # path's shapes
+    main_run = {'attention': text_mask, 'sample_head': text_mask,
+                'codebook': text_mask, 'fused_ln_qkv': fused,
+                'artv_decode': artv_fused, 'gridstep': artv_fused}
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by')
     kernels = []
     for name, row in rows.items():
-        # launches: the text+mask run (the fused kernel: with its gate on);
-        # the numbers: at the text+mask path's shapes
-        launches = (fused if name == 'fused_ln_qkv' else text_mask)[name]
         entry = {'name': name, 'route': 'cuda',
                  'source': f'mmvid_tpu_torch/csrc/{name}.cu',
-                 'replaces': sources[name], 'launches': launches,
+                 'replaces': sources[name],
+                 'launches': main_run[name][name],
                  **dict(zip(keys, row)),
                  'launches_by_path': {'flagship': flagship[name],
                                       'text_mask': text_mask[name],
-                                      'text_mask_fused': fused[name]}}
+                                      'text_mask_fused': fused[name],
+                                      'artv': artv[name],
+                                      'artv_fused': artv_fused[name]}}
         if name == 'attention':
             entry['at_flagship_L565'] = dict(zip(keys, attention_flagship))
+        if name == 'artv_decode':   # one cooperative launch a step
+            entry['at_pos'] = decode_by_pos
+        if name == 'gridstep':
+            entry.update(probe)
         kernels.append(entry)
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

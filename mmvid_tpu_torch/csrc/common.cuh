@@ -32,4 +32,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// All blocks of a cooperative launch (co-resident by construction) meet
+// here.  count and gen are two uints in device memory, zeroed once; count
+// returns to 0 after every barrier.  Writes before the barrier are visible
+// after it through L2 (read them with __ldcg: an SM's L1 may hold an older
+// copy).
+__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned* gen) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* vgen = gen;
+    const unsigned g = *vgen;
+    __threadfence();
+    if (atomicAdd(count, 1u) == gridDim.x - 1) {
+      atomicExch(count, 0u);
+      __threadfence();
+      atomicAdd(gen, 1u);
+    } else {
+      while (*vgen == g) __nanosleep(32);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
 }  // namespace mmvid

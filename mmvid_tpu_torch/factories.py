@@ -1,10 +1,12 @@
-"""Model factories: the flagship configuration and builders from CLI args.
+"""Model factories: the flagship and ART-V configurations, and models made
+from CLI args.
 
 Counterpart of ``__graft_entry__._flagship`` and of ``get_vae_model`` /
-``get_dalle`` in ``mmvid_tpu/factories.py`` (mask-predict models, with the
-cvae of the visual-control recipes; the pretrained-CLIP graft, fixed
-language model and ART-V come later).  Every factory puts the model on
-``device``, the card unless the caller asks for the CPU.
+``get_dalle`` in ``mmvid_tpu/factories.py`` (mask-predict models with the
+cvae of the visual-control recipes, and ART-V with ``--ar``; the
+pretrained-CLIP graft and the fixed language model come later).  Every
+factory puts the model on ``device``, the card unless the caller asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from mmvid_tpu_torch.models.artv import ArtvConfig, ArtvModel
 from mmvid_tpu_torch.models.axial import AxialPositionalEmbedding
 from mmvid_tpu_torch.models.bert import BertConfig
 from mmvid_tpu_torch.models.clip import ClipStackConfig
@@ -82,6 +85,29 @@ def flagship(tiny: bool = False, dtype=torch.float32, device='cuda',
     return model.to(device).eval(), model.vae
 
 
+def artv_tiny(dtype=torch.float32, device='cuda', seed: int = 0,
+              use_cvae: bool = False):
+    """ART-V, the autoregressive baseline, at the JAX package's CPU test
+    size (tests/test_artv.py: dim 64, 2 layers, 2 heads, 6 text positions
+    of 50 tokens, one visual position block, 2 frames at 32 px).  The
+    full-width model is ``get_dalle(artv_args(), vae)``.  ``use_cvae``
+    adds a cvae for visual control frames.  Weights from
+    ``torch.Generator().manual_seed(seed)``.  Returns (model, vae)."""
+    vq_cfg = VQGanConfig(resolution=32, ch=32, ch_mult=(1, 2, 2),
+                         num_res_blocks=1, z_channels=64, embed_dim=64,
+                         n_embed=1024, attn_resolutions=())
+    cfg = ArtvConfig(dim=64, num_text_tokens=50, text_seq_len=6,
+                     num_visuals=1, num_targets=2, num_image_tokens=1024,
+                     image_fmap_size=8, image_size=32,
+                     clip=ClipStackConfig(width=64, layers=2, heads=2))
+    vae = VQGanVAE(image_size=32, cfg=vq_cfg, dtype=dtype)
+    cvae = (VQGanVAE(image_size=32, cfg=vq_cfg, dtype=dtype)
+            if use_cvae else None)
+    model = ArtvModel(cfg, vae, cvae=cvae, dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval(), model.vae
+
+
 def build_clip_config(which_transformer: str) -> ClipStackConfig:
     if which_transformer == 'openai_clip_visual':
         return ClipStackConfig(width=768, layers=12, heads=12)
@@ -108,6 +134,20 @@ def text_and_mask_args():
         fixed_language_model=None, text_emb_bottleneck=None)
 
 
+def artv_args():
+    """The text-to-video recipe's model flags with ``--ar``
+    (scripts/mmvoxceleb/text_to_video, as ``mmvid_tpu/factories.py``
+    builds ART-V from them and ``scripts/bench_artv.py`` measures it): the
+    openai_clip_visual backbone, 50 text tokens, 8 targets at 128 px,
+    batch 16; ``get_dalle`` raises num_visuals to 1."""
+    return argparse.Namespace(
+        which_transformer='openai_clip_visual', dim=768, text_seq_len=50,
+        num_visuals=0, num_targets=8, image_size=128, use_cvae=False,
+        batch_size=16, which_vae='vqgan1024', ar=True, loss_img_weight=7,
+        insert_sep=False, use_separate_visual_emb=False,
+        fixed_language_model=None, text_emb_bottleneck=None)
+
+
 def get_vae_model(args, dtype=torch.float32, device='cuda') -> VQGanVAE:
     """The vqgan1024 tokenizer at ``args.image_size``: the targets' vae
     and, for the visual-control recipes, the cvae are each one call (the
@@ -122,13 +162,24 @@ def get_vae_model(args, dtype=torch.float32, device='cuda') -> VQGanVAE:
 
 
 def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
-              dtype=torch.float32, device='cuda') -> MMVIDBert:
-    """MMVIDBert from CLI args, with ``cvae`` tokenizing the visual
-    controls when given (weights left to the caller)."""
+              dtype=torch.float32, device='cuda') -> MMVIDBert | ArtvModel:
+    """MMVIDBert from CLI args, or ArtvModel with ``args.ar``, with
+    ``cvae`` tokenizing the visual controls when given (weights left to
+    the caller)."""
     clip_cfg = build_clip_config(args.which_transformer)
     if args.dim != clip_cfg.width:
         raise ValueError(f'--dim {args.dim} must match the '
                          f'{args.which_transformer} width {clip_cfg.width}')
+    if getattr(args, 'ar', False):
+        cfg = ArtvConfig(
+            dim=args.dim, num_text_tokens=49408,
+            text_seq_len=args.text_seq_len,
+            num_visuals=max(args.num_visuals, 1),
+            num_targets=args.num_targets, num_image_tokens=vae.num_tokens,
+            image_fmap_size=vae.fmap_size, image_size=vae.image_size,
+            loss_img_weight=getattr(args, 'loss_img_weight', 7),
+            clip=clip_cfg)
+        return ArtvModel(cfg, vae, cvae=cvae, dtype=dtype).to(device)
     cfg = BertConfig(
         dim=args.dim, num_text_tokens=49408, text_seq_len=args.text_seq_len,
         num_visuals=args.num_visuals, num_targets=args.num_targets,

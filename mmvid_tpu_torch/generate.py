@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Batch generation CLI of the port: prompts in, videos out.
 
-Counterpart of the repository's ``generate.py`` (mask-predict sampling).
-Loads a reference ``dalle.pt`` once, then streams prompt batches through
-``MMVIDBert.generate_images``, padding the last batch to the static batch
-size.
+Counterpart of the repository's ``generate.py`` (mask-predict sampling,
+and ART-V for a checkpoint whose hparams say ``ar``).  Loads a reference
+``dalle.pt`` once, then streams prompt batches through the model's
+``generate_images``, padding the last batch to the static batch size.
 
 Usage:
     python -m mmvid_tpu_torch.generate --dalle_path run/dalle.pt \\
@@ -84,14 +84,11 @@ def parse_args(argv=None):
 def load_model(args):
     """(model on args.device in eval mode, tokenizer) from
     ``args.dalle_path``; the checkpoint's hparams override the shape
-    flags."""
+    flags, and ``ar`` among them builds ART-V."""
     ckpt = read_dalle_checkpoint(args.dalle_path)
     for k in _HPARAM_KEYS:
         if ckpt['hparams'].get(k) is not None:
             setattr(args, k, ckpt['hparams'][k])
-    if getattr(args, 'ar', False):
-        raise NotImplementedError('ART-V checkpoints are not ported yet '
-                                  '(ROADMAP.md queue A, item 9)')
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     weights = dict(ckpt['weights'])
     vae = factories.get_vae_model(args, dtype=dtype, device=args.device)

@@ -1,0 +1,466 @@
+"""ART-V, the autoregressive baseline, in PyTorch, with its KV-cached
+sampler.
+
+Counterpart of ``mmvid_tpu/models/artv.py`` (the sampling surface: config,
+embeddings, the causal training forward, ``logits_block_mask``,
+``ar_sample`` and the ``ArtvModel`` wrapper).
+
+Sequence: <bos>+text (text_seq_len+1) | visual (num_visuals*n) | target
+(num_targets*n) under a causal mask, with disjoint vocabulary ranges (text
+with its per-position padding ids, visual with its pad ids, image).
+
+Submodule names are the reference ``dalle.pt`` names (``text_emb``,
+``image_pos_emb.weights_{i}``, ``visual_pos_emb.module_list.{i}``,
+``transformer.transformer.resblocks.{i}``, ``to_logits.{0,1}`` ...).
+``special_emb`` and ``estimation_pos_emb`` are the reference's too; no
+forward reads them, so the JAX package never creates their params and
+:data:`ArtvModel.optional_keys` lets a JAX param tree load without them.
+
+``ar_sample`` encodes the control prefix once (the prefill, plain torch),
+then decodes one token per step against per-layer K/V caches that grow
+per frame (``MMVID_ARTV_WINDOW``, default on).  The step runs as plain
+torch ops over per-layer [B, W, D] caches (the JAX package's default
+layout), or, with ``MMVID_ARTV_FUSED=1``, as one call of
+:func:`mmvid_tpu_torch.ops.artv_decode.decode_token_step` over stacked
+[n_layers, B, W, D] caches (the CUDA kernel on the card).  Both flags are
+read at every call.  Products take bf16 (the compute dtype) operands with
+fp32 sums and outputs, as the JAX package's ``preferred_element_type``
+does: the plain ops multiply fp32 copies of the rounded operands.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mmvid_tpu_torch.models.axial import (
+    AxialPositionalEmbedding,
+    AxialPositionalEmbeddingList,
+)
+from mmvid_tpu_torch.models.clip import (
+    NEG_INF,
+    ClipStackConfig,
+    TransformerStack,
+    build_attention_mask,
+    layer_norm_fp32,
+)
+from mmvid_tpu_torch.models.vqgan import VQGanVAE
+from mmvid_tpu_torch.ops.artv_decode import (
+    decode_token_step,
+    stack_decode_params,
+)
+from mmvid_tpu_torch.ops.sample_head import gumbel
+
+
+@dataclasses.dataclass(frozen=True)
+class ArtvConfig:
+    dim: int = 768
+    num_text_tokens: int = 10000      # raw; padding ids appended
+    text_seq_len: int = 50
+    num_visuals: int = 1
+    num_targets: int = 8
+    num_image_tokens: int = 1024
+    image_fmap_size: int = 8
+    image_size: int = 128
+    loss_img_weight: float = 7.0
+    loss_vis_weight: float = 1.0
+    stable: bool = False
+    clip: ClipStackConfig = ClipStackConfig()
+
+    @property
+    def image_seq_len(self) -> int:
+        return self.image_fmap_size ** 2
+
+    @property
+    def visual_seq_len(self) -> int:
+        return self.num_visuals * self.image_seq_len
+
+    @property
+    def target_seq_len(self) -> int:
+        return self.num_targets * self.image_seq_len
+
+    @property
+    def effective_num_text_tokens(self) -> int:
+        return self.num_text_tokens + self.text_seq_len
+
+    @property
+    def num_visual_tokens(self) -> int:
+        return self.num_image_tokens + self.visual_seq_len
+
+    @property
+    def num_control_tokens(self) -> int:
+        return self.effective_num_text_tokens + self.num_visual_tokens
+
+    @property
+    def total_tokens(self) -> int:
+        return self.num_control_tokens + self.num_image_tokens
+
+    @property
+    def control_seq_len(self) -> int:
+        return self.text_seq_len + self.visual_seq_len
+
+    @property
+    def total_seq_len(self) -> int:
+        # <bos>+text gives text_seq_len+1 embeddings and the last target
+        # token is never fed, so the transformer sees this many positions
+        return self.text_seq_len + self.visual_seq_len + self.target_seq_len
+
+
+class ArtvCore(nn.Module):
+    """All learned parameters of ART-V plus the causal training forward."""
+
+    def __init__(self, cfg: ArtvConfig, dtype=torch.float32):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        d, f = cfg.dim, cfg.image_fmap_size
+        self.text_emb = nn.Embedding(cfg.effective_num_text_tokens, d)
+        self.image_emb = nn.Embedding(cfg.num_image_tokens, d)
+        self.text_pos_emb = nn.Embedding(cfg.text_seq_len + 1, d)  # +<bos>
+        self.image_pos_emb = AxialPositionalEmbedding(
+            d, (f, f) if cfg.num_targets == 1 else (cfg.num_targets, f, f))
+        if cfg.num_visuals > 0:
+            self.visual_emb = nn.Embedding(cfg.num_visual_tokens, d)
+            self.visual_pos_emb = AxialPositionalEmbeddingList(
+                d, cfg.num_visuals, (f, f))
+        self.special_emb = nn.Embedding(4, d)
+        self.estimation_pos_emb = nn.Embedding(2, d)
+        self.transformer = nn.ModuleDict(
+            {'transformer': TransformerStack(cfg.clip, dtype=dtype)})
+        self.to_logits = nn.Sequential(
+            nn.LayerNorm(d, eps=1e-5),
+            nn.Linear(d, cfg.total_tokens, dtype=dtype))
+
+    def control_tokens_embedding(self, text, visual_tokens=None):
+        """<bos>+text+visual embeddings [B, 1+text+visual, D] fp32.  text
+        [B, text_seq_len] raw ids (0 = padding); visual_tokens
+        [B, visual_seq_len] image-codebook ids, -1 (or None) for absent."""
+        cfg = self.cfg
+        b, dev = text.shape[0], text.device
+        text_range = (torch.arange(cfg.text_seq_len, device=dev)
+                      + (cfg.effective_num_text_tokens - cfg.text_seq_len))
+        text = torch.where(text == 0, text_range[None], text)
+        text = torch.cat([text.new_zeros((b, 1)), text], dim=1)  # <bos>=0
+        parts = [self.text_emb(text) + self.text_pos_emb.weight[None]]
+        if cfg.num_visuals > 0:
+            if visual_tokens is None:
+                visual_tokens = torch.full((b, cfg.visual_seq_len), -1,
+                                           dtype=torch.long, device=dev)
+            visual_range = (torch.arange(cfg.visual_seq_len, device=dev)
+                            + (cfg.num_visual_tokens - cfg.visual_seq_len))
+            visual_tokens = torch.where(visual_tokens == -1,
+                                        visual_range[None], visual_tokens)
+            emb = self.visual_emb(visual_tokens)
+            parts.append(emb + self.visual_pos_emb(emb))
+        return torch.cat([p.float() for p in parts], dim=1)
+
+    def target_embedding(self, image_tokens):
+        emb = self.image_emb(image_tokens)
+        return emb + self.image_pos_emb(emb)
+
+    def logits(self, h):
+        """to_logits: fp32 LayerNorm, then the head in the compute dtype,
+        fp32 out."""
+        head = self.to_logits
+        return head[1](layer_norm_fp32(head[0], h, self.dtype)).float()
+
+    def forward(self, text, visual_tokens, image_tokens):
+        """Training forward -> logits [B, total_seq_len, total_tokens]
+        (causal; the last target position is dropped)."""
+        cfg = self.cfg
+        tokens = torch.cat([self.control_tokens_embedding(text,
+                                                          visual_tokens),
+                            self.target_embedding(image_tokens).float()],
+                           dim=1)[:, :-1]
+        mask = build_attention_mask(cfg.total_seq_len, 'causal',
+                                    device=tokens.device)
+        out = self.transformer['transformer'](tokens, mask)
+        if cfg.stable:
+            out = out / out.amax(dim=-1, keepdim=True)
+        return self.logits(out)
+
+
+def logits_block_mask(cfg: ArtvConfig) -> np.ndarray:
+    """[total_seq_len, total_tokens] bool, True = forbidden: each segment
+    predicts only its own vocabulary range."""
+    m = np.ones((cfg.total_seq_len, cfg.total_tokens), bool)
+    t, v = cfg.text_seq_len, cfg.visual_seq_len
+    m[:t, :cfg.effective_num_text_tokens] = False
+    m[t:t + v, cfg.effective_num_text_tokens:cfg.num_control_tokens] = False
+    m[t + v:, cfg.num_control_tokens:] = False
+    return m
+
+
+# ---------------------------------------------------------------------------
+# KV-cached autoregressive sampling
+# ---------------------------------------------------------------------------
+
+def _dense(x, w32t, b32, dt):
+    """x rounded to the compute dtype, times the fp32 copy of a rounded
+    weight [in, out], fp32 sums, plus the fp32 bias."""
+    return torch.addmm(b32, x.to(dt).float().flatten(0, -2), w32t
+                       ).view(*x.shape[:-1], -1)
+
+
+def _ln(x, ln: nn.LayerNorm):
+    return F.layer_norm(x, ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps)
+
+
+def _block_params(block):
+    """One resblock's decode operands, cast once per call: fp32 copies of
+    the (compute-dtype) weights as [in, out], fp32 biases."""
+    def lin(w, b):
+        return w.float().t(), b.float()
+    return {'ln_1': block.ln_1, 'ln_2': block.ln_2,
+            'qkv': lin(block.attn.in_proj_weight, block.attn.in_proj_bias),
+            'out': lin(block.attn.out_proj.weight, block.attn.out_proj.bias),
+            'fc': lin(block.mlp.c_fc.weight, block.mlp.c_fc.bias),
+            'proj': lin(block.mlp.c_proj.weight, block.mlp.c_proj.bias)}
+
+
+def _mlp_residual(p, x, dt):
+    h = _dense(_ln(x, p['ln_2']), *p['fc'], dt)
+    h = h * torch.sigmoid(1.702 * h)
+    return x + _dense(h, *p['proj'], dt)
+
+
+def _prefill_block(p, x, heads, dt):
+    """The control prefix through one block (causal, plain torch) ->
+    (x, k, v), k and v [B, lp, D] fp32."""
+    b, lp, d = x.shape
+    hd = d // heads
+    q, k, v = _dense(_ln(x, p['ln_1']), *p['qkv'], dt).split(d, dim=-1)
+    logits = torch.einsum('bqhd,bkhd->bhqk',
+                          q.to(dt).float().view(b, lp, heads, hd),
+                          k.to(dt).float().view(b, lp, heads, hd))
+    logits = logits * (hd ** -0.5)
+    causal = torch.ones((lp, lp), dtype=torch.bool, device=x.device).tril()
+    logits = logits.masked_fill(~causal, NEG_INF)
+    attn = torch.softmax(logits, dim=-1)
+    o = torch.einsum('bhqk,bkhd->bqhd', attn.to(dt).float(),
+                     v.to(dt).float().view(b, lp, heads, hd))
+    x = x + _dense(o.reshape(b, lp, d), *p['out'], dt)
+    return _mlp_residual(p, x, dt), k, v
+
+
+def _decode_block(p, x, ck, cv, pos, invalid, heads, dt):
+    """One token through one block over its own [B, W, D] caches, which
+    take this token's k and v at ``pos`` (written in place)."""
+    b, d = x.shape
+    w, hd = ck.shape[1], d // heads
+    q, k, v = _dense(_ln(x, p['ln_1']), *p['qkv'], dt).split(d, dim=-1)
+    ck[:, pos] = k
+    cv[:, pos] = v
+    logits = torch.einsum('bhd,bwhd->bhw',
+                          q.to(dt).float().view(b, heads, hd),
+                          ck.float().view(b, w, heads, hd))
+    logits = (logits * (hd ** -0.5)).masked_fill(invalid, NEG_INF)
+    attn = torch.softmax(logits, dim=-1)
+    o = torch.einsum('bhw,bwhd->bhd', attn.to(dt).float(),
+                     cv.float().view(b, w, heads, hd)).reshape(b, d)
+    return _mlp_residual(p, x + _dense(o, *p['out'], dt), dt)
+
+
+def ar_prefill(core: ArtvCore, text, visual_tokens=None):
+    """The control prefix (<bos>+text+visual) once through the stack:
+    (hidden of its last position [B, D] fp32, per-layer k and v
+    [B, ctrl_len, D] fp32)."""
+    dt = core.dtype
+    heads = core.cfg.clip.heads
+    x = core.control_tokens_embedding(text, visual_tokens)
+    pre_k, pre_v = [], []
+    for block in core.transformer['transformer'].resblocks:
+        x, k, v = _prefill_block(_block_params(block), x, heads, dt)
+        pre_k.append(k)
+        pre_v.append(v)
+    return x[:, -1], pre_k, pre_v
+
+
+def sample_tok(generator, logits, k_img: int, temperature: float):
+    """Top-k filter (k_img of the image columns) then a categorical draw
+    at ``temperature`` as Gumbel-argmax, noise from ``generator``."""
+    if k_img < logits.shape[-1]:
+        thresh = torch.topk(logits, k_img, dim=-1).values[:, -1:]
+        logits = logits.masked_fill(logits < thresh, float('-inf'))
+    noise = gumbel(logits.shape, generator, logits.device)
+    return torch.argmax(logits / temperature + noise, dim=-1)
+
+
+def _grow(cache, width):
+    """Zero-pad the cache's width axis (second to last) to ``width``."""
+    return F.pad(cache, (0, 0, 0, width - cache.shape[-2]))
+
+
+@torch.no_grad()
+def ar_sample(core: ArtvCore, text, visual_tokens, generator,
+              filter_thres: float = 0.5, temperature: float = 1.0):
+    """KV-cached sampling of all target tokens -> [B, target_seq_len]
+    int64 in [0, num_image_tokens).  ``generator`` (on the model's device)
+    draws each step's noise."""
+    cfg = core.cfg
+    heads, n_layers = cfg.clip.heads, cfg.clip.layers
+    dt, dim = core.dtype, cfg.dim
+    b = text.shape[0]
+    L = cfg.total_seq_len
+    ctrl_len = cfg.control_seq_len + 1  # +<bos>
+    fused = os.environ.get('MMVID_ARTV_FUSED', '0') == '1'
+    window = os.environ.get('MMVID_ARTV_WINDOW', '1') == '1'
+
+    prefix_last, pre_k, pre_v = ar_prefill(core, text, visual_tokens)
+    pos_emb = core.image_pos_emb.embedding(cfg.target_seq_len)
+    blocks = core.transformer['transformer'].resblocks
+    if fused:
+        stacked = stack_decode_params(blocks)
+    else:
+        dec = [_block_params(block) for block in blocks]
+
+    # the head sliced once to the image columns: the others never survive
+    # the sampler
+    ln_head, fc = core.to_logits
+    fc_w = fc.weight[cfg.num_control_tokens:].float().t()
+    fc_b = fc.bias[cfg.num_control_tokens:].float()
+
+    def image_logits(hidden):
+        return _dense(_ln(hidden, ln_head), fc_w, fc_b, dt)
+
+    k_img = min(max(int((1 - filter_thres) * cfg.total_tokens), 1),
+                cfg.num_image_tokens)
+    n_steps = cfg.target_seq_len - 1
+    seg_len = cfg.image_seq_len if window else n_steps
+    w0 = min(ctrl_len + seg_len, L)
+    if fused:   # stacked [n_layers, B, W, D]
+        cache_k = _grow(torch.stack(pre_k).to(dt), w0)
+        cache_v = _grow(torch.stack(pre_v).to(dt), w0)
+    else:       # per-layer [B, W, D]
+        cache_k = [_grow(k.to(dt), w0) for k in pre_k]
+        cache_v = [_grow(v.to(dt), w0) for v in pre_v]
+
+    tok = sample_tok(generator, image_logits(prefix_last), k_img,
+                     temperature)
+    fed = []
+    # token i is fed at step i (cache position ctrl_len + i) and token i+1
+    # sampled; the last token is never fed.  The caches grow per segment.
+    for start in range(0, n_steps, seg_len):
+        stop = min(start + seg_len, n_steps)
+        width = min(ctrl_len + stop, L)
+        if fused:
+            cache_k, cache_v = _grow(cache_k, width), _grow(cache_v, width)
+        else:
+            cache_k = [_grow(c, width) for c in cache_k]
+            cache_v = [_grow(c, width) for c in cache_v]
+        cols = torch.arange(width, device=text.device)
+        for step_i in range(start, stop):
+            pos = ctrl_len + step_i
+            x = core.image_emb.weight[tok].float() + pos_emb[step_i].float()
+            if fused:
+                x, k_new, v_new = decode_token_step(x, stacked, cache_k,
+                                                    cache_v, pos, heads)
+                # one write per token for all layers
+                cache_k[:, :, pos] = k_new
+                cache_v[:, :, pos] = v_new
+            else:
+                invalid = cols > pos
+                for i in range(n_layers):
+                    x = _decode_block(dec[i], x, cache_k[i], cache_v[i],
+                                      pos, invalid, heads, dt)
+            fed.append(tok)
+            tok = sample_tok(generator, image_logits(x), k_img,
+                             temperature)
+    return torch.stack(fed + [tok], dim=1)
+
+
+class ArtvModel(nn.Module):
+    """Holds ``core`` (ArtvCore), ``vae`` and optionally ``cvae`` (which
+    tokenizes visual control frames), with MMVIDBert's generation surface.
+
+    ``core``'s submodules are registered on this module directly (the same
+    objects), which makes ``state_dict()`` the reference ``dalle.pt``
+    ``weights`` payload."""
+
+    # reference names the JAX package has no params for (no forward reads
+    # them): a JAX param tree loads without them
+    optional_keys = ('special_emb.weight', 'estimation_pos_emb.weight')
+
+    def __init__(self, cfg: ArtvConfig, vae: VQGanVAE,
+                 cvae: VQGanVAE | None = None, dtype=torch.float32):
+        super().__init__()
+        core = ArtvCore(cfg, dtype=dtype)
+        for name, child in core.named_children():
+            self.add_module(name, child)
+        object.__setattr__(self, 'core', core)  # not a second registration
+        self.vae = vae
+        self.cvae = cvae
+        self.cfg = cfg
+
+    def _tokenizer(self, which_vae: str) -> VQGanVAE:
+        if which_vae == 'cvae' and self.cvae is not None:
+            return self.cvae
+        return self.vae
+
+    @torch.no_grad()
+    def get_image_tokens(self, images, which_vae='vae'):
+        """images [B, T, H, W, 3] (or [B, H, W, 3]) in [0, 1] -> ids
+        [B, T*n] int64."""
+        if images.dim() == 4:
+            images = images[:, None]
+        b, t = images.shape[:2]
+        flat = images.reshape((b * t,) + images.shape[2:])
+        return self._tokenizer(which_vae).get_codebook_indices(
+            flat).reshape(b, -1)
+
+    def visual_tokens(self, visual, batch: int, device=None):
+        """Control frames [B, V, H, W, 3] (tokenized through the cvae),
+        ids, or None (every visual position absent, -1)."""
+        if visual is not None and visual.dim() >= 4:
+            return self.get_image_tokens(visual, which_vae='cvae')
+        if visual is not None:
+            return visual
+        return torch.full((batch, self.cfg.visual_seq_len), -1,
+                          dtype=torch.long, device=device)
+
+    @torch.no_grad()
+    def prefill(self, text, visual=None):
+        """The visual tokens and the control prefix through the stack (the
+        first part of :meth:`generate_images`)."""
+        return ar_prefill(self.core, text, self.visual_tokens(
+            visual, text.shape[0], text.device))
+
+    @torch.no_grad()
+    def generate_images(self, generator, text, *, visual=None,
+                        filter_thres=0.5, temperature=1.0, decode=True,
+                        **unused):
+        """text [B, text_seq_len] int -> (videos [B, T, H, W, 3] in [0, 1]
+        or None when ``decode`` is False, img_seq [B, T*n] int64).  The
+        mask-predict keywords (``mask_predict_steps``, ``dynamic``,
+        ``mp_config``) are taken and ignored, so
+        ``generate.generate_videos`` serves both models."""
+        vtok = self.visual_tokens(visual, text.shape[0], text.device)
+        seq = ar_sample(self.core, text, vtok, generator,
+                        filter_thres=filter_thres, temperature=temperature)
+        if not decode:
+            return None, seq
+        return self.decode_video(seq), seq
+
+    @torch.no_grad()
+    def decode_video(self, img_seq):
+        cfg = self.cfg
+        b = img_seq.shape[0]
+        frames = img_seq.reshape(b * cfg.num_targets, cfg.image_seq_len)
+        imgs = self.vae.decode(frames)
+        return imgs.reshape((b, cfg.num_targets) + imgs.shape[1:])
+
+    @torch.no_grad()
+    def recon_images(self, images, which_vae='vae'):
+        """Tokenize and decode (a round trip): any frame count ->
+        [B, T, H, W, 3] in [0, 1]."""
+        toks = self.get_image_tokens(images, which_vae)
+        b = toks.shape[0]
+        t = toks.shape[1] // self.cfg.image_seq_len
+        imgs = self._tokenizer(which_vae).decode(
+            toks.reshape(b * t, self.cfg.image_seq_len))
+        return imgs.reshape((b, t) + imgs.shape[1:])

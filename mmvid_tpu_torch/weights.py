@@ -20,21 +20,24 @@ from mmvid_tpu_torch.utils.torch_compat import bert_params_to_torch
 
 def load_weights(model: torch.nn.Module, weights: Mapping) -> None:
     """Load a reference-format ``weights`` dict (numpy arrays or tensors)
-    into ``model``; raises if any key is missing or unexpected."""
+    into ``model``; raises if any key is missing or unexpected, except
+    the keys the model lists in ``optional_keys`` (reference names that
+    no forward reads), which may be missing."""
     sd = {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
           for k, v in weights.items()}
     res = model.load_state_dict(sd, strict=False)
-    if res.missing_keys or res.unexpected_keys:
+    missing = [k for k in res.missing_keys
+               if k not in getattr(model, 'optional_keys', ())]
+    if missing or res.unexpected_keys:
         raise KeyError(f'weights do not match the model: missing '
-                       f'{res.missing_keys}, unexpected '
-                       f'{res.unexpected_keys}')
+                       f'{missing}, unexpected {res.unexpected_keys}')
 
 
 def load_jax_params(model: torch.nn.Module, params: Dict,
                     vae_params: Dict | None = None,
                     cvae_params: Dict | None = None) -> None:
-    """Load JAX BertCore params (and the vae's and cvae's VQModel params)
-    into the port."""
+    """Load JAX BertCore or ArtvCore params (and the vae's and cvae's
+    VQModel params) into the port."""
     load_weights(model, bert_params_to_torch(params, vae_params,
                                              cvae_params))
 

@@ -293,6 +293,36 @@ def test_generate_main_writes_pngs(tmp_path, vae_in_dalle):
     assert Image.open(pngs[0]).size == (2 * 32, 32)   # 2 frames in a row
 
 
+def test_generate_main_artv_checkpoint(tmp_path):
+    """A dalle.pt whose hparams say ``ar`` loads as ART-V (one visual
+    block of pad ids, as get_dalle raises num_visuals to 1) and writes
+    videos through the same CLI."""
+    hparams = {'dim': 64, 'text_seq_len': 6, 'num_targets': 2,
+               'num_visuals': 0, 'image_size': 32, 'ar': True,
+               'which_transformer': 'custom:64:2:2'}
+    args = SimpleNamespace(**hparams, loss_img_weight=7)
+    model = factories.get_dalle(
+        args, factories.get_vae_model(args, device='cpu'), device='cpu')
+    assert type(model).__name__ == 'ArtvModel'
+    factories.init_weights(model, torch.Generator().manual_seed(0))
+    torch.save({'iter': 1, 'hparams': hparams,
+                'weights': model.state_dict()}, tmp_path / 'dalle.pt')
+    loaded, _ = generate.load_model(generate.parse_args(
+        ['--dalle_path', str(tmp_path / 'dalle.pt'), '--device', 'cpu',
+         '--no-bf16']))
+    assert type(loaded).__name__ == 'ArtvModel'
+    assert loaded.cfg.num_visuals == 1 and loaded.cfg.total_seq_len == 18
+    generate.main(generate.parse_args([
+        '--dalle_path', str(tmp_path / 'dalle.pt'), '--prompts',
+        'a person is talking', 'she laughs', '--out_dir',
+        str(tmp_path / 'out'), '--batch_size', '2', '--format', 'png',
+        '--device', 'cpu', '--no-bf16']))
+    pngs = sorted((tmp_path / 'out').glob('*.png'))
+    assert len(pngs) == 2
+    from PIL import Image
+    assert Image.open(pngs[0]).size == (2 * 32, 32)
+
+
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     """No nvcc means an error, never a stub library or a silent plain
     path."""

@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from mmvid_tpu_torch.models.clip import build_attention_mask
+from mmvid_tpu_torch.ops import artv_decode as AD
 from mmvid_tpu_torch.ops import attention as A
 from mmvid_tpu_torch.ops import codebook as C
 from mmvid_tpu_torch.ops import fused_ln_qkv as Q
+from mmvid_tpu_torch.ops import gridstep as G
 from mmvid_tpu_torch.ops import sample_head as S
 
 
@@ -154,3 +156,105 @@ def test_ln_qkv_kernel_rejects_fp32(cuda_device):
     with pytest.raises(ValueError, match='bf16'):
         Q.fused_ln_qkv(*args)
     assert Q.launches == before
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at the larger of |t| and 1 (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(1.0))) - 7)
+
+
+def _bf16_close(got, want, tol):
+    """y within tol * (1 + |plain|); k_new, v_new within tol of that form
+    too when tol is given for them, else within one bf16 ulp of
+    max(|plain|, 1)."""
+    y, k_new, v_new = got
+    ok = bool(((y - want[0]).abs() <= tol[0] * (1 + want[0].abs())).all())
+    for g, w in zip((k_new, v_new), want[1:]):
+        g, w = g.float(), w.float()
+        lim = tol[1] * (1 + w.abs()) if tol[1] else bf16_ulp(w)
+        ok = ok and bool(((g - w).abs() <= lim).all())
+    return ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['float32', 'bfloat16'])
+@pytest.mark.parametrize('n_layers,b,w,d,heads,pos', [
+    (2, 2, 256, 128, 2, 1), (2, 2, 256, 128, 2, 64),
+    (2, 2, 256, 128, 2, 255), (2, 3, 256, 64, 2, 200),
+    (12, 16, 626, 768, 12, 1), (12, 16, 626, 768, 12, 64),
+    (12, 16, 626, 768, 12, 625)])
+def test_artv_decode_kernel_matches_plain(cuda_device, dtype, n_layers, b,
+                                          w, d, heads, pos):
+    """The ART-V step at the small shape (head dims 64 and 32) and at full
+    width (768 x 12 layers, B 16, W 626), pos at 1, 64 and the last row.
+    fp32 within 1e-4 (sums in another order).  bf16: y within 2e-2 * (1 +
+    |plain|) and k_new, v_new within one bf16 ulp of max(|plain|, 1): the
+    kernel rounds h, the probabilities and the MLP activations to bf16 at
+    the plain version's places, and a last-bit difference of an fp32 sum
+    flips one rounding, which moves later values by about 1e-4.  At full
+    width that holds block by block (each block's kernel and plain
+    version fed the same input, the plain version's x): through 12 random
+    blocks such flips grow, and moving x by one fp32 ulp alone moves the
+    plain version's own y and k, v about as far (chip_smoke.py prints
+    both), so the whole step is held within 5e-2 * (1 + |plain|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(pos)
+    x, p, ck, cv = AD.random_inputs(n_layers, b, w, d, dtype, g,
+                                    cuda_device)
+    before = AD.launches
+    got = AD.decode_token_step(x, p, ck, cv, pos, heads)
+    assert AD.launches == before + 1
+    want = AD.decode_token_step_reference(x, p, ck, cv, pos, heads)
+    assert got[0].dtype == torch.float32 and got[1].dtype == dtype
+    assert got[1].shape == got[2].shape == (n_layers, b, d)
+    if dtype == torch.float32:
+        for a, ref in zip(got, want):
+            assert (a - ref).abs().max().item() <= 1e-4
+        return
+    if n_layers <= 2:
+        assert _bf16_close(got, want, (2e-2, None))
+        return
+    assert _bf16_close(got, want, (5e-2, 5e-2))
+    xi = x
+    for i in range(n_layers):
+        args = (AD.layer_params(p, i), ck[i:i + 1], cv[i:i + 1], pos, heads)
+        ref = AD.decode_token_step_reference(xi, *args)
+        assert _bf16_close(AD.decode_token_step(xi, *args), ref,
+                           (2e-2, None)), f'block {i}'
+        xi = ref[0]
+
+
+@pytest.mark.cuda
+def test_artv_decode_kernel_rejects_bad_shapes(cuda_device):
+    """Head dims other than 32 or 64, pos beyond W, or B above 64 raise
+    and launch nothing."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x, p, ck, cv = AD.random_inputs(1, 2, 64, 96, torch.bfloat16, g,
+                                    cuda_device)
+    before = AD.launches
+    with pytest.raises(ValueError, match='head dim'):
+        AD.decode_token_step(x, p, ck, cv, 1, 2)          # hd 48
+    with pytest.raises(ValueError, match='pos'):
+        AD.decode_token_step(x, p, ck, cv, 65, 3)
+    assert AD.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('launches_per_call', G.LAUNCHES_PER_CALL)
+def test_gridstep_kernel_matches_plain(cuda_device, launches_per_call):
+    """The probe at its shape, 4 chained calls, each launch structure:
+    within 1e-4 of the plain version (fp32 sums in another order), and
+    the three structures bitwise equal (the same tiles, the same order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x, w = G.probe_inputs(g, cuda_device)
+    wt = G.prepare_weights(w)
+    before = G.launches
+    got = G.probe(x, wt, launches_per_call, calls=4)
+    assert G.launches == before + 4 * launches_per_call
+    want = x
+    for _ in range(4):
+        want = G.probe_call_reference(want, wt)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, G.probe(x, wt, 1, calls=4))
