@@ -12,19 +12,23 @@ mask_8x8 erase, sequence 629) through ``factories.get_vae_model`` /
 gate off and then on; and ART-V, the autoregressive sampler (the same
 backbone from the text-to-video flags with ``--ar``: a prefill of the
 115-position control prefix, then 511 KV-cached decode steps), through
-``generate.generate_videos``, with the whole-step decode kernel's gate
-(``MMVID_ARTV_FUSED``) on and then off.  The paths' models, inputs and
-batch-16 timings come from ``mmvid_tpu_torch.breakdown`` (``build``,
-``inputs``, ``measure``).  Phases, in order; any failure exits non-zero
-and prints no result line:
+``generate.generate_videos``, on the card's default path (the whole-step
+decode kernel) and then with ``MMVID_ARTV_FUSED=0`` (the per-layer step).
+The paths' models, inputs and batch-16 timings come from
+``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``, ``measure``).
+Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: CUDA is required; prints the card's name and power limit.
 2. build: compiles ``mmvid_tpu_torch/csrc`` with nvcc (sm_90a), one nvcc
    per source in parallel.
-3. attention kernel vs its plain version, fp32 (TF32 off) and bf16, and
-   beside ``F.scaled_dot_product_attention`` with the same float mask, at
-   each path's sequence and mask_prev rows: text+mask (L 629), flagship
-   (L 565), tiny (L 139).
+3. attention kernels vs their plain version, ``MMVID_ATTN_BF16`` off and
+   on: fp32 (the CUDA-core kernel, TF32 off) and bf16 (the tensor-core
+   kernel) at each path's sequence and mask_prev rows: text+mask (L 629),
+   flagship (L 565), tiny (L 139); bf16 on q, k, v as packed strided
+   views with mask_prev and causal masks, D 64 and 32, and the share of
+   outputs that differ from plain; times beside
+   ``F.scaled_dot_product_attention`` with the same float mask on the
+   packed views at L 629 and L 565.
 4. sample-head kernel vs its plain version: exact at temp 0 for Y given
    the chosen token, token histograms in distribution (TV bounds).
 5. nearest-code kernel vs its plain version: ids equal on a randn
@@ -38,18 +42,19 @@ and prints no result line:
    192 launches a call, and the cost of one launch.
 9. tiny models on the card vs the same weights on the CPU: the flagship,
    the text+mask model's cvae ids and forward logits, and ART-V's greedy
-   tokens with MMVID_ARTV_FUSED=1.
+   tokens, each device on its default decode path.
 10. flagship path: 6 prompts at batch 4, launch counts, output checks,
     determinism by seed; then ``breakdown.measure`` of a batch of 16.
 11. text+mask path: one batch of 16, launch counts, output checks,
     determinism by seed, then ``breakdown.measure``; then again with
     MMVID_FUSED_LNQKV=1 (launch counts, tokens against the gate-off run,
     ``breakdown.measure``).
-12. ART-V path: the 16 prompts in one batch with MMVID_ARTV_FUSED=1
-    (511 decode-kernel launches), then with the gate off (no launch):
-    output checks for each, determinism by seed with the gate on, the
-    tokens that differ between the two, ``breakdown.measure`` for each
-    (one timed call of each with the gate off, seconds a batch).
+12. ART-V path: the 16 prompts in one batch on the card's default path
+    (511 decode-kernel launches), then with MMVID_ARTV_FUSED=0 (no
+    launch): output checks for each, determinism by seed on the default
+    path, the tokens that differ between the two, ``breakdown.measure``
+    for each (one timed call of each for the per-layer path, seconds a
+    batch).
 
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
 then as its last line ``{"ok": true, "device": {...}}``.  Run from the
@@ -72,7 +77,18 @@ import time
 # of the mass onto one token, TV > 0.5).
 TV_EXACT_BOUND = 0.05
 TV_TWO_SAMPLE_BOUND = 0.07
-ATTN_TOL = {'float32': 1e-4, 'bfloat16': 2e-2}   # max abs error
+# attention kernels vs plain, max abs error, by (dtype, MMVID_ATTN_BF16):
+# fp32 sums in another order; bf16 outputs rounded from fp32 sums in
+# another order (online softmax), up to 2 bf16 ulps at |out| ~ 2; fp32
+# with bf16 probabilities: the kernel rounds exp(logit - running max), the
+# plain version exp(logit - row max), so a term moves by up to 2^-9 of
+# itself
+ATTN_TOL = {('float32', False): 1e-4, ('float32', True): 4e-3,
+            ('bfloat16', False): 2e-2, ('bfloat16', True): 2e-2}
+# share of bf16 outputs of the default route (P_hi + P_lo) that may differ
+# from the plain version's (about 0.2% expected; bf16 probabilities move
+# about 40%)
+ATTN_DIFFER_MAX = 0.02
 # kernel Y vs the plain softmax probability of the kernel's token.  With a
 # bf16 W the LN output is rounded to bf16 before the product; the kernel's
 # and the plain LN statistics differ in the last fp32 bit, which flips the
@@ -181,57 +197,131 @@ def phase_build():
     print(f'[build] {time.perf_counter() - t0:.2f} s', flush=True)
 
 
+def _attention_inputs(b, l, h, d, dtype, packed, seed):
+    """q, k, v [B, L, H, D] on the card: contiguous, or (packed) strided
+    views of one [B, L, 3 * H * D] projection, the main path's layout
+    (models/clip.py)."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    if packed:
+        qkv = torch.randn((b, l, 3 * h * d), generator=g, device='cuda'
+                          ).to(dtype)
+        return [qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+                for i in range(3)]
+    return [torch.randn((b, l, h, d), generator=g, device='cuda').to(dtype)
+            for _ in range(3)]
+
+
+def _set_attn_bf16(on: bool):
+    if on:
+        os.environ['MMVID_ATTN_BF16'] = '1'
+    else:
+        os.environ.pop('MMVID_ATTN_BF16', None)
+
+
 def phase_attention():
+    """The attention kernels against their plain version with
+    MMVID_ATTN_BF16 off and on: fp32 (the CUDA-core kernel, TF32 off) and
+    bf16 (the tensor-core kernel) on contiguous q, k, v at each path's
+    sequence and mask_prev rows (text+mask L 629, flagship L 565, tiny L
+    139); bf16 on packed strided views with mask_prev and causal masks, D
+    64 and 32.  Fails beyond ATTN_TOL, or where the default bf16 route
+    differs from the plain version in more than ATTN_DIFFER_MAX of its
+    outputs.  Times the bf16 kernel (both variants), the plain version and
+    ``F.scaled_dot_product_attention`` with the same float mask on the
+    main path's packed views at L 629 and L 565, and the fp32 kernel."""
     import torch
     from mmvid_tpu_torch.models.clip import build_attention_mask
     from mmvid_tpu_torch.ops import attention as A
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain = fp32
-    dev = torch.device('cuda')
-    rows = {}
-    # (B, L, H, D, mask_prev rows): the text+mask path, the flagship and
-    # the tiny config
+
+    def check(tag, q, k, v, mask, bf16p):
+        _set_attn_bf16(bf16p)
+        d = q.shape[-1]
+        out = A.fused_attention_blhd(q, k, v, mask)
+        ref = A.attention_reference(q, k, v, mask, d ** -0.5, bf16p)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        differ = (out != ref).float().mean().item()
+        name = str(q.dtype).split('.')[-1]
+        tol = ATTN_TOL[(name, bf16p)]
+        variant = 'bf16 probabilities' if bf16p else 'default'
+        print(f'[attention] {tag} {name} {variant}: max abs err {err:.3e} '
+              f'(tol {tol}), outputs differing from plain {differ:.4f}',
+              flush=True)
+        if not err <= tol:
+            fail(f'attention {tag} {name} {variant}: max abs err {err} > '
+                 f'{tol}')
+        if name == 'bfloat16' and not bf16p and differ > ATTN_DIFFER_MAX:
+            fail(f'attention {tag}: {differ} of the outputs differ from '
+                 f'plain (> {ATTN_DIFFER_MAX})')
+        return err, differ
+
+    fp32_rows = {}
     for b, l, h, d, idx in ((16, 629, 12, 64, (115, 116)),
                             (16, 565, 12, 64, (51, 52)),
                             (16, 139, 2, 32, (9, 10))):
-        mask = build_attention_mask(l, 'mask_prev', index=idx, device=dev)
-        g = torch.Generator(device=dev).manual_seed(l)
-        q, k, v = (torch.randn((b, l, h, d), generator=g, device=dev)
-                   for _ in range(3))
+        mask = build_attention_mask(l, 'mask_prev', index=idx, device='cuda')
         for dtype in (torch.float32, torch.bfloat16):
-            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
-            out = A.fused_attention_blhd(qd, kd, vd, mask)
-            ref = A.attention_reference(qd, kd, vd, mask, d ** -0.5)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            name = str(dtype).split('.')[-1]
-            tol = ATTN_TOL[name]
-            ms = cuda_time_ms(lambda: A.fused_attention_blhd(qd, kd, vd,
-                                                             mask))
-            plain_ms = cuda_time_ms(
-                lambda: A.attention_reference(qd, kd, vd, mask, d ** -0.5))
-            # one PyTorch call for the same function: [B, H, L, D] views
-            # and the same additive mask in q's dtype
-            qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
-            mt = mask.to(dtype)
-            lib = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mt).transpose(1, 2)
-            lib_err = (lib.float() - ref.float()).abs().max().item()
-            lib_ms = cuda_time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mt))
-            print(f'[attention] B={b} L={l} H={h} D={d} {name}: max abs '
-                  f'err {err:.3e} (tol {tol}) kernel {ms:.4f} ms plain '
-                  f'{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms (err vs plain '
-                  f'{lib_err:.3e})', flush=True)
-            if not err <= tol:
-                fail(f'attention {name} D={d}: max abs err {err} > {tol}')
-            nbytes = 4 * b * l * h * d * qd.element_size() + l * l * 4
-            rows[(l, name)] = (err, ms, plain_ms, lib_ms) + bound(
-                nbytes, 4 * b * h * l * l * d,
-                'bf16' if dtype == torch.bfloat16 else 'fp32')
-    # the main paths' rows: text+mask (the kernels line), flagship
-    return rows[(629, 'bfloat16')], rows[(565, 'bfloat16')]
+            q, k, v = _attention_inputs(b, l, h, d, dtype, False, l)
+            for bf16p in (False, True):
+                err, _ = check(f'B={b} L={l} H={h} D={d} contiguous', q, k,
+                               v, mask, bf16p)
+                if dtype == torch.float32 and not bf16p and l != 139:
+                    _set_attn_bf16(False)
+                    ms = cuda_time_ms(lambda: A.fused_attention_blhd(
+                        q, k, v, mask))
+                    fp32_rows[l] = {'max_abs_err': err, 'ms': ms}
+    for b, l, h, d, kind, idx in ((16, 629, 12, 64, 'mask_prev', (115, 116)),
+                                  (16, 565, 12, 64, 'mask_prev', (51, 52)),
+                                  (16, 626, 12, 64, 'causal', None),
+                                  (16, 139, 2, 32, 'mask_prev', (9, 10)),
+                                  (16, 139, 2, 32, 'causal', None)):
+        mask = build_attention_mask(l, kind, index=idx, device='cuda')
+        q, k, v = _attention_inputs(b, l, h, d, torch.bfloat16, True, l + 1)
+        for bf16p in (False, True):
+            check(f'B={b} L={l} H={h} D={d} packed {kind}', q, k, v, mask,
+                  bf16p)
+
+    # times on the main path's inputs: packed bf16 views, mask_prev
+    rows = {}
+    for b, l, h, d, idx in ((16, 629, 12, 64, (115, 116)),
+                            (16, 565, 12, 64, (51, 52))):
+        mask = build_attention_mask(l, 'mask_prev', index=idx, device='cuda')
+        q, k, v = _attention_inputs(b, l, h, d, torch.bfloat16, True, l + 2)
+        # one PyTorch call for the same function: [B, H, L, D] views and
+        # the same additive mask in q's dtype
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mt = mask.to(torch.bfloat16)
+        lib_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mt))
+        nbytes = 4 * b * l * h * d * 2 + l * l * 4
+        bms, by = bound(nbytes, 4 * b * h * l * l * d, 'bf16')
+        for bf16p in (False, True):
+            err, differ = check(f'B={b} L={l} H={h} D={d} packed mask_prev '
+                                f'(timed)', q, k, v, mask, bf16p)
+            _set_attn_bf16(bf16p)
+            ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, mask))
+            plain_ms = cuda_time_ms(lambda: A.attention_reference(
+                q, k, v, mask, d ** -0.5, bf16p))
+            rows[(l, bf16p)] = {'max_abs_err': err, 'differ_share': differ,
+                                'ms': ms, 'plain_ms': plain_ms,
+                                'library_ms': lib_ms, 'bound_ms': bms,
+                                'bound_by': by}
+            print(f'[attention] B={b} L={l} H={h} D={d} bfloat16 '
+                  f'{"bf16 probabilities" if bf16p else "default"}: kernel '
+                  f'{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms '
+                  f'bound {bms:.4f} ms ({by})', flush=True)
+            if not ms < lib_ms:
+                print(f'[attention] note: the kernel is not faster than '
+                      f'sdpa at L={l}', flush=True)
+    _set_attn_bf16(False)
+    print(f'[attention] fp32 CUDA-core kernel: L629 '
+          f'{fp32_rows[629]["ms"]:.4f} ms, L565 {fp32_rows[565]["ms"]:.4f} '
+          f'ms', flush=True)
+    return rows, fp32_rows
 
 
 def _tv(p, q):
@@ -623,9 +713,10 @@ def phase_tiny_reference():
 
 
 def phase_tiny_artv():
-    """The tiny fp32 ART-V with MMVID_ARTV_FUSED=1 on the card (the decode
-    kernels) against the same weights on the CPU (the plain step, the path
-    the CPU tests hold against JAX): greedy tokens equal."""
+    """The tiny fp32 ART-V on the card against the same weights on the
+    CPU, each on its default decode path (the card: the stacked step
+    through the decode kernel; the CPU: the per-layer step the CPU tests
+    hold against JAX): greedy tokens equal."""
     import torch
     from mmvid_tpu_torch import factories
     from mmvid_tpu_torch.ops import artv_decode as AD
@@ -635,22 +726,19 @@ def phase_tiny_artv():
     gpu, _ = factories.artv_tiny(device='cuda', seed=3)
     g = torch.Generator().manual_seed(3)
     text = torch.randint(1, 50, (2, cpu.cfg.text_seq_len), generator=g)
-    os.environ['MMVID_ARTV_FUSED'] = '1'
-    try:
-        before = AD.launches
-        _, want = cpu.generate_images(torch.Generator().manual_seed(0),
-                                      text, temperature=1e-6, decode=False)
-        _, got = gpu.generate_images(
-            torch.Generator(device='cuda').manual_seed(0), text.cuda(),
-            temperature=1e-6, decode=False)
-        steps = AD.launches - before
-    finally:
-        os.environ.pop('MMVID_ARTV_FUSED', None)
+    before = AD.launches
+    _, want = cpu.generate_images(torch.Generator().manual_seed(0), text,
+                                  temperature=1e-6, decode=False)
+    cpu_steps = AD.launches - before
+    _, got = gpu.generate_images(
+        torch.Generator(device='cuda').manual_seed(0), text.cuda(),
+        temperature=1e-6, decode=False)
+    steps = AD.launches - before
     n_diff = int((got.cpu() != want).sum())
-    print(f'[tiny] ART-V fp32 greedy, MMVID_ARTV_FUSED=1: tokens differing '
-          f'card vs CPU {n_diff} of {want.numel()} ({steps} decode-kernel '
-          f'steps on the card)', flush=True)
-    if n_diff or steps != cpu.cfg.target_seq_len - 1:
+    print(f'[tiny] ART-V fp32 greedy, default paths: tokens differing card '
+          f'vs CPU {n_diff} of {want.numel()} ({steps} decode-kernel steps '
+          f'on the card, {cpu_steps} counted on the CPU)', flush=True)
+    if n_diff or cpu_steps or steps != cpu.cfg.target_seq_len - 1:
         fail('tiny ART-V on the card disagrees with the CPU')
 
 
@@ -821,8 +909,9 @@ def phase_artv():
     """ART-V at full width (the text-to-video flags with --ar: 768 x 12
     layers, control prefix 115, 511 decode steps, cache widths 179 ..
     626): the 16 prompts in one batch through generate.generate_videos,
-    first with MMVID_ARTV_FUSED=1 (the decode kernels), then with the gate
-    off (plain torch ops)."""
+    first on the card's default path (the stacked step through the decode
+    kernel), then with MMVID_ARTV_FUSED=0 (the per-layer step in plain
+    torch ops)."""
     import torch
     from mmvid_tpu_torch import breakdown, generate
     from mmvid_tpu_torch.tokenizer import SimpleTokenizer
@@ -849,22 +938,25 @@ def phase_artv():
         return out[0]
 
     counts, tokens = {}, {}
-    for tag, gate in (('artv fused', '1'), ('artv', '0')):
-        os.environ['MMVID_ARTV_FUSED'] = gate
+    for tag, gate in (('artv', None), ('artv per-layer', '0')):
+        if gate is None:
+            os.environ.pop('MMVID_ARTV_FUSED', None)
+        else:
+            os.environ['MMVID_ARTV_FUSED'] = gate
         try:
             reset_counts()
             t0 = time.perf_counter()
             out = run()
             dt = time.perf_counter() - t0
             counts[tag] = read_counts()
-            want = expected(artv_decode=steps if gate == '1' else 0)
+            want = expected(artv_decode=steps if gate is None else 0)
             print(f'[{tag}] launches {counts[tag]} (expected {want}); first '
                   f'batch {dt:.3f} s', flush=True)
             if counts[tag] != want:
                 fail(f'{tag} launch counts {counts[tag]} != {want}')
             _check_videos(tag, cfg, out.videos, out.tokens)
             tokens[tag] = out.tokens
-            if gate == '1':
+            if gate is None:
                 same = torch.equal(out.tokens, run().tokens)
                 print(f'[{tag}] videos {tuple(out.videos.shape)}, finite in '
                       f'[0,1], tokens < {cfg.num_image_tokens}, same seed '
@@ -881,12 +973,12 @@ def phase_artv():
                                               warm=False))
         finally:
             os.environ.pop('MMVID_ARTV_FUSED', None)
-    n_diff = int((tokens['artv fused'] != tokens['artv']).sum())
-    print(f'[artv] tokens differing between the gate-on and gate-off runs '
-          f'under one seed: {n_diff} of {tokens["artv"].numel()} (bf16 '
+    n_diff = int((tokens['artv'] != tokens['artv per-layer']).sum())
+    print(f'[artv] tokens differing between the kernel and the per-layer '
+          f'runs under one seed: {n_diff} of {tokens["artv"].numel()} (bf16 '
           f'roundings flip near-ties, and a flipped token changes every '
           f'later step of its row)', flush=True)
-    return counts['artv'], counts['artv fused']
+    return counts['artv'], counts['artv per-layer']
 
 
 def timed(phase, *args):
@@ -904,12 +996,15 @@ def main():
     # the default paths first
     os.environ.pop('MMVID_FUSED_LNQKV', None)
     os.environ.pop('MMVID_ARTV_FUSED', None)
+    os.environ.pop('MMVID_ATTN_BF16', None)
     phase_device()
     timed(phase_build)
-    attention, attention_flagship = timed(phase_attention)
+    attention, attention_fp32 = timed(phase_attention)
     artv_decode, decode_by_pos = timed(phase_artv_decode)
     gridstep, probe = timed(phase_gridstep)
-    rows = {'attention': attention,
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'bound_by')
+    rows = {'attention': tuple(attention[(629, False)][k] for k in keys),
             'sample_head': timed(phase_sample_head),
             'codebook': timed(phase_codebook),
             'fused_ln_qkv': timed(phase_ln_qkv),
@@ -918,7 +1013,7 @@ def main():
     timed(phase_tiny_artv)
     flagship = timed(phase_main_path)
     text_mask, fused = timed(phase_text_mask)
-    artv, artv_fused = timed(phase_artv)
+    artv, artv_per_layer = timed(phase_artv)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
                'codebook': 'mmvid_tpu/ops/codebook.py:59',
@@ -930,9 +1025,7 @@ def main():
     # path's shapes
     main_run = {'attention': text_mask, 'sample_head': text_mask,
                 'codebook': text_mask, 'fused_ln_qkv': fused,
-                'artv_decode': artv_fused, 'gridstep': artv_fused}
-    keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
-            'bound_by')
+                'artv_decode': artv, 'gridstep': artv}
     kernels = []
     for name, row in rows.items():
         entry = {'name': name, 'route': 'cuda',
@@ -944,9 +1037,18 @@ def main():
                                       'text_mask': text_mask[name],
                                       'text_mask_fused': fused[name],
                                       'artv': artv[name],
-                                      'artv_fused': artv_fused[name]}}
+                                      'artv_per_layer': artv_per_layer[name]}}
         if name == 'attention':
-            entry['at_flagship_L565'] = dict(zip(keys, attention_flagship))
+            # the bf16 route (the main paths'), the tensor-core kernel,
+            # on packed views; the fp32 route's CUDA-core kernel beside it
+            entry['source'] = 'mmvid_tpu_torch/csrc/attention_sm90.cu'
+            entry['differ_share'] = attention[(629, False)]['differ_share']
+            entry['at_flagship_L565'] = attention[(565, False)]
+            entry['bf16_probs'] = {'L629': attention[(629, True)],
+                                   'L565': attention[(565, True)]}
+            entry['fp32_route'] = {
+                'source': 'mmvid_tpu_torch/csrc/attention.cu',
+                'L629': attention_fp32[629], 'L565': attention_fp32[565]}
         if name == 'artv_decode':   # one cooperative launch a step
             entry['at_pos'] = decode_by_pos
         if name == 'gridstep':

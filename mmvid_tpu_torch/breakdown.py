@@ -21,11 +21,13 @@ steps:
 
 ``chip_smoke.py`` builds its models and times its batches with
 :func:`build`, :func:`inputs` and :func:`measure`.  Usage (needs a CUDA
-device; prints one JSON line per path; the fused LN+QKV gate is the
-model's, ``MMVID_FUSED_LNQKV=1``):
+device; prints one JSON line per path, with the paths taken: the fused
+LN+QKV gate ``MMVID_FUSED_LNQKV=1``, ART-V's decode step (the kernel on
+the card unless ``MMVID_ARTV_FUSED=0``), ``MMVID_ATTN_BF16``):
 
     python -m mmvid_tpu_torch.breakdown --path text_mask flagship
     MMVID_FUSED_LNQKV=1 python -m mmvid_tpu_torch.breakdown --path text_mask
+    MMVID_ARTV_FUSED=0 python -m mmvid_tpu_torch.breakdown --path artv
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import time
 import torch
 
 from mmvid_tpu_torch import factories
+from mmvid_tpu_torch.models.artv import fused_decode
 from mmvid_tpu_torch.ops import artv_decode, attention, codebook
 from mmvid_tpu_torch.ops import fused_ln_qkv, gridstep, sample_head
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
@@ -49,7 +52,8 @@ KERNELS = {'attention': attention, 'sample_head': sample_head,
            'artv_decode': artv_decode, 'gridstep': gridstep}
 # (kind, substrings of device kernel names); the first match wins
 KINDS = (
-    ('attention kernel', ('attention_fwd_kernel',)),
+    ('attention kernel, tensor cores', ('attention_fwd_kernel_wgmma',)),
+    ('attention kernel, CUDA cores', ('attention_fwd_kernel',)),
     ('sample-head kernel', ('sample_head_kernel',)),
     ('nearest-code kernel', ('nearest_code_kernel',)),
     ('LN+QKV kernel', ('ln_qkv_',)),
@@ -211,7 +215,8 @@ def measure(model, path: str, batch: int = BATCH, steps: int = STEPS,
         'path': path, 'batch': batch, 'steps': steps,
         'sequence': cfg.total_seq_len,
         'fused_lnqkv': os.environ.get('MMVID_FUSED_LNQKV') == '1',
-        'artv_fused': os.environ.get('MMVID_ARTV_FUSED') == '1',
+        'artv_fused': path == 'artv' and fused_decode('cuda'),
+        'attn_bf16_probs': attention.bf16_probs(),
         's_per_batch': dt, 's_all': whole,
         'frames_per_s': batch * cfg.num_targets / dt,
         'peak_memory_bytes': peak, 'phases_ms': phases,

@@ -1,5 +1,5 @@
-// Full-sequence self-attention for the MMVID backbone, hand-written for
-// Hopper (sm_90a).
+// Full-sequence self-attention for the MMVID backbone: the C entry point
+// of both routes, and the fp32 route's kernel on the CUDA cores.
 //
 // Replaces the TPU kernel mmvid_tpu/ops/attention.py::_make_packed_kernel
 // (driven by fused_attention_blhd / _pallas_attention).  It computes the
@@ -14,17 +14,18 @@
 // one fused QKV projection).  Not the TPU's head packing or 16-row padding:
 // the ragged L edge is masked here, never padded.
 //
-// What bounds it on the H100: at the flagship shape (L=565, D=64) it does
-// 4*L*L*D flops per (batch, head) on 2*L*D*2 bytes of K/V, far above the
-// card's flop:byte balance, so it is compute-bound.  This first version
-// runs the products on the CUDA cores in fp32 (no tensor cores, no TMA):
-// one block per (64-row query tile, head, batch); K and V tiles of 32 keys
-// staged through shared memory and converted to fp32; q scaled in fp32 on
-// load; an online softmax (running max, sum and accumulator per row in
-// fp32) so the [L, L] logits never reach device memory.  Moving the two
-// products onto wgmma is the next step.  Online softmax sums in a
-// different order than the whole-row softmax of the TPU kernel; the tests
-// state the tolerance.
+// bf16 inputs (every full-width model) go to the tensor-core kernel of
+// csrc/attention_sm90.cu.  fp32 inputs (only the tiny models on the card
+// and the card-vs-CPU checks run fp32) take the kernel below, the first
+// port of the TPU kernel, kept as it was: the products as fp32 FMAs on the
+// CUDA cores, one block per (64-row query tile, head, batch); K and V
+// tiles of 32 keys staged through shared memory; q scaled in fp32 on load;
+// an online softmax (running max, sum and accumulator per row in fp32) so
+// the [L, L] logits never reach device memory.  kBf16Probs
+// (MMVID_ATTN_BF16=1) rounds the probabilities to bf16 before the product
+// with V, as JAX's bf16_av variant does; the row sums stay fp32.  Online
+// softmax sums in a different order than the whole-row softmax of the TPU
+// kernel; the tests state the tolerance.
 
 #include "common.cuh"
 
@@ -36,15 +37,17 @@ constexpr int kBK = 32;   // keys per shared-memory tile
 constexpr int kTPR = 4;   // threads per query row
 constexpr int kThreads = kBQ * kTPR;
 
-template <typename T, int D>
+template <int D, bool kBf16Probs>
 __global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ mask,
-                     T* __restrict__ out, int L, long long sqb, long long sql,
-                     long long sqh, long long skb, long long skl,
-                     long long skh, long long svb, long long svl,
-                     long long svh, long long sob, long long sol,
-                     long long soh, float scale) {
+attention_fwd_kernel_fp32(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ mask,
+                          float* __restrict__ out, int L, long long sqb,
+                          long long sql, long long sqh, long long skb,
+                          long long skl, long long skh, long long svb,
+                          long long svl, long long svh, long long sob,
+                          long long sol, long long soh, float scale) {
   static_assert(D % kTPR == 0, "head dim must split over kTPR threads");
   constexpr int kCPT = kBK / kTPR;  // score columns per thread
   constexpr int kDPT = D / kTPR;    // output dims per thread
@@ -58,14 +61,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
-  T* ob = out + b * sob + h * soh;
+  const float* qb = q + b * sqb + h * sqh;
+  const float* kb = k + b * skb + h * skh;
+  const float* vb = v + b * svb + h * svh;
+  float* ob = out + b * sob + h * soh;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, row = q0 + r;
-    qs[r][d] = row < L ? to_float(qb[row * sql + d]) * scale : 0.f;
+    qs[r][d] = row < L ? qb[row * sql + d] * scale : 0.f;
   }
 
   const int r = tid / kTPR;    // this thread's query row in the tile
@@ -85,8 +88,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i / D, d = i % D, key = k0 + c;
       float kv = 0.f, vv = 0.f;
       if (key < L) {
-        kv = to_float(kb[key * skl + d]);
-        vv = to_float(vb[key * svl + d]);
+        kv = kb[key * skl + d];
+        vv = vb[key * svl + d];
       }
       ks[c][d] = kv;
       vs[c][d] = vv;
@@ -119,7 +122,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kCPT; ++j) {
       const float p = expf(s[j] - m_new);
-      ps[r][sub + kTPR * j] = p;
+      ps[r][sub + kTPR * j] =
+          kBf16Probs ? __bfloat162float(__float2bfloat16(p)) : p;
       psum += p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
@@ -142,49 +146,69 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / l_run;
 #pragma unroll
     for (int i = 0; i < kDPT; ++i)
-      ob[row * sol + sub + kTPR * i] = from_float<T>(acc[i] * inv);
+      ob[row * sol + sub + kTPR * i] = acc[i] * inv;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* mask, void* out, int B, int L, int H,
-                   const long long* st, float scale, cudaStream_t stream) {
+template <int D, bool kBf16Probs>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v,
+                        const float* mask, void* out, int B, int L, int H,
+                        const long long* st, float scale,
+                        cudaStream_t stream) {
   const dim3 grid((L + kBQ - 1) / kBQ, H, B);
-  attention_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), L, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      scale);
+  attention_fwd_kernel_fp32<D, kBf16Probs><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), mask, static_cast<float*>(out), L, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11], scale);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// the bf16 route, csrc/attention_sm90.cu
+cudaError_t attention_wgmma(int head_dim, bool bf16_probs, const void* q,
+                            const void* k, const void* v, const float* mask,
+                            void* out, int B, int L, int H,
+                            const long long* strides, float scale,
+                            cudaStream_t stream);
+
 }  // namespace mmvid
 
 // q, k, v, out: [B, L, H, D] with unit stride over D and element strides
 // (batch, position, head) given per tensor in `strides` (12 values, in the
-// order q, k, v, out); mask: contiguous fp32 [L, L].  dtype: 0 fp32,
-// 1 bf16.  head_dim: 32 or 64.  Returns cudaGetLastError() after launch.
-extern "C" int mmvid_attention_fwd(int dtype, int head_dim, const void* q,
-                                   const void* k, const void* v,
-                                   const void* mask, void* out, int B, int L,
-                                   int H, const long long* strides,
-                                   float scale, void* stream) {
+// order q, k, v, out); mask: contiguous fp32 [L, L].  dtype: 0 fp32 (the
+// CUDA-core kernel), 1 bf16 (the tensor-core kernel: 16-byte aligned q, k,
+// v, out and row, head and batch strides that are multiples of 8).
+// head_dim: 32 or 64.  bf16_probs: 1 rounds the probabilities to bf16 for
+// the product with V (MMVID_ATTN_BF16=1).  Returns cudaGetLastError()
+// after launch.
+extern "C" int mmvid_attention_fwd(int dtype, int head_dim, int bf16_probs,
+                                   const void* q, const void* k,
+                                   const void* v, const void* mask, void* out,
+                                   int B, int L, int H,
+                                   const long long* strides, float scale,
+                                   void* stream) {
   using namespace mmvid;
   const float* m = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
-  if (dtype == kFloat32 && head_dim == 64)
-    return launch<float, 64>(q, k, v, m, out, B, L, H, strides, scale, s);
-  if (dtype == kFloat32 && head_dim == 32)
-    return launch<float, 32>(q, k, v, m, out, B, L, H, strides, scale, s);
-  if (dtype == kBFloat16 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, m, out, B, L, H, strides,
-                                     scale, s);
-  if (dtype == kBFloat16 && head_dim == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, m, out, B, L, H, strides,
-                                     scale, s);
+  if (dtype == kBFloat16)
+    return attention_wgmma(head_dim, bf16_probs != 0, q, k, v, m, out, B, L,
+                           H, strides, scale, s);
+  if (dtype != kFloat32) return cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return bf16_probs
+               ? launch_fp32<64, true>(q, k, v, m, out, B, L, H, strides,
+                                       scale, s)
+               : launch_fp32<64, false>(q, k, v, m, out, B, L, H, strides,
+                                        scale, s);
+  if (head_dim == 32)
+    return bf16_probs
+               ? launch_fp32<32, true>(q, k, v, m, out, B, L, H, strides,
+                                       scale, s)
+               : launch_fp32<32, false>(q, k, v, m, out, B, L, H, strides,
+                                        scale, s);
   return cudaErrorInvalidValue;
 }

@@ -18,12 +18,13 @@ forward reads them, so the JAX package never creates their params and
 
 ``ar_sample`` encodes the control prefix once (the prefill, plain torch),
 then decodes one token per step against per-layer K/V caches that grow
-per frame (``MMVID_ARTV_WINDOW``, default on).  The step runs as plain
+per frame (``MMVID_ARTV_WINDOW``, default on).  The step runs as one call
+of :func:`mmvid_tpu_torch.ops.artv_decode.decode_token_step` over stacked
+[n_layers, B, W, D] caches (the CUDA kernel) on the card, and as plain
 torch ops over per-layer [B, W, D] caches (the JAX package's default
-layout), or, with ``MMVID_ARTV_FUSED=1``, as one call of
-:func:`mmvid_tpu_torch.ops.artv_decode.decode_token_step` over stacked
-[n_layers, B, W, D] caches (the CUDA kernel on the card).  Both flags are
-read at every call.  Products take bf16 (the compute dtype) operands with
+layout) on the CPU; ``MMVID_ARTV_FUSED=1`` or ``=0`` chooses the stacked
+or the per-layer step on any device (:func:`fused_decode`).  Both flags
+are read at every call.  Products take bf16 (the compute dtype) operands with
 fp32 sums and outputs, as the JAX package's ``preferred_element_type``
 does: the plain ops multiply fp32 copies of the rounded operands.
 """
@@ -291,6 +292,19 @@ def sample_tok(generator, logits, k_img: int, temperature: float):
     return torch.argmax(logits / temperature + noise, dim=-1)
 
 
+def fused_decode(device) -> bool:
+    """Whether ART-V's decode step runs stacked through
+    ``decode_token_step`` on ``device``: ``MMVID_ARTV_FUSED=1`` yes, ``=0``
+    no (the per-layer step), unset by the device: the kernel for CUDA, the
+    per-layer step (the JAX package's default) elsewhere."""
+    flag = os.environ.get('MMVID_ARTV_FUSED')
+    if flag is None:
+        return torch.device(device).type == 'cuda'
+    if flag not in ('0', '1'):
+        raise ValueError(f'MMVID_ARTV_FUSED={flag!r}: expected 0 or 1')
+    return flag == '1'
+
+
 def _grow(cache, width):
     """Zero-pad the cache's width axis (second to last) to ``width``."""
     return F.pad(cache, (0, 0, 0, width - cache.shape[-2]))
@@ -308,7 +322,7 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
     b = text.shape[0]
     L = cfg.total_seq_len
     ctrl_len = cfg.control_seq_len + 1  # +<bos>
-    fused = os.environ.get('MMVID_ARTV_FUSED', '0') == '1'
+    fused = fused_decode(text.device)
     window = os.environ.get('MMVID_ARTV_WINDOW', '1') == '1'
 
     prefix_last, pre_k, pre_v = ar_prefill(core, text, visual_tokens)

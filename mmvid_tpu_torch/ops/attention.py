@@ -1,9 +1,13 @@
 """Full-sequence self-attention: the plain PyTorch version and the wrapper
-of the hand-written CUDA kernel (``csrc/attention.cu``).
+of the hand-written CUDA kernels (``csrc/attention.cu``: bf16 on the tensor
+cores in ``csrc/attention_sm90.cu``, fp32 on the CUDA cores).
 
 Counterpart of ``mmvid_tpu/ops/attention.py``.  Both versions compute
 ``softmax(q * scale @ k^T + mask) @ v`` per (batch, head) with fp32 logits,
 softmax and accumulation, in the residual stream's ``[B, L, H, D]`` layout.
+``MMVID_ATTN_BF16=1``, read at every call as the JAX package reads it,
+selects JAX's bf16-probability variant: the unnormalised probabilities are
+rounded to bf16 before the product with V, the row sums stay fp32.
 
 Dispatch rule of :func:`fused_attention_blhd`: a CPU tensor goes to
 :func:`attention_reference`; a CUDA tensor launches the kernel or raises.
@@ -12,6 +16,7 @@ Dispatch rule of :func:`fused_attention_blhd`: a CPU tensor goes to
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -26,21 +31,34 @@ _HEAD_DIMS = (32, 64)
 _fn = None
 
 
-def attention_reference(q, k, v, mask, scale):
+def bf16_probs() -> bool:
+    """``MMVID_ATTN_BF16=1``: the bf16-probability variant."""
+    return os.environ.get('MMVID_ATTN_BF16') == '1'
+
+
+def attention_reference(q, k, v, mask, scale, bf16_probs=False):
     """q, k, v [B, L, H, D]; mask additive fp32 [L, L] -> [B, L, H, D] in
-    q's dtype (``_attention_xla``'s math, mmvid_tpu/ops/attention.py)."""
+    q's dtype (``_attention_xla``'s math, mmvid_tpu/ops/attention.py).
+    ``bf16_probs``: the TPU kernel's ``bf16_av`` variant, exp(logits - max)
+    rounded to bf16 for the product with V, divided by the fp32 row sum
+    after it."""
     logits = torch.einsum('blhd,bmhd->bhlm', q.float() * scale, k.float())
     logits = logits + mask[None, None]
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum('bhlm,bmhd->blhd', p, v.float())
-    return out.to(q.dtype)
+    if not bf16_probs:
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum('bhlm,bmhd->blhd', p, v.float())
+        return out.to(q.dtype)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True).permute(0, 2, 1, 3)   # [B, L, H, 1]
+    out = torch.einsum('bhlm,bmhd->blhd', p.bfloat16().float(), v.float())
+    return (out / denom).to(q.dtype)
 
 
 def _kernel():
     global _fn
     if _fn is None:
         fn = _build.library().mmvid_attention_fwd
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -69,28 +87,41 @@ def _check_cuda_args(q, k, v, mask):
             or mask.shape != (l, l) or not mask.is_contiguous()):
         raise ValueError('mask must be a contiguous fp32 [L, L] tensor on '
                          "q's device")
+    if q.dtype == torch.bfloat16:
+        # the tensor-core kernel copies 16-byte chunks of rows
+        if mask.data_ptr() % 16:
+            raise ValueError('mask: the bf16 kernel needs a 16-byte aligned '
+                             'base')
+        for name, t in (('q', q), ('k', k), ('v', v)):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError(f'{name}: the bf16 kernel needs a 16-byte '
+                                 'aligned base and batch, row and head '
+                                 'strides that are multiples of 8')
 
 
 def fused_attention_blhd(q, k, v, mask=None):
     """q, k, v [B, L, H, D] (any strides with a unit head-dim stride);
     additive mask [L, L] or None -> [B, L, H, D] contiguous, q's dtype.
-    Logits are scaled by D ** -0.5."""
+    Logits are scaled by D ** -0.5; ``MMVID_ATTN_BF16=1`` takes the
+    bf16-probability variant."""
     global launches
     b, l, h, d = q.shape
     scale = d ** -0.5
     if mask is None:
         mask = torch.zeros((l, l), dtype=torch.float32, device=q.device)
+    bf16_p = bf16_probs()
     if q.device.type == 'cpu':
-        return attention_reference(q, k, v, mask, scale)
+        return attention_reference(q, k, v, mask, scale, bf16_p)
     if q.device.type != 'cuda':
         raise ValueError(f'no attention path for device {q.device}')
     _check_cuda_args(q, k, v, mask)
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    rc = _kernel()(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), mask.data_ptr(), out.data_ptr(), b, l, h,
-                   strides, float(scale), _build.stream_handle(q.device))
+    rc = _kernel()(_DTYPE_CODES[q.dtype], d, int(bf16_p), q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                   out.data_ptr(), b, l, h, strides, float(scale),
+                   _build.stream_handle(q.device))
     _build.check(rc, 'attention kernel launch')
     launches += 1
     return out

@@ -137,6 +137,27 @@ def test_ar_sample_greedy_matches_jax(pair, monkeypatch, env):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize('flag,device,want', [
+    (None, 'cuda', True), (None, 'cpu', False), ('1', 'cuda', True),
+    ('1', 'cpu', True), ('0', 'cuda', False), ('0', 'cpu', False)])
+def test_fused_decode_rule(monkeypatch, flag, device, want):
+    """The decode path by device: unset, the stacked step (kernel B5) for
+    CUDA tensors and the per-layer step (the JAX-parity path) on the CPU;
+    MMVID_ARTV_FUSED=1 or =0 chooses either on any device.  The rule
+    reads a torch.device, so it needs no card."""
+    if flag is None:
+        monkeypatch.delenv('MMVID_ARTV_FUSED', raising=False)
+    else:
+        monkeypatch.setenv('MMVID_ARTV_FUSED', flag)
+    assert partv.fused_decode(torch.device(device)) is want
+
+
+def test_fused_decode_rejects_other_flags(monkeypatch):
+    monkeypatch.setenv('MMVID_ARTV_FUSED', 'yes')
+    with pytest.raises(ValueError, match='MMVID_ARTV_FUSED'):
+        partv.fused_decode(torch.device('cpu'))
+
+
 @pytest.mark.parametrize('filter_thres,k', [(0.5, 1024), (0.95, 108)])
 def test_sample_tok_matches_filtered_softmax(filter_thres, k):
     """k_img = min(int((1 - filter_thres) * 2168), 1024): the filter is off

@@ -28,19 +28,38 @@ def cuda_device():
     return torch.device('cuda')
 
 
+def _packed_qkv(g, device, b, l, h, d, dtype):
+    """q, k, v as strided views of one [B, L, 3 * H * D] projection, the
+    main path's layout (models/clip.py)."""
+    qkv = torch.randn((b, l, 3 * h * d), generator=g, device=device
+                      ).to(dtype)
+    return [qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+            for i in range(3)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize('bf16_probs', [False, True],
+                         ids=['fp32_probs', 'bf16_probs'])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize('b,l,h,d,idx', [
     (3, 565, 12, 64, (51, 52)),     # flagship
     (16, 629, 12, 64, (115, 116)),  # text+mask, at its batch
     (3, 139, 2, 32, (9, 10))])      # tiny
-def test_attention_kernel_matches_plain(cuda_device, dtype, tol, b, l, h, d,
-                                        idx):
-    """Each path's sequence and mask_prev rows.  bf16 tolerance: outputs
-    rounded to bf16 from fp32 sums taken in another order (online
-    softmax), up to 2 bf16 ulps at |out| ~ 2."""
+def test_attention_kernel_matches_plain(cuda_device, monkeypatch, bf16_probs,
+                                        dtype, tol, b, l, h, d, idx):
+    """Each path's sequence and mask_prev rows, with MMVID_ATTN_BF16 off
+    and on (the plain version of the same variant).  bf16 tolerance:
+    outputs rounded to bf16 from fp32 sums taken in another order (online
+    softmax), up to 2 bf16 ulps at |out| ~ 2.  fp32 with bf16
+    probabilities: the kernel rounds exp(logit - running max), the plain
+    version exp(logit - row max), so a term moves by up to 2^-9 of itself
+    (8e-4 measured at L565): 4e-3."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    if bf16_probs:
+        monkeypatch.setenv('MMVID_ATTN_BF16', '1')
+    else:
+        monkeypatch.delenv('MMVID_ATTN_BF16', raising=False)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v = (torch.randn((b, l, h, d), generator=g, device=cuda_device
                            ).to(dtype) for _ in range(3))
@@ -48,9 +67,45 @@ def test_attention_kernel_matches_plain(cuda_device, dtype, tol, b, l, h, d,
     before = A.launches
     out = A.fused_attention_blhd(q, k, v, mask)
     assert A.launches == before + 1
-    want = A.attention_reference(q, k, v, mask, d ** -0.5)
+    want = A.attention_reference(q, k, v, mask, d ** -0.5, bf16_probs)
     assert out.dtype == dtype
+    if bf16_probs:
+        tol = max(tol, 4e-3)
     assert (out.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16_probs', [False, True],
+                         ids=['fp32_probs', 'bf16_probs'])
+@pytest.mark.parametrize('b,l,h,d,kind', [
+    (16, 629, 12, 64, 'mask_prev'),   # text+mask, packed as on the path
+    (4, 626, 12, 64, 'causal'),       # ART-V's training forward
+    (3, 139, 2, 32, 'mask_prev'),     # tiny, D 32
+    (3, 139, 2, 32, 'causal')])
+def test_attention_kernel_packed_views(cuda_device, monkeypatch, bf16_probs,
+                                       b, l, h, d, kind):
+    """bf16 q, k, v as strided views of one packed projection (row stride
+    3 * H * D), causal and mask_prev masks, D 64 and 32: within 2e-2 of
+    the plain version, and by default (the P_hi + P_lo split) at most 2% of
+    the bf16 outputs differ from it (about 0.2% expected; bf16
+    probabilities move about 40%)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if bf16_probs:
+        monkeypatch.setenv('MMVID_ATTN_BF16', '1')
+    else:
+        monkeypatch.delenv('MMVID_ATTN_BF16', raising=False)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = _packed_qkv(g, cuda_device, b, l, h, d, torch.bfloat16)
+    assert q.stride()[1] == 3 * h * d
+    idx = {629: (115, 116), 139: (9, 10)}.get(l)
+    mask = build_attention_mask(l, kind, index=idx, device=cuda_device)
+    before = A.launches
+    out = A.fused_attention_blhd(q, k, v, mask)
+    assert A.launches == before + 1
+    want = A.attention_reference(q, k, v, mask, d ** -0.5, bf16_probs)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    if not bf16_probs:
+        assert (out != want).float().mean().item() <= 0.02
 
 
 @pytest.mark.cuda
