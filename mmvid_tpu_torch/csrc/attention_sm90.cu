@@ -74,10 +74,12 @@
 
 #include <atomic>
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace mmvid {
 namespace {
+
+using namespace sm90;
 
 constexpr int kRows = 128;             // query rows per block
 constexpr int kKeys = 64;              // keys per K/V tile
@@ -132,48 +134,6 @@ __device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
          (sbo << 32) | (Tile<D>::kSwizzleMode << 62);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// Wait for the phase of `bar` with this parity to complete.  A wait that
-// lasts about 2^28 polls (seconds; a tile takes microseconds) traps: a
-// pipeline fault ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared.b64 state, [%0];\n}\n" ::"r"(bar)
-      : "memory");
-}
-
-// 16 bytes global -> shared, of which the first src_bytes (0 .. 16) are
-// read and the rest zero-filled
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
 // One producer thread's part of copying kN rows of 2*D bytes (row i at
 // src + i * stride) into a swizzled tile at dst, rows >= valid
 // zero-filled: the warpgroup covers 128 / (D / 8) rows a pass, a thread
@@ -218,39 +178,8 @@ __device__ __forceinline__ void stage_mask_row(uint32_t dst,
   const int bytes = left >= 4 * kMaskChunks
                         ? 16 * kMaskChunks
                         : 16 * static_cast<int>((left + 3) / 4);
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst + 4 * r * kMaskStride),
-      "l"(mask + idx), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// arrive on `bar` once this thread's cp.asyncs so far have landed (one of
-// the barrier's expected arrivals)
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed groups of products are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving uses of an accumulator across the
-// asynchronous product's wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(dst + 4 * r * kMaskStride, mask + idx, bytes, bar);
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
@@ -472,7 +401,7 @@ attention_fwd_kernel_wgmma(
       mbar_init(full(s), kProducers);
       mbar_init(empty(s), 4 * groups);  // one arrival a consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -527,7 +456,7 @@ attention_fwd_kernel_wgmma(
     __syncwarp();
     // K and V came through the generic proxy (cp.async); wgmma reads
     // shared memory through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     return k_tile(j % kStages);
   };
   // this warp is done with tile j's stage

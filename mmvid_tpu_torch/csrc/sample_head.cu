@@ -26,10 +26,12 @@
 // shared memory and are read as float4 broadcasts, each thread accumulates
 // 4 vocab columns x 16 rows in registers from coalesced W loads; the 16 x V
 // logits tile goes to shared memory, then one warp per row draws the noise
-// and reduces max / sum-of-exp / argmax in one pass.  Moving the product
-// onto wgmma is the next step.
+// and reduces max / sum-of-exp / argmax in one pass.  It is the route
+// for fp32 W and for the shapes the tensor-core kernel
+// (sample_head_sm90.cu) does not take; the noise and the running state
+// are sample_head.cuh's, shared by both.
 
-#include "common.cuh"
+#include "sample_head.cuh"
 
 namespace mmvid {
 namespace {
@@ -38,31 +40,6 @@ constexpr int kBM = 16;       // rows per block
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCPT = 4;       // vocab columns per thread per pass
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
-  const uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  const uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(kM0, ctr.x), lo0 = kM0 * ctr.x;
-    const uint32_t hi1 = __umulhi(kM1, ctr.z), lo1 = kM1 * ctr.z;
-    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
-    key.x += kW0;
-    key.y += kW1;
-  }
-  return ctr;
-}
-
-__device__ __forceinline__ float gumbel_from_bits(uint32_t bits) {
-  const float u = static_cast<float>(bits >> 8) * (1.f / 16777216.f) +
-                  (1.f / 33554432.f);
-  return -logf(-logf(u + 1e-20f) + 1e-20f);
-}
-
-// s * exp(m - m_new), with an empty partial (s == 0, m == -inf) staying 0
-__device__ __forceinline__ float rescale(float s, float m, float m_new) {
-  return s > 0.f ? s * expf(m - m_new) : 0.f;
-}
 
 template <typename TW>
 __global__ void __launch_bounds__(kThreads)
@@ -153,46 +130,21 @@ sample_head_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
   for (int r = warp; r < kBM; r += kWarps) {
     const int row = m0 + r;
     if (row >= M) continue;
-    float m = -INFINITY, s = 0.f, best = -INFINITY, best_noised = 0.f;
-    int best_i = V;
+    RowState st = row_state_init(V);
     for (int c = lane; c < V; c += 32) {
       const uint4 bits = philox4x32_10(
           make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(row),
                      0u, 0u),
           key);
       const float noised = ls[r * V + c] + temp * gumbel_from_bits(bits.x);
-      const float score = noised + gumbel_from_bits(bits.y);
-      if (noised > m) {
-        s = rescale(s, m, noised) + 1.f;
-        m = noised;
-      } else {
-        s += expf(noised - m);
-      }
-      if (score > best) {  // columns rise along the loop: first index wins
-        best = score;
-        best_i = c;
-        best_noised = noised;
-      }
+      // columns rise along the loop: the first index wins a tie
+      row_state_add(st, noised, noised + gumbel_from_bits(bits.y), c);
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-      const float b2 = __shfl_xor_sync(0xffffffffu, best, off);
-      const float n2 = __shfl_xor_sync(0xffffffffu, best_noised, off);
-      const int i2 = __shfl_xor_sync(0xffffffffu, best_i, off);
-      const float mn = fmaxf(m, m2);
-      s = rescale(s, m, mn) + rescale(s2, m2, mn);
-      m = mn;
-      if (b2 > best || (b2 == best && i2 < best_i)) {
-        best = b2;
-        best_i = i2;
-        best_noised = n2;
-      }
-    }
+    for (int off = 16; off > 0; off >>= 1) row_state_shfl_merge(st, off);
     if (lane == 0) {
-      y_out[row] = expf(best_noised - (m + logf(s)));
-      tok_out[row] = best_i;
+      y_out[row] = row_state_y(st);
+      tok_out[row] = st.idx;
     }
   }
 }

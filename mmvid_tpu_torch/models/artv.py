@@ -52,6 +52,7 @@ from mmvid_tpu_torch.models.clip import (
 )
 from mmvid_tpu_torch.models.vqgan import VQGanVAE
 from mmvid_tpu_torch.ops.artv_decode import (
+    DecodeWorkspace,
     decode_token_step,
     stack_decode_params,
 )
@@ -326,21 +327,29 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
     window = os.environ.get('MMVID_ARTV_WINDOW', '1') == '1'
 
     prefix_last, pre_k, pre_v = ar_prefill(core, text, visual_tokens)
-    pos_emb = core.image_pos_emb.embedding(cfg.target_seq_len)
+    # per-token operands cast once per call
+    pos_emb = core.image_pos_emb.embedding(cfg.target_seq_len).float()
+    tok_emb = core.image_emb.weight.float()
     blocks = core.transformer['transformer'].resblocks
+    workspace = None
     if fused:
         stacked = stack_decode_params(blocks)
+        if text.device.type == 'cuda':   # checked and allocated once
+            workspace = DecodeWorkspace(stacked, b, heads)
     else:
         dec = [_block_params(block) for block in blocks]
 
     # the head sliced once to the image columns: the others never survive
     # the sampler
     ln_head, fc = core.to_logits
+    ln_w, ln_b = ln_head.weight.float(), ln_head.bias.float()
     fc_w = fc.weight[cfg.num_control_tokens:].float().t()
     fc_b = fc.bias[cfg.num_control_tokens:].float()
 
     def image_logits(hidden):
-        return _dense(_ln(hidden, ln_head), fc_w, fc_b, dt)
+        h = F.layer_norm(hidden, ln_head.normalized_shape, ln_w, ln_b,
+                         ln_head.eps)
+        return _dense(h, fc_w, fc_b, dt)
 
     k_img = min(max(int((1 - filter_thres) * cfg.total_tokens), 1),
                 cfg.num_image_tokens)
@@ -370,10 +379,11 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
         cols = torch.arange(width, device=text.device)
         for step_i in range(start, stop):
             pos = ctrl_len + step_i
-            x = core.image_emb.weight[tok].float() + pos_emb[step_i].float()
+            x = tok_emb[tok] + pos_emb[step_i]
             if fused:
                 x, k_new, v_new = decode_token_step(x, stacked, cache_k,
-                                                    cache_v, pos, heads)
+                                                    cache_v, pos, heads,
+                                                    workspace)
                 # one write per token for all layers
                 cache_k[:, :, pos] = k_new
                 cache_v[:, :, pos] = v_new

@@ -25,9 +25,18 @@ is taken against its global max; the TPU kernel's online form differs only
 in where the cache-dtype rounding of the probabilities falls.
 
 Dispatch rule of :func:`decode_token_step`: a CPU tensor goes to
-:func:`decode_token_step_reference`; a CUDA tensor launches the kernel
-(one persistent cooperative launch a step) or raises.  The kernel takes
-fp32 and bf16, head dim 32 and 64, B from 1 to 64 and any W >= pos.
+:func:`decode_token_step_reference`; a CUDA tensor launches a kernel (one
+persistent cooperative launch a step) or raises.  The kernel is the
+phased one (``csrc/artv_decode.cu``, five phases a layer over grid
+barriers; fp32 and bf16, pos up to 8192) unless the caller asks for
+``kernel='stream'``: the streaming kernel (``csrc/artv_decode_sm90.cu``:
+weights copied ahead into a shared-memory ring, split-K proj, per-item
+flags instead of grid barriers; bf16, D up to 1024, pos up to 4096),
+which measured slower than the phased one at ART-V's batch 16 on the H100
+(PERF.md).  Both take head dim 32 and 64, B from 1 to 64 and any W >=
+pos.  A :class:`DecodeWorkspace`, made once per sampling call, holds the
+checked params and the outputs and scratch, so a token step checks and
+allocates nothing.
 """
 
 from __future__ import annotations
@@ -46,10 +55,17 @@ launches = 0
 MLP_CHUNKS = 4
 MAX_BATCH = 64
 MAX_POS = 8192           # the attention kernel keeps pos fp32 logits in 32 KB
+MAX_STREAM_DIM = 1024  # the streaming kernel holds an LN row in registers
+MAX_STREAM_POS = 4096  # ... and a half block's logits in 16 KB
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-_fn = None
-_barriers = {}
+KERNELS = ('phased', 'stream')
+SCRATCH_PER_ROW = 10     # floats of scratch per B x D (the larger kernel's)
+_fns = {}
+_barriers = {}           # the phased kernel's grid barrier, per device
+# the streaming kernel's (flags and counters, next first stamp), per
+# (device, stream)
+_sync = {}
 
 
 class DecodeParams(NamedTuple):
@@ -170,20 +186,46 @@ def decode_token_step_reference(x, p: DecodeParams, cache_k, cache_v,
     return x, torch.stack(k_out), torch.stack(v_out)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library().mmvid_artv_decode_step
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p] * 20)
+def _kernel(name: str):
+    if name not in _fns:
+        lib = _build.library()
+        if name == 'phased':
+            fn = lib.mmvid_artv_decode_step
+            fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p] * 20)
+        else:
+            fn = lib.mmvid_artv_decode_step_sm90
+            fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] * 19
+                           + [ctypes.c_uint, ctypes.c_void_p])
+            lib.mmvid_artv_decode_sync_words.argtypes = [ctypes.c_int] * 3
+            lib.mmvid_artv_decode_sync_words.restype = ctypes.c_int
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def _check_cuda_args(x, p: DecodeParams, cache_k, cache_v, pos, heads):
-    n_layers, b, w, d = cache_k.shape
-    dt = cache_k.dtype
+def _check_params(p: DecodeParams, n_layers, d, dt, device):
+    for name, t in p._asdict().items():
+        shape = (n_layers,) + {'w_qkv': (3 * d, d), 'w_out': (d, d),
+                               'w_fc': (4 * d, d), 'w_proj': (d, 4 * d),
+                               'b_qkv': (3 * d,), 'b_fc': (4 * d,)}.get(
+                                   name, (d,))
+        dtype = dt if name.startswith('w_') else torch.float32
+        _check_tensor(name, t, shape, dtype, device)
+
+
+def _check_tensor(name, t, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f'{name} must be {dtype} {tuple(shape)}, got '
+                         f'{t.dtype} {tuple(t.shape)}')
+    if t.device != device or not t.is_contiguous():
+        raise ValueError(f'{name} must be contiguous on {device}')
+    if t.data_ptr() % 16:
+        raise ValueError(f'{name} must be 16-byte aligned')
+
+
+def _check_shape(n_layers, b, w, d, dt, pos, heads, kernel):
     if dt not in _DTYPE_CODES:
         raise ValueError(f'the decode kernels take fp32 or bf16, not {dt}')
     if heads <= 0 or d % heads or d // heads not in _HEAD_DIMS:
@@ -192,57 +234,110 @@ def _check_cuda_args(x, p: DecodeParams, cache_k, cache_v, pos, heads):
         raise ValueError(f'batch {b} not in [1, {MAX_BATCH}]')
     if not 0 <= pos <= min(w, MAX_POS):
         raise ValueError(f'pos {pos} not in [0, min(W={w}, {MAX_POS})]')
-    shapes = {'x': (x, (b, d), torch.float32),
-              'cache_v': (cache_v, cache_k.shape, dt)}
-    for name, t in p._asdict().items():
-        lead = (n_layers,) + {'w_qkv': (3 * d, d), 'w_out': (d, d),
-                              'w_fc': (4 * d, d), 'w_proj': (d, 4 * d),
-                              'b_qkv': (3 * d,), 'b_fc': (4 * d,)}.get(
-                                  name, (d,))
-        shapes[name] = (t, lead, dt if name.startswith('w_')
-                        else torch.float32)
-    for name, (t, shape, dtype) in shapes.items():
-        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-            raise ValueError(f'{name} must be {dtype} {tuple(shape)}, got '
-                             f'{t.dtype} {tuple(t.shape)}')
-    for name, t in [('cache_k', cache_k)] + [(n, v[0])
-                                             for n, v in shapes.items()]:
-        if t.device != cache_k.device or not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous on '
-                             f'{cache_k.device}')
-        if t.data_ptr() % 16:
-            raise ValueError(f'{name} must be 16-byte aligned')
+    if kernel == 'stream' and (dt != torch.bfloat16 or d > MAX_STREAM_DIM
+                               or pos > MAX_STREAM_POS):
+        raise ValueError(f'the streaming decode kernel takes bf16 with D <= '
+                         f'{MAX_STREAM_DIM} and pos <= {MAX_STREAM_POS}, not '
+                         f'{dt} D {d} pos {pos}')
+
+
+class DecodeWorkspace:
+    """What a CUDA token step needs besides its inputs, made once per
+    sampling call: ``p`` checked against (B, D, dtype), and y, k_new,
+    v_new and the kernels' scratch allocated.  A step through a workspace
+    returns these buffers, which the next step overwrites."""
+
+    def __init__(self, p: DecodeParams, b: int, heads: int):
+        n_layers, _, d = p.w_qkv.shape
+        dt, device = p.w_qkv.dtype, p.w_qkv.device
+        _check_shape(n_layers, b, 0, d, dt, 0, heads, None)
+        _check_params(p, n_layers, d, dt, device)
+        self.p, self.b, self.d, self.heads = p, b, d, heads
+        self.n_layers, self.dtype, self.device = n_layers, dt, device
+        self.param_ptrs = tuple(t.data_ptr() for t in p)
+        self.y = torch.empty((b, d), dtype=torch.float32, device=device)
+        self.k_new = torch.empty((n_layers, b, d), dtype=dt, device=device)
+        self.v_new = torch.empty_like(self.k_new)
+        self.scratch = torch.empty((b, SCRATCH_PER_ROW * d),
+                                   dtype=torch.float32, device=device)
+        self._caches = None   # the last (cache_k, cache_v) checked
+
+    def check_step(self, x, p, cache_k, cache_v, pos, kernel):
+        """The per-step checks: x, pos and kernel; the caches only when
+        they are not the ones checked last."""
+        if p is not self.p:
+            raise ValueError('the workspace was made for other params')
+        _check_tensor('x', x, (self.b, self.d), torch.float32, self.device)
+        w = cache_k.shape[2] if cache_k.dim() == 4 else 0
+        _check_shape(self.n_layers, self.b, w, self.d, self.dtype, pos,
+                     self.heads, kernel)
+        if self._caches is None or self._caches[0] is not cache_k or \
+                self._caches[1] is not cache_v:
+            shape = (self.n_layers, self.b, w, self.d)
+            _check_tensor('cache_k', cache_k, shape, self.dtype, self.device)
+            _check_tensor('cache_v', cache_v, shape, self.dtype, self.device)
+            self._caches = (cache_k, cache_v)
+
+
+def _stream_sync(device, stream: int, words: int, n_layers: int):
+    """The streaming kernel's flags and counters for ``stream`` on
+    ``device`` and this call's first stamp.  The kernel waits for a flag
+    to equal a stamp of its own call, so every stamp it waits for must lie
+    above every value the flags hold, whatever B, D or n_layers earlier
+    calls had: the stamp grows by n_layers a call from 0 on zeroed words,
+    and the words are zeroed anew when they must grow or the stamp would
+    pass 2^32."""
+    buf, stamp0 = _sync.get((device, stream), (None, 0))
+    if buf is None or buf.numel() < words or stamp0 + n_layers >= 2 ** 32:
+        buf = torch.zeros(max(words, 4096), dtype=torch.int32, device=device)
+        stamp0 = 0
+    _sync[(device, stream)] = (buf, stamp0 + n_layers)
+    return buf, stamp0
 
 
 def decode_token_step(x, p: DecodeParams, cache_k, cache_v, pos: int,
-                      heads: int):
+                      heads: int, workspace: DecodeWorkspace | None = None,
+                      kernel: str | None = None):
     """One token through every block (see the module docstring).  x
     [B, D] fp32; ``p`` from :func:`stack_decode_params`; caches
     [n_layers, B, W, D] in the compute dtype, rows >= ``pos`` unread ->
-    (y [B, D] fp32, k_new, v_new [n_layers, B, D])."""
+    (y [B, D] fp32, k_new, v_new [n_layers, B, D]).  On the card,
+    ``workspace`` (made for ``p``) saves the per-step checks and
+    allocations, and ``kernel='stream'`` takes the streaming kernel
+    instead of the phased one."""
     global launches
     if x.device.type == 'cpu':
         return decode_token_step_reference(x, p, cache_k, cache_v, pos,
                                            heads)
     if x.device.type != 'cuda':
         raise ValueError(f'no decode path for device {x.device}')
-    _check_cuda_args(x, p, cache_k, cache_v, pos, heads)
+    if kernel is not None and kernel not in KERNELS:
+        raise ValueError(f'kernel {kernel!r} not in {KERNELS}')
+    kernel = kernel or 'phased'
+    if workspace is None:
+        workspace = DecodeWorkspace(p, x.shape[0], heads)
+    ws = workspace
+    ws.check_step(x, p, cache_k, cache_v, pos, kernel)
     n_layers, b, w, d = cache_k.shape
-    dt = cache_k.dtype
-    y = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    k_new = torch.empty((n_layers, b, d), dtype=dt, device=x.device)
-    v_new = torch.empty_like(k_new)
-    # q, v (fp32), the attention context and the MLP activations
-    scratch = torch.empty((b, 7 * d), dtype=torch.float32, device=x.device)
-    if x.device not in _barriers:   # the kernel's grid barrier
-        _barriers[x.device] = torch.zeros(2, dtype=torch.int32,
-                                          device=x.device)
-    rc = _kernel()(x.data_ptr(), _DTYPE_CODES[dt], n_layers, b, d, heads,
-                   w, pos, *(t.data_ptr() for t in p),
-                   cache_k.data_ptr(), cache_v.data_ptr(), y.data_ptr(),
-                   k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
-                   _barriers[x.device].data_ptr(),
-                   _build.stream_handle(x.device))
+    stream = _build.stream_handle(x.device)
+    if kernel == 'phased':
+        if x.device not in _barriers:   # the kernel's grid barrier
+            _barriers[x.device] = torch.zeros(2, dtype=torch.int32,
+                                              device=x.device)
+        rc = _kernel('phased')(
+            x.data_ptr(), _DTYPE_CODES[cache_k.dtype], n_layers, b, d,
+            heads, w, pos, *ws.param_ptrs, cache_k.data_ptr(),
+            cache_v.data_ptr(), ws.y.data_ptr(), ws.k_new.data_ptr(),
+            ws.v_new.data_ptr(), ws.scratch.data_ptr(),
+            _barriers[x.device].data_ptr(), stream)
+    else:
+        fn = _kernel('stream')
+        words = _build.library().mmvid_artv_decode_sync_words(b, d, heads)
+        sync, stamp0 = _stream_sync(x.device, stream, words, n_layers)
+        rc = fn(x.data_ptr(), n_layers, b, d, heads, w, pos,
+                *ws.param_ptrs, cache_k.data_ptr(), cache_v.data_ptr(),
+                ws.y.data_ptr(), ws.k_new.data_ptr(), ws.v_new.data_ptr(),
+                ws.scratch.data_ptr(), sync.data_ptr(), stamp0, stream)
     _build.check(rc, 'ART-V decode step launch')
     launches += 1
-    return y, k_new, v_new
+    return ws.y, ws.k_new, ws.v_new

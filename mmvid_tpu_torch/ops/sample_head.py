@@ -10,10 +10,16 @@ Counterpart of ``mmvid_tpu/ops/sample_head.py``.  Per row of x [M, D]:
 Dispatch rule of :func:`fused_sample_head`: a CPU tensor draws G1 and G2
 from the caller's generator and goes to :func:`sample_head_reference`; a
 CUDA tensor draws one seed from the generator (on the device, no host
-sync) and launches the kernel, which makes its noise with Philox, or
-raises.  The kernel's bits cannot match any other generator's, so the
-kernel is held against the plain version in distribution, and exactly at
-temp = 0 for Y given the chosen token.
+sync) and launches a kernel, which makes its noise with Philox keyed by
+(seed, row, column), or raises.  :func:`philox_gumbel` is the plain version
+of that noise: fed its draws, :func:`sample_head_reference` gives the
+kernels' tokens.
+
+Two kernels, chosen by :func:`kernel_route`: bf16 W with D a multiple of
+64 up to 960 and V a multiple of 256 (every full-width model: D 768, V
+1024) takes the tensor-core kernel (``csrc/sample_head_sm90.cu``,
+``wgmma``); fp32 W and every other shape take the CUDA-core kernel
+(``csrc/sample_head.cu``).  Both draw the same noise from one seed.
 """
 
 from __future__ import annotations
@@ -28,7 +34,13 @@ from mmvid_tpu_torch.ops import _build
 launches = 0
 
 _W_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+ROUTES = ('wgmma', 'cuda_cores')
+_fns = {}
+
+# Philox4x32-10 (Salmon et al., Random123), the kernels' round constants
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
 
 
 def gumbel(shape, generator, device=None, eps: float = 1e-20):
@@ -37,6 +49,54 @@ def gumbel(shape, generator, device=None, eps: float = 1e-20):
     u = torch.rand(shape, generator=generator, device=device)
     u = eps + (1.0 - eps) * u
     return -torch.log(-torch.log(u) + eps)
+
+
+def _mulhilo32(a: int, b):
+    """(hi, lo) 32-bit words of the 64-bit product of the constant ``a``
+    and the int64 tensor ``b`` (values < 2^32), in int64 arithmetic that
+    never overflows: ``a`` split into 16-bit halves."""
+    p1 = (a >> 16) * b          # < 2^48
+    p0 = (a & 0xFFFF) * b       # < 2^48
+    low = ((p1 & 0xFFFF) << 16) + p0   # < 2^49
+    return (p1 >> 16) + (low >> 32), low & _MASK32
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 of counters ``ctr`` (4 int64 tensors of 32-bit values)
+    under ``key`` (2 ints) -> 4 int64 tensors of 32-bit words, as the
+    kernels' ``philox4x32_10`` (csrc/sample_head.cuh) computes them."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W[0]) & _MASK32
+        k1 = (k1 + PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def gumbel_from_bits(bits):
+    """Gumbel(0, 1) in fp32 from 32-bit words (int64 tensor), as the
+    kernels make it: u = (bits >> 8) * 2^-24 + 2^-25, -log(-log(u + eps) +
+    eps), eps 1e-20."""
+    u = (bits >> 8).float() * (1.0 / 16777216.0) + (1.0 / 33554432.0)
+    return -torch.log(-torch.log(u + 1e-20) + 1e-20)
+
+
+def philox_gumbel(seed: int, m: int, v: int, device=None):
+    """The kernels' noise for rows 0 .. m and columns 0 .. v under
+    ``seed``: (G1, G2) [m, v] fp32 from the first and second Philox words
+    of counter (column, row, 0, 0), key (seed low, seed high)."""
+    seed = int(seed)
+    col = torch.arange(v, dtype=torch.int64, device=device)[None].expand(
+        m, v)
+    row = torch.arange(m, dtype=torch.int64, device=device)[:, None].expand(
+        m, v)
+    zero = torch.zeros((m, v), dtype=torch.int64, device=device)
+    w0, w1, _, _ = philox4x32_10((col, row, zero, zero),
+                                 (seed & _MASK32, (seed >> 32) & _MASK32))
+    return gumbel_from_bits(w0), gumbel_from_bits(w1)
 
 
 def head_logits(x, ln_w, ln_b, w, b):
@@ -58,16 +118,33 @@ def sample_head_reference(x, ln_w, ln_b, w, b, temp, g1, g2):
     return torch.exp(chosen - lse), tok
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.library().mmvid_sample_head
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_float, ctypes.c_void_p]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+def _kernel(route: str):
+    if route not in _fns:
+        lib = _build.library()
+        if route == 'wgmma':
+            fn = lib.mmvid_sample_head_sm90
+            fn.argtypes = ([ctypes.c_void_p] * 5
+                           + [ctypes.c_float, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+        else:
+            fn = lib.mmvid_sample_head
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                           + [ctypes.c_float, ctypes.c_void_p]
+                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[route] = fn
+    return _fns[route]
+
+
+def kernel_route(w) -> str:
+    """The kernel a CUDA call takes for W [D, V]: ``'wgmma'`` for bf16 W
+    with D a multiple of 64 up to 960 and V a multiple of 256, else
+    ``'cuda_cores'``."""
+    d, v = w.shape
+    if (w.dtype == torch.bfloat16 and d % 64 == 0 and d <= 960
+            and v % 256 == 0):
+        return 'wgmma'
+    return 'cuda_cores'
 
 
 def _check_cuda_args(x, ln_w, ln_b, w, b):
@@ -81,8 +158,6 @@ def _check_cuda_args(x, ln_w, ln_b, w, b):
         raise ValueError(f'w must be fp32 or bf16, got {w.dtype}')
     if d % 4:
         raise ValueError(f'D={d} must be a multiple of 4')
-    if 16 * (d + v) * 4 > 227 * 1024:
-        raise ValueError(f'D + V = {d + v} exceeds the shared-memory tile')
     for name, t, shape in (('ln_w', ln_w, (d,)), ('ln_b', ln_b, (d,)),
                            ('b', b, (v,))):
         if t.shape != shape or t.dtype != torch.float32:
@@ -94,11 +169,51 @@ def _check_cuda_args(x, ln_w, ln_b, w, b):
             raise ValueError(f'{name} must be contiguous on {x.device}')
 
 
+def sample_head_kernel(x, ln_w, ln_b, w, b, temp: float, seed,
+                       route: str | None = None):
+    """Launch a sample-head kernel on CUDA tensors with the noise seed
+    ``seed`` (an int64 tensor [1] on x's device): ``route`` None takes
+    :func:`kernel_route`'s; ``'wgmma'`` or ``'cuda_cores'`` force one (the
+    tensor-core kernel raises on a shape it does not take).  Returns (Y [M]
+    fp32, tok [M] int64)."""
+    global launches
+    _check_cuda_args(x, ln_w, ln_b, w, b)
+    route = route or kernel_route(w)
+    if route not in ROUTES:
+        raise ValueError(f'route {route!r} not in {ROUTES}')
+    if route == 'wgmma' and kernel_route(w) != 'wgmma':
+        raise ValueError(f'the tensor-core sample head takes bf16 W with D '
+                         f'% 64 == 0, D <= 960 and V % 256 == 0, not '
+                         f'{w.dtype} {tuple(w.shape)}')
+    m, d = x.shape
+    v = w.shape[1]
+    if route == 'cuda_cores' and 16 * (d + v) * 4 > 227 * 1024:
+        raise ValueError(f'D + V = {d + v} exceeds the CUDA-core kernel\'s '
+                         f'shared-memory tile')
+    if route == 'wgmma' and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError('the tensor-core sample head needs x and w 16-byte '
+                         'aligned')
+    if (seed.device != x.device or seed.dtype != torch.int64
+            or seed.numel() != 1):
+        raise ValueError('seed must be one int64 on x\'s device')
+    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    tok = torch.empty((m,), dtype=torch.int64, device=x.device)
+    args = (x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w.data_ptr(),
+            b.data_ptr(), float(temp), seed.data_ptr(), m, d, v,
+            y.data_ptr(), tok.data_ptr(), _build.stream_handle(x.device))
+    if route == 'wgmma':
+        rc = _kernel(route)(*args)
+    else:
+        rc = _kernel(route)(_W_DTYPE_CODES[w.dtype], *args)
+    _build.check(rc, 'sample-head kernel launch')
+    launches += 1
+    return y, tok
+
+
 def fused_sample_head(x, ln_w, ln_b, w, b, temp: float, generator):
     """x [M, D] hidden rows (fp32); LN params [D]; w [D, V]; b [V];
     temp a float; generator a torch.Generator on x's device.
     Returns (Y [M] fp32, tok [M] int64)."""
-    global launches
     m = x.shape[0]
     v = w.shape[1]
     if x.device.type == 'cpu':
@@ -107,15 +222,6 @@ def fused_sample_head(x, ln_w, ln_b, w, b, temp: float, generator):
         return sample_head_reference(x, ln_w, ln_b, w, b, temp, g1, g2)
     if x.device.type != 'cuda':
         raise ValueError(f'no sample-head path for device {x.device}')
-    _check_cuda_args(x, ln_w, ln_b, w, b)
     seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
                          device=x.device, dtype=torch.int64)
-    y = torch.empty((m,), dtype=torch.float32, device=x.device)
-    tok = torch.empty((m,), dtype=torch.int64, device=x.device)
-    rc = _kernel()(_W_DTYPE_CODES[w.dtype], x.data_ptr(), ln_w.data_ptr(),
-                   ln_b.data_ptr(), w.data_ptr(), b.data_ptr(), float(temp),
-                   seed.data_ptr(), m, x.shape[1], v, y.data_ptr(),
-                   tok.data_ptr(), _build.stream_handle(x.device))
-    _build.check(rc, 'sample-head kernel launch')
-    launches += 1
-    return y, tok
+    return sample_head_kernel(x, ln_w, ln_b, w, b, temp, seed)
