@@ -13,7 +13,11 @@ gate off and then on; and ART-V, the autoregressive sampler (the same
 backbone from the text-to-video flags with ``--ar``: a prefill of the
 115-position control prefix, then 511 KV-cached decode steps), through
 ``generate.generate_videos``, on the card's default path (the whole-step
-decode kernel) and then with ``MMVID_ARTV_FUSED=0`` (the per-layer step).
+decode kernel) and then with ``MMVID_ARTV_FUSED=0`` (the per-layer step);
+then int8 serving: the flagship calibrated by
+``ops.int8.quantize_for_serving`` (w8a8 backbone and VQGAN decoder) under
+``MMVID_ATTN_INT8=1`` (the int8 attention kernel), and ART-V's int8 decode
+(``generate_images(int8=True)``).
 The paths' models, inputs and batch-16 timings come from
 ``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``, ``measure``).
 Phases, in order; any failure exits non-zero and prints no result line:
@@ -29,6 +33,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    outputs that differ from plain; times beside
    ``F.scaled_dot_product_attention`` with the same float mask on the
    packed views at L 629 and L 565.
+   Then the int8 attention kernel (``MMVID_ATTN_INT8=1``) vs its plain
+   version at L 565 and 629, B16 H12 D64 bf16 on the packed views: outputs
+   differing, and by how many quantization steps; two calls bitwise
+   equal; timed beside its plain version (and SDPA's bf16 time, as
+   context only).
 4. sample-head kernels vs their plain version: exact at temp 0 for Y
    given the chosen token, token histograms in distribution (TV bounds);
    at temp 1 both bf16 routes (tensor cores, CUDA cores) against the
@@ -64,6 +73,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
     two, ``breakdown.measure``
     for each (one timed call of each for the per-layer path, seconds a
     batch).
+13. int8 serving, the flagship at full width: bf16 logits of one forward,
+    then ``quantize_for_serving`` under MMVID_ATTN_INT8=1 and the JAX
+    package's gates (logits cosine > 0.99, argmax agreement > 0.9; the
+    decoder's int32 sums exact at every site, and each site alone within
+    mean |d| < 0.02, max < 0.2; the whole decoder reported, see
+    ``_int8_decoder_checks``); a batch of
+    16 at 20 rounds: launch counts (int8 attention 240, sample head 20,
+    the bf16 attention kernel 0), output checks, determinism by seed,
+    ``breakdown.measure``.
+14. ART-V int8 at full width: a warm-up batch of 16 and one timed, output
+    checks, the same tokens on one seed, no kernel launched.
 
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
 then as its last line ``{"ok": true, "device": {...}}``.  Run from the
@@ -73,6 +93,7 @@ repository root:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -144,10 +165,32 @@ DECODE_DEEP_TOL_B64 = 7.5e-2
 # grid-step probe vs plain, fp32 outputs of bf16 products summed in
 # another order
 PROBE_TOL = 1e-4
+# int8 attention kernel vs plain (disagreement below): the integers are
+# the same, and only expf's last bit can move p * 127 across a rounding
+# tie (one quantization step of one output over its row sum) or the row
+# sum by an ulp.  On the H100, over the card tests' shapes (B16 L565/L629
+# packed, L29, L139 D32, L1024; fp32 and bf16; three seeds each), the
+# kernel read at most 0.405 steps, a mean of at most 0.00185 steps and, in
+# bf16, at most 0.098 of the outputs differing; the unquantized function
+# (and the bf16 kernel) on the same inputs read at least 0.535 steps, a
+# mean of at least 0.0333 steps and 0.879 differing.  So a kernel passes
+# within these limits, and the unquantized function, which the checks
+# compute beside it, must not
+INT8_MAX_STEPS = 0.5
+INT8_MEAN_STEPS = 0.005
+INT8_DIFFER_SHARE_BF16 = 0.25
+# int8 serving vs the bf16 model (the JAX package's own gates,
+# tests/test_int8.py): backbone logits on one forward, and the int8
+# decoder against the unquantized one on the same ids (applied site by
+# site: _int8_decoder_checks says why)
+INT8_LOGITS_COS = 0.99
+INT8_ARGMAX_AGREE = 0.9
+INT8_DECODE_MEAN = 0.02
+INT8_DECODE_MAX = 0.2
 
 # NVIDIA H100 SXM peaks (data sheet, dense): the bounds of the kernels line
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12}
+PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12, 'int8': 1979e12}
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -236,6 +279,38 @@ def _attention_inputs(b, l, h, d, dtype, packed, seed):
                 for i in range(3)]
     return [torch.randn((b, l, h, d), generator=g, device='cuda').to(dtype)
             for _ in range(3)]
+
+
+def disagreement(out, ref, v) -> dict:
+    """How outputs ``out`` of the int8 attention differ from its plain
+    version's ``ref`` on the same q, k, ``v``: the max abs difference, the
+    share of outputs that differ at all, and in quantization steps the
+    largest and the mean difference and the share beyond one step.  One
+    step is what one p8 rounding can move an output by: vs = max|v| / 127
+    of its (batch, head), over a row sum of at least 1, plus a rounding of
+    the output dtype (eps * |ref|)."""
+    import torch
+    diff = (out.float() - ref.float()).abs()
+    step = (v.float().abs().amax(dim=(1, 3), keepdim=True) / 127.0
+            + torch.finfo(out.dtype).eps * ref.float().abs())
+    steps = diff / step
+    return {'max_abs_err': diff.max().item(),
+            'differ_share': (diff > 0).float().mean().item(),
+            'max_steps': steps.max().item(),
+            'mean_steps': steps.mean().item(),
+            'beyond_one_step_share': (steps > 1).float().mean().item()}
+
+
+def int8_agrees(dis: dict, dtype) -> bool:
+    """``disagreement``'s reading within the int8 limits: at most
+    INT8_MAX_STEPS anywhere, INT8_MEAN_STEPS on average and, for bf16
+    outputs, at most INT8_DIFFER_SHARE_BF16 of them differing (fp32
+    outputs differ in their last bits wherever the row sums do)."""
+    import torch
+    return (dis['max_steps'] <= INT8_MAX_STEPS
+            and dis['mean_steps'] <= INT8_MEAN_STEPS
+            and (dtype != torch.bfloat16
+                 or dis['differ_share'] <= INT8_DIFFER_SHARE_BF16))
 
 
 def _set_attn_bf16(on: bool):
@@ -348,6 +423,93 @@ def phase_attention():
           f'{fp32_rows[629]["ms"]:.4f} ms, L565 {fp32_rows[565]["ms"]:.4f} '
           f'ms', flush=True)
     return rows, fp32_rows
+
+
+def _set_attn_int8(on: bool):
+    if on:
+        os.environ['MMVID_ATTN_INT8'] = '1'
+    else:
+        os.environ.pop('MMVID_ATTN_INT8', None)
+
+
+def phase_attention_int8():
+    """MMVID_ATTN_INT8=1: the s8 kernel against attention_int8_reference
+    at the main paths' shapes, B16 H12 D64 bf16 on the packed strided
+    views with mask_prev rows (flagship L 565, text+mask L 629): within
+    the int8 limits (``int8_agrees``), while two controls on the same
+    inputs, the unquantized function (``attention_reference``) and the
+    bf16 kernel, must fall outside them; two calls bitwise equal; kernel,
+    plain and, as context only (it computes the bf16 function, not this
+    one), ``F.scaled_dot_product_attention`` on the same views and
+    mask."""
+    import torch
+    from mmvid_tpu_torch.models.clip import build_attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+    from mmvid_tpu_torch.ops import attention_int8 as A8
+
+    rows = {}
+    try:
+        for b, l, h, d, idx in ((16, 565, 12, 64, (51, 52)),
+                                (16, 629, 12, 64, (115, 116))):
+            mask = build_attention_mask(l, 'mask_prev', index=idx,
+                                        device='cuda')
+            q, k, v = _attention_inputs(b, l, h, d, torch.bfloat16, True,
+                                        l + 3)
+            bf16_kernel = A.fused_attention_blhd(q, k, v, mask)
+            _set_attn_int8(True)
+            before = (A.launches, A8.launches)
+            out = A.fused_attention_blhd(q, k, v, mask)
+            again = A.fused_attention_blhd(q, k, v, mask)
+            launched = (A.launches - before[0], A8.launches - before[1])
+            ref = A8.attention_int8_reference(q, k, v, mask, d ** -0.5)
+            torch.cuda.synchronize()
+            same = torch.equal(out, again)
+            dis = disagreement(out, ref, v)
+            controls = {
+                'unquantized': disagreement(A.attention_reference(
+                    q, k, v, mask, d ** -0.5), ref, v),
+                'bf16_kernel': disagreement(bf16_kernel, ref, v)}
+            ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, mask))
+            plain_ms = cuda_time_ms(lambda: A8.attention_int8_reference(
+                q, k, v, mask, d ** -0.5), calls=5, reps=3)
+            _set_attn_int8(False)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mt = mask.to(torch.bfloat16)
+            sdpa_ms = cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mt))
+            # q, k, v read once, out written once, the mask once
+            nbytes = 4 * b * l * h * d * 2 + l * l * 4
+            bms, by = bound(nbytes, 4 * b * h * l * l * d, 'int8')
+            rows[l] = dict(dis, bitwise_repeat=same, ms=ms,
+                           plain_ms=plain_ms, library_ms=None,
+                           sdpa_bf16_ms_context=sdpa_ms, bound_ms=bms,
+                           bound_by=by, controls=controls)
+            print(f'[attention_int8] B={b} L={l} H={h} D={d} bfloat16 '
+                  f'packed mask_prev: max abs err {dis["max_abs_err"]:.3e}, '
+                  f'max {dis["max_steps"]:.4f} steps (bound '
+                  f'{INT8_MAX_STEPS}), mean {dis["mean_steps"]:.3e} steps '
+                  f'(bound {INT8_MEAN_STEPS}), outputs differing '
+                  f'{dis["differ_share"]:.6f} (bound '
+                  f'{INT8_DIFFER_SHARE_BF16}); controls, which must fall '
+                  'outside: ' + ', '.join(
+                      f'{n} max {c["max_steps"]:.4f} mean '
+                      f'{c["mean_steps"]:.4f} differing '
+                      f'{c["differ_share"]:.4f}'
+                      for n, c in controls.items())
+                  + f'; two calls bitwise equal {same}; launches (bf16, '
+                  f'int8) {launched}; kernel {ms:.4f} ms plain '
+                  f'{plain_ms:.4f} ms (sdpa bf16, another function: '
+                  f'{sdpa_ms:.4f} ms) bound {bms:.4f} ms ({by})', flush=True)
+            if launched != (0, 2):
+                fail(f'int8 attention launches {launched} != (0, 2)')
+            if not (same and int8_agrees(dis, out.dtype)):
+                fail(f'int8 attention kernel disagrees with plain at L={l}')
+            if any(int8_agrees(c, out.dtype) for c in controls.values()):
+                fail(f'the int8 limits pass an unquantized control at L={l}')
+    finally:
+        _set_attn_int8(False)
+    return rows
 
 
 def _tv(p, q):
@@ -1202,6 +1364,264 @@ def phase_artv():
     return counts['artv'], counts['artv per-layer']
 
 
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def phase_int8_serving():
+    """The slice's path at full width: the flagship (bf16, seed 0)
+    calibrated by ``ops.int8.quantize_for_serving`` (w8a8 backbone and
+    VQGAN decoder) under MMVID_ATTN_INT8=1, batch 16, 20 rounds,
+    ``dynamic=False``: the JAX package's gates against the bf16 model
+    (logits of one forward; the decoder, ``_int8_decoder_checks``), launch
+    counts, output checks, determinism by seed, then
+    ``breakdown.measure``."""
+    import torch
+    from mmvid_tpu_torch import breakdown
+    from mmvid_tpu_torch.ops.int8 import quantize_for_serving
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = breakdown.build('flagship')
+    cfg = model.cfg
+    g = torch.Generator(device='cuda').manual_seed(21)
+    text4, _ = breakdown.inputs(model, 'flagship', 4)
+    target = torch.randint(0, cfg.num_image_tokens,
+                           (4, cfg.target_seq_len), generator=g,
+                           device='cuda')
+    ids = torch.randint(0, cfg.num_image_tokens, (8, cfg.image_seq_len),
+                        generator=g, device='cuda')
+    with torch.no_grad():
+        logits_bf16 = model.core(text4, None, target)[0]
+    _set_attn_int8(True)
+    try:
+        qmodel = quantize_for_serving(
+            model, generator=torch.Generator(device='cuda').manual_seed(0))
+        torch.cuda.synchronize()
+        print(f'[int8] flagship built and calibrated in '
+              f'{time.perf_counter() - t0:.2f} s: backbone scales '
+              f'{qmodel.cfg.clip.int8_scales[0]} (layer 0) .. '
+              f'{qmodel.cfg.clip.int8_scales[-1]} (layer '
+              f'{cfg.clip.layers - 1}), {len(qmodel.vae.cfg.int8_scales)} '
+              f'decoder sites', flush=True)
+        with torch.no_grad():
+            logits_int8 = qmodel.core(text4, None, target)[0]
+        cos = _cosine(logits_int8, logits_bf16)
+        agree = (logits_int8.argmax(-1) == logits_bf16.argmax(-1)
+                 ).float().mean().item()
+        print(f'[int8] one full-width forward (4 x {cfg.total_seq_len}), int8 '
+              f'vs bf16 logits: cosine {cos:.6f} (> {INT8_LOGITS_COS}), '
+              f'argmax agreement {agree:.4f} (> {INT8_ARGMAX_AGREE})',
+              flush=True)
+        if not (cos > INT8_LOGITS_COS and agree > INT8_ARGMAX_AGREE):
+            fail('int8 backbone logits too far from the bf16 model\'s')
+        decoder = _int8_decoder_checks(model, qmodel, ids)
+        b, steps = breakdown.BATCH, breakdown.STEPS
+        text, _ = breakdown.inputs(qmodel, 'flagship', b)
+
+        def run(seed=0):
+            gen = torch.Generator(device='cuda').manual_seed(seed)
+            out = qmodel.generate_images(gen, text, mask_predict_steps=steps,
+                                         dynamic=False)
+            torch.cuda.synchronize()
+            return out
+
+        reset_counts()
+        videos, tokens = run()
+        counts = read_counts()
+        want = expected(attention_int8=cfg.clip.layers * steps,
+                        sample_head=steps)
+        print(f'[int8] launches {counts} (expected {want})', flush=True)
+        if counts != want:
+            fail(f'int8 serving launch counts {counts} != {want}')
+        _check_videos('int8', cfg, videos, tokens)
+        _, again = run()
+        same = torch.equal(tokens, again)
+        n_diff = int((tokens != run_bf16_tokens(model, text, steps)).sum())
+        print(f'[int8] videos {tuple(videos.shape)}, finite in [0,1], tokens '
+              f'< {cfg.num_image_tokens}, same seed same tokens: {same}; '
+              f'tokens differing from the bf16 model at one seed: {n_diff} '
+              f'of {tokens.numel()}', flush=True)
+        if not same:
+            fail('int8 serving: the same seed gave different tokens')
+        res = breakdown.measure(qmodel, 'flagship')
+        res['decoder'] = decoder
+        res['logits_cosine'], res['argmax_agreement'] = cos, agree
+        report('int8', res)
+    finally:
+        _set_attn_int8(False)
+    return counts
+
+
+# the JAX package's decoder test config (tests/test_int8.py:207-227)
+VQ_JAX_TEST = dict(resolution=64, ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                   z_channels=64, embed_dim=64, n_embed=256,
+                   attn_resolutions=(32,))
+
+
+def _int8_decoder_checks(model, qmodel, ids):
+    """The int8 decoder's checks, on 8 frames of random ids.
+
+    Gated:
+    1. Exactness: at every full-width site, the int32 sums of
+       ``int8_conv`` on the card (``torch._int_mm`` over gathered windows)
+       equal an fp64 convolution of the same int8 values (exact below
+       2^53), on the site's own input of one frame.
+    2. Each site alone quantized moves the bf16 decoder's [0, 1] images by
+       less than the JAX package's bounds (INT8_DECODE_MEAN / _MAX,
+       tests/test_int8.py).
+    Reported, not gated (PERF.md, section 6): the decoder with every site
+    quantized at once against bf16, the same scales on an fp32 copy of
+    the weights against fp32, the share of activations beyond their scale,
+    and the JAX test's own decoder config (fp32, random calibration, two
+    random sequences).  At random weights the method's noise summed over
+    the 58 full-width sites passes the JAX bounds in the JAX package too:
+    tests/int8_decoder_witness.py runs both packages' quantize_vae_decoder
+    on the same full-width weights and ids on the CPU, and the JAX
+    package's own int8 decoder reads mean 0.0224-0.0238 against its fp32
+    one there, as the port does (PERF.md, section 6)."""
+    import torch
+    import torch.nn.functional as F
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch.models.vqgan import SiteConv, VQGanConfig, VQGanVAE
+    from mmvid_tpu_torch.ops.int8 import (int8_conv, quantize_activation,
+                                          quantize_vae_decoder, quantized_vae)
+
+    def diff(a, b):
+        d = (a.float() - b.float()).abs()
+        return d.mean().item(), d.max().item()
+
+    sites = {m.site: m for m in qmodel.vae.modules()
+             if isinstance(m, SiteConv) and m.a_scale is not None}
+    inputs, saturated = {}, {}
+
+    def hook(mod, args):
+        x = args[0]
+        inputs[mod.site] = x[:1].clone()
+        saturated[mod.site] = (x.float().abs() * (127.0 / mod.a_scale)
+                               > 127.5).float().mean().item()
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        img_bf16 = model.vae.decode(ids)
+        handles = [m.register_forward_pre_hook(hook) for m in sites.values()]
+        whole = diff(qmodel.vae.decode(ids), img_bf16)
+        for h in handles:
+            h.remove()
+        inexact = []
+        with torch.no_grad():
+            for site, conv in sites.items():
+                o, c, kh, kw = conv.weight.shape
+                # the int8 weights the serving copy froze, and runs
+                w_mat = conv.w8[0]
+                x_q = quantize_activation(inputs[site], conv.a_scale)
+                acc = int8_conv(x_q.permute(0, 2, 3, 1), w_mat, kh, kw)
+                ref = F.conv2d(x_q.double(), w_mat.view(o, kh, kw, c).permute(
+                    0, 3, 1, 2).double(), padding=(kh // 2, kw // 2))
+                if not torch.equal(acc.double(), ref.permute(0, 2, 3, 1)):
+                    inexact.append(site)
+        per_site = {p: diff(quantized_vae(model.vae, ((p, v),)).decode(ids),
+                            img_bf16) for p, v in qmodel.vae.cfg.int8_scales}
+        vae32 = VQGanVAE(image_size=model.vae.image_size,
+                         cfg=dataclasses.replace(model.vae.cfg,
+                                                 int8_scales=None)).cuda()
+        vae32.load_state_dict(model.vae.state_dict())
+        whole_fp32 = diff(quantized_vae(vae32, qmodel.vae.cfg.int8_scales
+                                        ).decode(ids), vae32.decode(ids))
+        small = VQGanVAE(image_size=64, cfg=VQGanConfig(**VQ_JAX_TEST)).cuda()
+        factories.init_weights(small, torch.Generator().manual_seed(3))
+        g = torch.Generator(device='cuda').manual_seed(4)
+        qsmall = quantize_vae_decoder(small, generator=g)
+        seq = torch.randint(0, 256, (2, small.image_seq_len), generator=g,
+                            device='cuda')
+        jax_test = diff(qsmall.decode(seq), small.decode(seq))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    worst = max(per_site.items(), key=lambda kv: kv[1][0])
+    worst_max = max(per_site.items(), key=lambda kv: kv[1][1])
+    print(f'[int8] decoder: int32 sums equal to an fp64 conv at '
+          f'{len(sites) - len(inexact)} of {len(sites)} full-width sites; '
+          f'each site alone vs bf16: worst mean {worst[1][0]:.5f} '
+          f'({worst[0]}), worst max {worst_max[1][1]:.5f} ({worst_max[0]}) '
+          f'(bounds {INT8_DECODE_MEAN}, {INT8_DECODE_MAX}); reported: all '
+          f'sites at once vs bf16 mean {whole[0]:.5f} max {whole[1]:.5f}, on '
+          f'fp32 weights vs fp32 mean {whole_fp32[0]:.5f} max '
+          f'{whole_fp32[1]:.5f}, saturated share max '
+          f'{max(saturated.values()):.3e}; the JAX test\'s decoder config '
+          f'(fp32, random calibration) mean {jax_test[0]:.5f} max '
+          f'{jax_test[1]:.5f}', flush=True)
+    if inexact:
+        fail(f'int8 decoder sums differ from the exact product at {inexact}')
+    if not all(m < INT8_DECODE_MEAN and x < INT8_DECODE_MAX
+               for m, x in per_site.values()):
+        fail('an int8 decoder site moves the full-width decoder too far')
+    return {'sites_exact': len(sites) - len(inexact), 'sites': len(sites),
+            'per_site_worst_mean': worst, 'per_site_worst_max': worst_max,
+            'all_sites_vs_bf16': whole,
+            'all_sites_fp32_weights_vs_fp32': whole_fp32,
+            'saturated_share_max': max(saturated.values()),
+            'jax_test_config': jax_test}
+
+
+def run_bf16_tokens(model, text, steps):
+    """The unquantized model's tokens at seed 0 (MMVID_ATTN_INT8 off)."""
+    import torch
+    flag = os.environ.pop('MMVID_ATTN_INT8', None)
+    try:
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        return model.generate_images(gen, text, mask_predict_steps=steps,
+                                     dynamic=False, decode=False)[1]
+    finally:
+        if flag is not None:
+            os.environ['MMVID_ATTN_INT8'] = flag
+
+
+def phase_artv_int8():
+    """ART-V's int8 decode at full width (``generate_images(int8=True)``:
+    int8 weights, head and K/V caches, the per-layer step in torch ops, no
+    kernel, as in JAX): one batch of 16 as the warm-up, one timed; output
+    checks, the same tokens on one seed, no launch of any kernel."""
+    import torch
+    from mmvid_tpu_torch import breakdown
+
+    t0 = time.perf_counter()
+    model = breakdown.build('artv')
+    cfg = model.cfg
+    text, _ = breakdown.inputs(model, 'artv', breakdown.BATCH)
+    torch.cuda.synchronize()
+    print(f'[artv int8] built in {time.perf_counter() - t0:.2f} s',
+          flush=True)
+
+    def run():
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        t0 = time.perf_counter()
+        out = model.generate_images(gen, text, int8=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    reset_counts()
+    (videos, tokens), warm = run()
+    counts = read_counts()
+    if counts != expected():
+        fail(f'ART-V int8 launched kernels: {counts}')
+    _check_videos('artv int8', cfg, videos, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    (_, again), dt = run()
+    peak = torch.cuda.max_memory_allocated()
+    same = torch.equal(tokens, again)
+    fps = breakdown.BATCH * cfg.num_targets / dt
+    print(f'[artv int8] batch 16, 511 steps: {dt:.4f} s a batch (warm-up '
+          f'{warm:.4f} s), {fps:.2f} frames/s, peak memory {peak} B; '
+          f'launches {counts}; videos finite in [0,1], same seed same '
+          f'tokens: {same}', flush=True)
+    if not same:
+        fail('ART-V int8: the same seed gave different tokens')
+    return {'s_per_batch': dt, 'frames_per_s': fps, 'peak_memory_bytes': peak,
+            'warmup_s': warm}, counts
+
+
 def timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1218,15 +1638,18 @@ def main():
     os.environ.pop('MMVID_FUSED_LNQKV', None)
     os.environ.pop('MMVID_ARTV_FUSED', None)
     os.environ.pop('MMVID_ATTN_BF16', None)
+    os.environ.pop('MMVID_ATTN_INT8', None)
     phase_device()
     timed(phase_build)
     attention, attention_fp32 = timed(phase_attention)
+    attention_int8 = timed(phase_attention_int8)
     artv_decode, decode_by_pos = timed(phase_artv_decode)
     gridstep, probe = timed(phase_gridstep)
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by')
     sample_head, head_extra = timed(phase_sample_head)
     rows = {'attention': tuple(attention[(629, False)][k] for k in keys),
+            'attention_int8': tuple(attention_int8[629][k] for k in keys),
             'sample_head': sample_head,
             'codebook': timed(phase_codebook),
             'fused_ln_qkv': timed(phase_ln_qkv),
@@ -1236,7 +1659,10 @@ def main():
     flagship = timed(phase_main_path)
     text_mask, fused = timed(phase_text_mask)
     artv, artv_per_layer = timed(phase_artv)
+    int8_serving = timed(phase_int8_serving)
+    _, artv_int8_counts = timed(phase_artv_int8)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
+               'attention_int8': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
                'codebook': 'mmvid_tpu/ops/codebook.py:59',
                'fused_ln_qkv': 'mmvid_tpu/ops/fused_ln_qkv.py:65',
@@ -1245,7 +1671,8 @@ def main():
     # launches: the main path that runs the kernel (the gated kernels
     # with their gate on; the probe runs on none); the numbers: at that
     # path's shapes
-    main_run = {'attention': text_mask, 'sample_head': text_mask,
+    main_run = {'attention': text_mask, 'attention_int8': int8_serving,
+                'sample_head': text_mask,
                 'codebook': text_mask, 'fused_ln_qkv': fused,
                 'artv_decode': artv, 'gridstep': artv}
     kernels = []
@@ -1259,7 +1686,9 @@ def main():
                                       'text_mask': text_mask[name],
                                       'text_mask_fused': fused[name],
                                       'artv': artv[name],
-                                      'artv_per_layer': artv_per_layer[name]}}
+                                      'artv_per_layer': artv_per_layer[name],
+                                      'int8_serving': int8_serving[name],
+                                      'artv_int8': artv_int8_counts[name]}}
         if name == 'attention':
             # the bf16 route (the main paths'), the tensor-core kernel,
             # on packed views; the fp32 route's CUDA-core kernel beside it
@@ -1271,6 +1700,13 @@ def main():
             entry['fp32_route'] = {
                 'source': 'mmvid_tpu_torch/csrc/attention.cu',
                 'L629': attention_fp32[629], 'L565': attention_fp32[565]}
+        if name == 'attention_int8':
+            # MMVID_ATTN_INT8=1; the int8-serving path's launches; the
+            # body at attention.py:47-53,66-72, chosen at :162
+            entry['at_flagship_L565'] = attention_int8[565]
+            entry.update({k: attention_int8[629][k] for k in (
+                'differ_share', 'max_steps', 'mean_steps', 'controls',
+                'bitwise_repeat', 'sdpa_bf16_ms_context')})
         if name == 'artv_decode':   # one cooperative launch a step
             # the phased kernel is the route; the streaming one runs only
             # when asked for

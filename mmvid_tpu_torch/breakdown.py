@@ -43,15 +43,17 @@ import torch
 
 from mmvid_tpu_torch import factories
 from mmvid_tpu_torch.models.artv import fused_decode
-from mmvid_tpu_torch.ops import artv_decode, attention, codebook
-from mmvid_tpu_torch.ops import fused_ln_qkv, gridstep, sample_head
+from mmvid_tpu_torch.ops import artv_decode, attention, attention_int8
+from mmvid_tpu_torch.ops import codebook, fused_ln_qkv, gridstep, sample_head
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
 
-KERNELS = {'attention': attention, 'sample_head': sample_head,
+KERNELS = {'attention': attention, 'attention_int8': attention_int8,
+           'sample_head': sample_head,
            'codebook': codebook, 'fused_ln_qkv': fused_ln_qkv,
            'artv_decode': artv_decode, 'gridstep': gridstep}
 # (kind, substrings of device kernel names); the first match wins
 KINDS = (
+    ('attention kernel, int8', ('attention_int8_kernel',)),
     ('attention kernel, tensor cores', ('attention_fwd_kernel_wgmma',)),
     ('attention kernel, CUDA cores', ('attention_fwd_kernel',)),
     ('sample-head kernel', ('sample_head_kernel',)),
@@ -217,6 +219,8 @@ def measure(model, path: str, batch: int = BATCH, steps: int = STEPS,
         'fused_lnqkv': os.environ.get('MMVID_FUSED_LNQKV') == '1',
         'artv_fused': path == 'artv' and fused_decode('cuda'),
         'attn_bf16_probs': attention.bf16_probs(),
+        'attn_int8': attention_int8.enabled(),
+        'int8_backbone': cfg.clip.int8_scales is not None,
         's_per_batch': dt, 's_all': whole,
         'frames_per_s': batch * cfg.num_targets / dt,
         'peak_memory_bytes': peak, 'phases_ms': phases,

@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Batch generation CLI of the port: prompts in, videos out.
 
-Counterpart of the repository's ``generate.py`` (mask-predict sampling,
-and ART-V for a checkpoint whose hparams say ``ar``).  Loads a reference
-``dalle.pt`` once, then streams prompt batches through the model's
-``generate_images``, padding the last batch to the static batch size.
+Counterpart of the repository's ``generate.py``: mask-predict sampling,
+and ART-V with ``--ar`` or for a checkpoint whose hparams say ``ar``
+(they override the flag, as in the JAX CLI); ``--int8`` calibrates a
+mask-predict model at load and serves it w8a8
+(``ops.int8.quantize_for_serving``), or runs ART-V's int8 decode.
+Loads a reference ``dalle.pt`` once, then streams prompt batches through
+the model's ``generate_images``, padding the last batch to the static
+batch size.
 
 Usage:
     python -m mmvid_tpu_torch.generate --dalle_path run/dalle.pt \\
         --prompts "a person with wavy hair is talking" --out_dir out/ \\
         --format gif
     python -m mmvid_tpu_torch.generate --dalle_path ... --prompt_file p.txt
+    MMVID_ATTN_INT8=1 python -m mmvid_tpu_torch.generate --dalle_path ... \\
+        --prompts "a man is smiling" --int8
 
 ``load_model`` and ``generate_videos`` need only torch and numpy;
 ``main`` also writes files through ``mmvid_tpu_torch.utils.html``, whose
@@ -28,6 +34,7 @@ import torch
 
 from mmvid_tpu_torch import factories
 from mmvid_tpu_torch.models.mmvid import DEFAULT_MP_CONFIG
+from mmvid_tpu_torch.ops.int8 import quantize_for_serving
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
 from mmvid_tpu_torch.utils.html import (
     save_gif,
@@ -78,6 +85,14 @@ def parse_args(argv=None):
     p.add_argument('--insert_sep', action='store_true')
     p.add_argument('--use_separate_visual_emb', action='store_true')
     p.add_argument('--loss_img_weight', type=int, default=7)
+    p.add_argument('--ar', action='store_true',
+                   help='sample as ART-V (checkpoint hparams override)')
+    p.add_argument('--int8', action='store_true',
+                   help='int8 serving: a mask-predict model is calibrated '
+                        'at load and runs its backbone and VQGAN decoder '
+                        'w8a8 (MMVID_ATTN_INT8=1 also quantizes its '
+                        'attention); ART-V decodes with int8 weights and '
+                        'K/V caches')
     return p.parse_args(argv)
 
 
@@ -104,7 +119,10 @@ def load_model(args):
         weights.update({f'vae.model.{k}': v for k, v in sd.items()
                         if not k.startswith(('loss.', 'colorize'))})
     load_weights(model, weights)
-    return model.eval(), SimpleTokenizer()
+    model = model.eval()
+    if getattr(args, 'int8', False) and not getattr(args, 'ar', False):
+        model = quantize_for_serving(model)
+    return model, SimpleTokenizer()
 
 
 class Batch(NamedTuple):
@@ -115,12 +133,13 @@ class Batch(NamedTuple):
 
 def generate_videos(model, tokenizer, prompts, batch_size: int,
                     generator: torch.Generator, mask_predict_steps: int = 0,
-                    dynamic: bool = False,
-                    mp_config=None) -> Iterator[Batch]:
+                    dynamic: bool = False, mp_config=None,
+                    int8: bool = False) -> Iterator[Batch]:
     """Yield one Batch per ``batch_size`` prompts; the last batch is
     padded with empty prompts to keep the batch shape static, and the
     padding is dropped from what is yielded.  ``generator`` lives on the
-    model's device."""
+    model's device.  ``int8``: ART-V's int8 decode (a mask-predict model
+    is quantized when it is built)."""
     device = next(model.parameters()).device
     cfg = model.cfg
     for i in range(0, len(prompts), batch_size):
@@ -129,9 +148,10 @@ def generate_videos(model, tokenizer, prompts, batch_size: int,
         toks = tokenizer.tokenize(chunk + [''] * pad, cfg.text_seq_len,
                                   truncate_text=True)
         text = torch.as_tensor(toks, dtype=torch.long).to(device)
+        kw = {'int8': True} if int8 else {}
         videos, seq = model.generate_images(
             generator, text, mask_predict_steps=mask_predict_steps,
-            dynamic=dynamic, mp_config=mp_config or DEFAULT_MP_CONFIG)
+            dynamic=dynamic, mp_config=mp_config or DEFAULT_MP_CONFIG, **kw)
         yield Batch(chunk, videos[:len(chunk)], seq[:len(chunk)])
 
 
@@ -152,7 +172,8 @@ def main(args=None):
     n_done = 0
     for batch in generate_videos(model, tokenizer, prompts, args.batch_size,
                                  generator, args.mask_predict_steps,
-                                 args.dynamic):
+                                 args.dynamic,
+                                 int8=args.int8 and args.ar):
         videos = batch.videos.float().cpu().numpy()
         for j, (prompt, vid) in enumerate(zip(batch.prompts, videos)):
             stem = (f'{n_done + j:04d}_'

@@ -27,6 +27,19 @@ or the per-layer step on any device (:func:`fused_decode`).  Both flags
 are read at every call.  Products take bf16 (the compute dtype) operands with
 fp32 sums and outputs, as the JAX package's ``preferred_element_type``
 does: the plain ops multiply fp32 copies of the rounded operands.
+
+``ar_sample(..., int8=True)`` is the JAX package's int8 decode (serving,
+beyond the reference): the blocks' and the head's weights quantized per
+output channel (``quant_weight``), every product of the step an int8
+product with one dynamic activation scale over the whole [B, D] input
+(``dot8``: x is divided by its scale), and the K/V caches stored int8 with
+per-(layer, head) scales at 1.5x the prefill's range, unless
+``MMVID_ARTV_INT8_WEIGHTS_ONLY=1`` keeps them in the compute dtype.  As in
+JAX, no kernel runs there (``fused = not int8``): the per-layer step in
+plain torch ops on every device, the weight products through
+``ops.int8.int_mm``, the per-head int8 attention products as fp32 products
+of integer-valued tensors (exact: D * 127^2 and W * 127^2 stay below
+2^24), with TF32 off.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from mmvid_tpu_torch.models.clip import (
     layer_norm_fp32,
 )
 from mmvid_tpu_torch.models.vqgan import VQGanVAE
+from mmvid_tpu_torch.ops import int8 as int8_ops
 from mmvid_tpu_torch.ops.artv_decode import (
     DecodeWorkspace,
     decode_token_step,
@@ -268,6 +282,88 @@ def _decode_block(p, x, ck, cv, pos, invalid, heads, dt):
     return _mlp_residual(p, x + _dense(o, *p['out'], dt), dt)
 
 
+def _quant_weight(weight):
+    """JAX ar_sample's ``quant_weight`` of a torch-layout weight [out, in]:
+    (int8 [out, in], fp32 per-output-channel scales max(max|W|, 1e-8) /
+    127; ops.int8's dense weights floor after dividing instead)."""
+    w = weight.float()
+    w_s = torch.clamp_min(w.abs().amax(dim=1), 1e-8) / 127.0
+    return torch.round(w / w_s[:, None]).to(torch.int8), w_s
+
+
+def _dot8(x, w_q, w_s, bias):
+    """JAX ar_sample's ``dot8``: x [..., in] fp32 quantized with one
+    dynamic scale over all of x (x divided by it), an int8 product, fp32
+    out plus the fp32 bias."""
+    a_s = torch.clamp_min(x.abs().amax(), 1e-6) / 127.0
+    x_q = torch.round(x.float() / a_s).to(torch.int8)
+    acc = int8_ops.int_mm(x_q.reshape(-1, x.shape[-1]), w_q)
+    return (acc.float() * (a_s * w_s) + bias).view(*x.shape[:-1], -1)
+
+
+def _block_params8(block):
+    """One resblock's int8 decode operands: (int8 weight [out, in],
+    scales, fp32 bias) per product."""
+    def lin(w, b):
+        return _quant_weight(w) + (b.float(),)
+    return {'ln_1': block.ln_1, 'ln_2': block.ln_2,
+            'qkv': lin(block.attn.in_proj_weight, block.attn.in_proj_bias),
+            'out': lin(block.attn.out_proj.weight, block.attn.out_proj.bias),
+            'fc': lin(block.mlp.c_fc.weight, block.mlp.c_fc.bias),
+            'proj': lin(block.mlp.c_proj.weight, block.mlp.c_proj.bias)}
+
+
+def _q8(vals, s):
+    """[..., heads, hd] -> int8 on per-head scales s [heads] (clipped to
+    +-127)."""
+    return torch.round(torch.clamp(vals.float() / s[:, None], -127.0,
+                                   127.0)).to(torch.int8)
+
+
+def _cache_scales(pre):
+    """[n_layers, heads] int8 cache scales: each head's abs-max over the
+    prefill (floored at 1e-6), with 1.5x headroom for later tokens."""
+    return torch.stack([torch.clamp_min(t.abs().amax(dim=(0, 1, 3)), 1e-6)
+                        for t in pre]) * 1.5 / 127.0
+
+
+def _decode_block8(p, x, ck, cv, pos, invalid, heads, dt, kv_scales):
+    """JAX ar_sample's ``block_step8``: one token through one block with
+    int8 weight products, over its own [B, W, D] caches (int8 with
+    ``kv_scales`` (k_s, v_s) [heads], else in the compute dtype)."""
+    b, d = x.shape
+    w, hd = ck.shape[1], d // heads
+    q, k, v = _dot8(_ln(x, p['ln_1']), *p['qkv']).split(d, dim=-1)
+    q = q.view(b, heads, hd)
+    if kv_scales is not None:
+        k_s, v_s = kv_scales
+        ck[:, pos] = _q8(k.view(b, heads, hd), k_s).view(b, d)
+        cv[:, pos] = _q8(v.view(b, heads, hd), v_s).view(b, d)
+        q_s = torch.clamp_min(q.abs().amax(-1), 1e-6) / 127.0   # [b, heads]
+        q_q = torch.round(q / q_s[..., None])
+        acc = torch.einsum('bhd,bwhd->bhw', q_q,
+                           ck.float().view(b, w, heads, hd))
+        logits = (acc * (q_s[:, :, None] * k_s[None, :, None])
+                  * (hd ** -0.5))
+    else:
+        ck[:, pos] = k
+        cv[:, pos] = v
+        logits = torch.einsum('bhd,bwhd->bhw', q.to(dt).float(),
+                              ck.float().view(b, w, heads, hd)) * (hd ** -0.5)
+    attn = torch.softmax(logits.masked_fill(invalid, NEG_INF), dim=-1)
+    if kv_scales is not None:
+        acc = torch.einsum('bhw,bwhd->bhd', torch.round(attn * 127.0),
+                           cv.float().view(b, w, heads, hd))
+        o = (acc * (v_s[None, :, None] / 127.0)).reshape(b, d)
+    else:
+        o = torch.einsum('bhw,bwhd->bhd', attn.to(dt).float(),
+                         cv.float().view(b, w, heads, hd)).reshape(b, d)
+    x = x + _dot8(o, *p['out'])
+    h = _dot8(_ln(x, p['ln_2']), *p['fc'])
+    h = h * torch.sigmoid(1.702 * h)
+    return x + _dot8(h, *p['proj'])
+
+
 def ar_prefill(core: ArtvCore, text, visual_tokens=None):
     """The control prefix (<bos>+text+visual) once through the stack:
     (hidden of its last position [B, D] fp32, per-layer k and v
@@ -312,18 +408,23 @@ def _grow(cache, width):
 
 
 @torch.no_grad()
+@int8_ops.exact_fp32_products()
 def ar_sample(core: ArtvCore, text, visual_tokens, generator,
-              filter_thres: float = 0.5, temperature: float = 1.0):
+              filter_thres: float = 0.5, temperature: float = 1.0,
+              int8: bool = False):
     """KV-cached sampling of all target tokens -> [B, target_seq_len]
     int64 in [0, num_image_tokens).  ``generator`` (on the model's device)
-    draws each step's noise."""
+    draws each step's noise.  ``int8``: the int8 decode of the module
+    docstring."""
     cfg = core.cfg
     heads, n_layers = cfg.clip.heads, cfg.clip.layers
     dt, dim = core.dtype, cfg.dim
     b = text.shape[0]
     L = cfg.total_seq_len
     ctrl_len = cfg.control_seq_len + 1  # +<bos>
-    fused = fused_decode(text.device)
+    fused = fused_decode(text.device) and not int8
+    int8_caches = int8 and os.environ.get(
+        'MMVID_ARTV_INT8_WEIGHTS_ONLY') != '1'
     window = os.environ.get('MMVID_ARTV_WINDOW', '1') == '1'
 
     prefix_last, pre_k, pre_v = ar_prefill(core, text, visual_tokens)
@@ -336,6 +437,8 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
         stacked = stack_decode_params(blocks)
         if text.device.type == 'cuda':   # checked and allocated once
             workspace = DecodeWorkspace(stacked, b, heads)
+    elif int8:
+        dec = [_block_params8(block) for block in blocks]
     else:
         dec = [_block_params(block) for block in blocks]
 
@@ -346,9 +449,14 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
     fc_w = fc.weight[cfg.num_control_tokens:].float().t()
     fc_b = fc.bias[cfg.num_control_tokens:].float()
 
+    head8 = (_quant_weight(fc.weight[cfg.num_control_tokens:]) if int8
+             else None)
+
     def image_logits(hidden):
         h = F.layer_norm(hidden, ln_head.normalized_shape, ln_w, ln_b,
                          ln_head.eps)
+        if int8:
+            return _dot8(h, *head8, fc_b)
         return _dense(h, fc_w, fc_b, dt)
 
     k_img = min(max(int((1 - filter_thres) * cfg.total_tokens), 1),
@@ -356,9 +464,19 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
     n_steps = cfg.target_seq_len - 1
     seg_len = cfg.image_seq_len if window else n_steps
     w0 = min(ctrl_len + seg_len, L)
+    kv_scales = [None] * n_layers
     if fused:   # stacked [n_layers, B, W, D]
         cache_k = _grow(torch.stack(pre_k).to(dt), w0)
         cache_v = _grow(torch.stack(pre_v).to(dt), w0)
+    elif int8_caches:   # per-layer int8 [B, W, D], per-(layer, head) scales
+        pre_k = [k.view(b, ctrl_len, heads, -1) for k in pre_k]
+        pre_v = [v.view(b, ctrl_len, heads, -1) for v in pre_v]
+        k_s, v_s = _cache_scales(pre_k), _cache_scales(pre_v)
+        kv_scales = list(zip(k_s, v_s))
+        cache_k = [_grow(_q8(k, s).view(b, ctrl_len, dim), w0)
+                   for k, s in zip(pre_k, k_s)]
+        cache_v = [_grow(_q8(v, s).view(b, ctrl_len, dim), w0)
+                   for v, s in zip(pre_v, v_s)]
     else:       # per-layer [B, W, D]
         cache_k = [_grow(k.to(dt), w0) for k in pre_k]
         cache_v = [_grow(v.to(dt), w0) for v in pre_v]
@@ -390,8 +508,13 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
             else:
                 invalid = cols > pos
                 for i in range(n_layers):
-                    x = _decode_block(dec[i], x, cache_k[i], cache_v[i],
-                                      pos, invalid, heads, dt)
+                    if int8:
+                        x = _decode_block8(dec[i], x, cache_k[i], cache_v[i],
+                                           pos, invalid, heads, dt,
+                                           kv_scales[i])
+                    else:
+                        x = _decode_block(dec[i], x, cache_k[i], cache_v[i],
+                                          pos, invalid, heads, dt)
             fed.append(tok)
             tok = sample_tok(generator, image_logits(x), k_img,
                              temperature)
@@ -457,15 +580,17 @@ class ArtvModel(nn.Module):
     @torch.no_grad()
     def generate_images(self, generator, text, *, visual=None,
                         filter_thres=0.5, temperature=1.0, decode=True,
-                        **unused):
+                        int8=False, **unused):
         """text [B, text_seq_len] int -> (videos [B, T, H, W, 3] in [0, 1]
-        or None when ``decode`` is False, img_seq [B, T*n] int64).  The
+        or None when ``decode`` is False, img_seq [B, T*n] int64).
+        ``int8``: the int8 decode of ``ar_sample``.  The
         mask-predict keywords (``mask_predict_steps``, ``dynamic``,
         ``mp_config``) are taken and ignored, so
         ``generate.generate_videos`` serves both models."""
         vtok = self.visual_tokens(visual, text.shape[0], text.device)
         seq = ar_sample(self.core, text, vtok, generator,
-                        filter_thres=filter_thres, temperature=temperature)
+                        filter_thres=filter_thres, temperature=temperature,
+                        int8=int8)
         if not decode:
             return None, seq
         return self.decode_video(seq), seq

@@ -13,6 +13,16 @@ on the card, the plain version on the CPU).  With ``MMVID_FUSED_LNQKV=1``
 and a width that is a multiple of 128, ``ln_1`` and the QKV projection go
 through :func:`mmvid_tpu_torch.ops.fused_ln_qkv.fused_ln_qkv` instead (the
 flag is read at every block's forward; off by default).
+
+w8a8 int8 serving (``ops/int8.py``): ``ClipStackConfig.int8_scales`` holds
+per layer the static input scales (qkv_in, out_in, fc_in, proj_in), and
+with them the four projections of each block run through
+``quantized_dense`` (the packed in_proj with the shared qkv_in scale: its
+per-output-channel weight scales make that JAX's three separate q/k/v
+quantizations).  The same four sites record their inputs inside
+``ops.int8.recording()``, under ``blocks_{i}/attn/qkv_in`` ...  Both
+bypass the fused LN+QKV gate, as in the JAX package; a quantized stack
+refuses to run with grad enabled (rounding has no gradient).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmvid_tpu_torch.ops import int8
 from mmvid_tpu_torch.ops.attention import fused_attention_blhd
 from mmvid_tpu_torch.ops.fused_ln_qkv import fused_ln_qkv
 
@@ -36,6 +47,9 @@ class ClipStackConfig:
     width: int = 768
     layers: int = 12
     heads: int = 12
+    # w8a8 serving: per layer (qkv_in, out_in, fc_in, proj_in) activation
+    # scales from ops.int8 calibration; None = the unquantized path
+    int8_scales: Optional[tuple] = None
 
     @property
     def head_dim(self) -> int:
@@ -83,9 +97,29 @@ class Mlp(nn.Module):
         self.c_fc = nn.Linear(width, 4 * width, dtype=dtype)
         self.gelu = QuickGELU()
         self.c_proj = nn.Linear(4 * width, width, dtype=dtype)
+        # int8 weights of a serving copy (ops.int8.freeze_weights), else
+        # quantized at every int8 call
+        self.w8 = {}
 
-    def forward(self, x):
-        return self.c_proj(self.gelu(self.c_fc(x)))
+    def freeze_int8(self):
+        self.w8 = {n: int8.quantize_weight(getattr(self, n).weight)
+                   for n in ('c_fc', 'c_proj')}
+
+    def forward(self, x, scales=None, site=''):
+        """``scales``: (fc_in, proj_in) for the int8 path, else None."""
+        int8.record(f'{site}/mlp/fc_in', x)
+        h = _linear(self.c_fc, x, None if scales is None else scales[0],
+                    self.w8.get('c_fc'))
+        h = self.gelu(h)
+        int8.record(f'{site}/mlp/proj_in', h)
+        return _linear(self.c_proj, h, None if scales is None else scales[1],
+                       self.w8.get('c_proj'))
+
+
+def _linear(layer: nn.Linear, x, a_scale, w8=None):
+    if a_scale is None:
+        return layer(x)
+    return int8.quantized_dense(x, layer.weight, layer.bias, a_scale, w8)
 
 
 class MultiHeadAttention(nn.Module):
@@ -100,12 +134,25 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width, dtype=dtype))
         nn.init.xavier_uniform_(self.in_proj_weight)
         self.out_proj = nn.Linear(width, width, dtype=dtype)
+        # int8 weights of a serving copy, as in Mlp
+        self.w8 = {}
 
-    def forward(self, x, mask=None):
-        return self.attend(
-            F.linear(x, self.in_proj_weight, self.in_proj_bias), mask)
+    def freeze_int8(self):
+        self.w8 = {'in_proj': int8.quantize_weight(self.in_proj_weight),
+                   'out_proj': int8.quantize_weight(self.out_proj.weight)}
 
-    def attend(self, qkv, mask=None):
+    def forward(self, x, mask=None, scales=None, site=''):
+        """``scales``: (qkv_in, out_in) for the int8 path, else None."""
+        int8.record(f'{site}/attn/qkv_in', x)
+        if scales is None:
+            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        else:
+            qkv = int8.quantized_dense(x, self.in_proj_weight,
+                                       self.in_proj_bias, scales[0],
+                                       self.w8.get('in_proj'))
+        return self.attend(qkv, mask, scales, site)
+
+    def attend(self, qkv, mask=None, scales=None, site=''):
         """Attention and out_proj from the packed projection qkv
         [B, L, 3D]."""
         b, l, d3 = qkv.shape
@@ -117,8 +164,11 @@ class MultiHeadAttention(nn.Module):
                    for i in range(3))
         if mask is not None:
             mask = mask[:l, :l].contiguous()
-        out = fused_attention_blhd(q, k, v, mask)
-        return self.out_proj(out.reshape(b, l, d))
+        out = fused_attention_blhd(q, k, v, mask).reshape(b, l, d)
+        int8.record(f'{site}/attn/out_in', out)
+        return _linear(self.out_proj, out,
+                       None if scales is None else scales[1],
+                       self.w8.get('out_proj'))
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -130,19 +180,25 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = Mlp(width, dtype=dtype)
         self.ln_2 = nn.LayerNorm(width, eps=1e-5)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, scales=None, site=''):
+        """``scales``: the block's (qkv_in, out_in, fc_in, proj_in) for the
+        int8 path, else None; ``site``: its calibration path prefix."""
         if (os.environ.get('MMVID_FUSED_LNQKV') == '1'
-                and self.attn.width % 128 == 0):
+                and self.attn.width % 128 == 0 and scales is None
+                and not int8.is_recording()):
             # ln_1 and the QKV projection in one kernel (the JAX package's
-            # gate, mmvid_tpu/models/clip.py ResidualAttentionBlock)
+            # gate, mmvid_tpu/models/clip.py ResidualAttentionBlock; the
+            # int8 path and calibration go through the separate sites)
             qkv = fused_ln_qkv(x, self.ln_1.weight, self.ln_1.bias,
                                self.attn.in_proj_weight,
                                self.attn.in_proj_bias)
             x = x + self.attn.attend(qkv, mask)
         else:
             x = x + self.attn(layer_norm_fp32(self.ln_1, x, self.dtype),
-                              mask)
-        return x + self.mlp(layer_norm_fp32(self.ln_2, x, self.dtype))
+                              mask, None if scales is None else scales[:2],
+                              site)
+        return x + self.mlp(layer_norm_fp32(self.ln_2, x, self.dtype),
+                            None if scales is None else scales[2:], site)
 
 
 class TransformerStack(nn.Module):
@@ -157,7 +213,12 @@ class TransformerStack(nn.Module):
             for _ in range(cfg.layers))
 
     def forward(self, x, mask=None):
+        i8 = self.cfg.int8_scales
+        if i8 is not None and torch.is_grad_enabled():
+            raise RuntimeError(
+                'the int8 path is serving-only (rounding has no gradient): '
+                'run the quantized stack under torch.no_grad()')
         x = x.to(self.dtype)
-        for block in self.resblocks:
-            x = block(x, mask)
+        for i, block in enumerate(self.resblocks):
+            x = block(x, mask, i8[i] if i8 else None, f'blocks_{i}')
         return x.float()

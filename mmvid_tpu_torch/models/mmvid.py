@@ -60,6 +60,16 @@ class MMVIDBert(nn.Module):
         self.cvae = cvae
         self.cfg = cfg
 
+    def set_int8_scales(self, scales):
+        """Run the backbone w8a8 with ``scales`` (per layer (qkv_in,
+        out_in, fc_in, proj_in)), or unquantized with None; the configs
+        record them.  ``ops.int8.quantize_for_serving`` calibrates them
+        and applies them to a copy that shares the parameters."""
+        self.cfg = dataclasses.replace(self.cfg, clip=dataclasses.replace(
+            self.cfg.clip, int8_scales=scales))
+        self.core.cfg = self.cfg
+        self.transformer['transformer'].cfg = self.cfg.clip
+
     # -- tokenization --------------------------------------------------
 
     def _tokenizer(self, which_vae: str) -> VQGanVAE:

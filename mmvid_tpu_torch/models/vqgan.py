@@ -14,17 +14,27 @@ Modules carry taming's state_dict names (``encoder.down.{i}.block.{j}``,
 Layouts: images [B, H, W, 3] and ids [B, n] at the public methods, as in
 the JAX package; NCHW inside.  GroupNorm(32, eps 1e-6) and SiLU run in fp32
 whatever the compute dtype; convolutions run in the compute dtype.
+
+w8a8 int8 serving of the decoder (``ops/int8.py``): every conv that the
+JAX package's ``_conv`` covers in the decoder (``conv_in``, ``conv_out``,
+the resnet blocks' ``conv1``/``conv2``/``nin_shortcut``, the attention
+blocks' ``q``/``k``/``v``/``proj_out``, the upsample ``conv``) is a
+:class:`SiteConv` named by its JAX path (``decoder/up_4_block_0/conv1``);
+it records its input inside ``ops.int8.recording()`` and, given a scale in
+``VQGanConfig.int8_scales`` (sorted (path, scale) pairs), runs
+``quantized_conv``.  The encoder and ``Downsample`` are never quantized.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmvid_tpu_torch.ops import int8
 from mmvid_tpu_torch.ops.codebook import nearest_codebook_indices
 
 
@@ -43,6 +53,9 @@ class VQGanConfig:
     num_res_blocks: int = 2
     attn_resolutions: Sequence[int] = (16,)
     dropout: float = 0.0
+    # decoder int8 serving: sorted (JAX conv path, activation scale) pairs
+    # from ops.int8.quantize_vae_decoder; None = the unquantized path
+    int8_scales: Any = None
 
     @property
     def num_layers(self) -> int:
@@ -63,8 +76,31 @@ def _norm_silu(norm: nn.GroupNorm, x, dtype):
     return F.silu(h).to(dtype)
 
 
-def _conv(cin: int, cout: int, k: int, dtype) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, padding=k // 2, dtype=dtype)
+class SiteConv(nn.Conv2d):
+    """A stride-1 SAME conv that can be an int8 site: with a ``site`` (its
+    JAX path) it records its input when calibrating, and with an
+    ``a_scale`` it runs ``quantized_conv``, on ``w8``, its weight quantized
+    once in a serving copy (``ops.int8.freeze_weights``), or else on its
+    weight quantized at every call."""
+    site: str | None = None
+    a_scale: float | None = None
+    w8: tuple | None = None
+
+    def freeze_int8(self):
+        self.w8 = (int8.quantize_weight(self.weight)
+                   if self.a_scale is not None else None)
+
+    def forward(self, x):
+        if self.site is not None:
+            int8.record(self.site, x)
+        if self.a_scale is None:
+            return super().forward(x)
+        return int8.quantized_conv(x, self.weight, self.bias, self.a_scale,
+                                   self.w8)
+
+
+def _conv(cin: int, cout: int, k: int, dtype) -> SiteConv:
+    return SiteConv(cin, cout, k, padding=k // 2, dtype=dtype)
 
 
 class ResnetBlock(nn.Module):
@@ -230,6 +266,35 @@ class Decoder(nn.Module):
         self.up = nn.ModuleList(levels)
         self.norm_out = _norm(block_in)
         self.conv_out = _conv(block_in, cfg.out_ch, 3, dtype)
+        self._name_sites()
+        self.set_int8_scales(cfg.int8_scales)
+
+    def _name_sites(self):
+        """Give each int8 site its JAX path (mmvid_tpu/models/vqgan.py
+        Decoder: ``decoder/<block>/<conv>``)."""
+        blocks = [('mid_block_1', self.mid.block_1),
+                  ('mid_attn_1', self.mid.attn_1),
+                  ('mid_block_2', self.mid.block_2)]
+        for i, level in enumerate(self.up):
+            blocks += [(f'up_{i}_block_{j}', blk)
+                       for j, blk in enumerate(level.block)]
+            blocks += [(f'up_{i}_attn_{j}', blk)
+                       for j, blk in enumerate(level.attn)]
+            if hasattr(level, 'upsample'):
+                blocks.append((f'up_{i}_upsample', level.upsample))
+        self.conv_in.site = 'decoder/conv_in'
+        self.conv_out.site = 'decoder/conv_out'
+        for name, blk in blocks:
+            for conv_name, conv in blk.named_children():
+                if isinstance(conv, SiteConv):
+                    conv.site = f'decoder/{name}/{conv_name}'
+
+    def set_int8_scales(self, scales):
+        """Sorted (path, scale) pairs, or None: the unquantized path."""
+        table = dict(scales or ())
+        for mod in self.modules():
+            if isinstance(mod, SiteConv) and mod.site is not None:
+                mod.a_scale = table.get(mod.site)
 
     def forward(self, z):
         h = self.mid(self.conv_in(z.to(self.dtype)))
@@ -308,6 +373,15 @@ class VQGanVAE(nn.Module):
         self.num_tokens = self.cfg.n_embed
         self.fmap_size = self.image_size // (2 ** self.num_layers)
         self.image_seq_len = self.fmap_size ** 2
+
+    def set_int8_scales(self, scales):
+        """Run the decoder's convs int8 with ``scales`` (sorted (JAX path,
+        scale) pairs), or unquantized with None; the config records
+        them."""
+        self.cfg = dataclasses.replace(self.cfg, int8_scales=scales)
+        self.model.cfg = self.cfg
+        self.model.decoder.cfg = self.cfg
+        self.model.decoder.set_int8_scales(scales)
 
     @torch.no_grad()
     def get_codebook_indices(self, img):

@@ -9,8 +9,15 @@ softmax and accumulation, in the residual stream's ``[B, L, H, D]`` layout.
 selects JAX's bf16-probability variant: the unnormalised probabilities are
 rounded to bf16 before the product with V, the row sums stay fp32.
 
+``MMVID_ATTN_INT8=1`` (read at every call, and checked first, as JAX's
+kernel checks ``int8_qk`` before ``bf16_av``) selects JAX's int8 variant,
+``ops/attention_int8.py``.
+
 Dispatch rule of :func:`fused_attention_blhd`: a CPU tensor goes to
 :func:`attention_reference`; a CUDA tensor launches the kernel or raises.
+The kernels have no backward: on the card a call with grad enabled and an
+input that requires grad raises (serving only), and the CPU's plain
+version keeps autograd.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import os
 
 import torch
 
-from mmvid_tpu_torch.ops import _build
+from mmvid_tpu_torch.ops import _build, attention_int8
 
 # Kernel launches since the last reset (chip_smoke.py reads it to show the
 # main path ran through the kernel).
@@ -66,7 +73,9 @@ def _kernel():
     return _fn
 
 
-def _check_cuda_args(q, k, v, mask):
+def _check_cuda_args(q, k, v, mask, int8=False):
+    """What the bf16/fp32 kernels, or with ``int8`` the int8 kernel, take;
+    anything else raises before a launch."""
     b, l, h, d = q.shape
     for name, t in (('q', q), ('k', k), ('v', v)):
         if t.device != q.device or t.dtype != q.dtype:
@@ -87,34 +96,59 @@ def _check_cuda_args(q, k, v, mask):
             or mask.shape != (l, l) or not mask.is_contiguous()):
         raise ValueError('mask must be a contiguous fp32 [L, L] tensor on '
                          "q's device")
-    if q.dtype == torch.bfloat16:
-        # the tensor-core kernel copies 16-byte chunks of rows
-        if mask.data_ptr() % 16:
-            raise ValueError('mask: the bf16 kernel needs a 16-byte aligned '
-                             'base')
+    if int8 and l > attention_int8.MAX_L:
+        raise ValueError(f'the int8 kernel holds a head in shared memory: '
+                         f'L <= {attention_int8.MAX_L}, not {l}')
+    # the tensor-core kernel copies 16-byte chunks of rows and of the
+    # mask; the int8 kernel loads 8 elements at a time in either dtype
+    if q.dtype == torch.bfloat16 and not int8 and mask.data_ptr() % 16:
+        raise ValueError('mask: the bf16 kernel needs a 16-byte aligned '
+                         'base')
+    if q.dtype == torch.bfloat16 or int8:
         for name, t in (('q', q), ('k', k), ('v', v)):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                raise ValueError(f'{name}: the bf16 kernel needs a 16-byte '
+                raise ValueError(f'{name}: the kernel needs a 16-byte '
                                  'aligned base and batch, row and head '
                                  'strides that are multiples of 8')
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """C1: a kernel that writes through ctypes gives its output no
+    autograd graph, so on the card a call with grad enabled and an input
+    that requires grad raises instead of dropping the gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f'{what}: the kernel path is for serving only (it has no '
+            'backward); call it under torch.no_grad(), or on CPU tensors '
+            'for autograd')
 
 
 def fused_attention_blhd(q, k, v, mask=None):
     """q, k, v [B, L, H, D] (any strides with a unit head-dim stride);
     additive mask [L, L] or None -> [B, L, H, D] contiguous, q's dtype.
-    Logits are scaled by D ** -0.5; ``MMVID_ATTN_BF16=1`` takes the
-    bf16-probability variant."""
+    Logits are scaled by D ** -0.5; ``MMVID_ATTN_INT8=1`` takes the int8
+    variant, else ``MMVID_ATTN_BF16=1`` the bf16-probability variant."""
     global launches
     b, l, h, d = q.shape
     scale = d ** -0.5
+    if q.device.type == 'cuda':
+        refuse_grad('attention', q, k, v, mask)
     if mask is None:
         mask = torch.zeros((l, l), dtype=torch.float32, device=q.device)
+    int8 = attention_int8.enabled()
     bf16_p = bf16_probs()
     if q.device.type == 'cpu':
+        if int8:
+            return attention_int8.attention_int8_reference(q, k, v, mask,
+                                                           scale)
         return attention_reference(q, k, v, mask, scale, bf16_p)
     if q.device.type != 'cuda':
-        raise ValueError(f'no attention path for device {q.device}')
-    _check_cuda_args(q, k, v, mask)
+        raise ValueError(f'no {"int8 " if int8 else ""}attention path for '
+                         f'device {q.device}')
+    _check_cuda_args(q, k, v, mask, int8)
+    if int8:
+        return attention_int8.launch(q, k, v, mask, scale)
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))

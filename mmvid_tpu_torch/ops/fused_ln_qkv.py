@@ -15,7 +15,10 @@ width is a multiple of 128, as the JAX package does; it is off by default.
 Dispatch rule of :func:`fused_ln_qkv`: a CPU tensor goes to
 :func:`ln_qkv_reference`; a CUDA tensor launches the kernel or raises.  The
 kernel takes bf16, the dtype of the full-width models the gate serves;
-fp32 on the card raises (fp32 runs the plain version on the CPU).
+fp32 on the card raises (fp32 runs the plain version on the CPU).  The
+kernel has no backward (nor has JAX's): on the card a call with grad
+enabled and an input that requires grad raises (serving only); the CPU's
+plain version keeps autograd.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import ctypes
 import torch
 
 from mmvid_tpu_torch.ops import _build
+from mmvid_tpu_torch.ops.attention import refuse_grad
 
 # Kernel launches since the last reset (read by chip_smoke.py).
 launches = 0
@@ -84,6 +88,7 @@ def fused_ln_qkv(x, ln_w, ln_b, w, b):
         return ln_qkv_reference(x, ln_w, ln_b, w, b)
     if x.device.type != 'cuda':
         raise ValueError(f'no LN+QKV path for device {x.device}')
+    refuse_grad('fused LN+QKV', x, ln_w, ln_b, w, b)
     _check_cuda_args(x, ln_w, ln_b, w, b)
     d = x.shape[-1]
     m = x.numel() // d

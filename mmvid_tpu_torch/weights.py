@@ -42,6 +42,20 @@ def load_jax_params(model: torch.nn.Module, params: Dict,
                                              cvae_params))
 
 
+def int8_scales_from_jax(clip_scales=None, vae_scales=None):
+    """JAX int8 serving scales in the port's form: (the backbone's tuple
+    of per-layer (qkv_in, out_in, fc_in, proj_in), the decoder's sorted
+    (path, scale) pairs), each None where JAX has none.  The port keys
+    the decoder's sites by JAX's path strings, so the pairs carry over
+    one for one; apply them with ``ops.int8.quantized_model`` and
+    ``ops.int8.quantized_vae``."""
+    backbone = (tuple(tuple(float(v) for v in layer)
+                      for layer in clip_scales) if clip_scales else None)
+    decoder = (tuple(sorted((str(p), float(v)) for p, v in vae_scales))
+               if vae_scales else None)
+    return backbone, decoder
+
+
 def read_dalle_checkpoint(path: str) -> Dict:
     """Read a reference ``dalle.pt``: {iter, hparams, vae_params,
     weights}."""

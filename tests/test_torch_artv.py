@@ -137,6 +137,34 @@ def test_ar_sample_greedy_matches_jax(pair, monkeypatch, env):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize('weights_only', [False, True],
+                         ids=['int8_caches', 'MMVID_ARTV_INT8_WEIGHTS_ONLY'])
+def test_ar_sample_int8_greedy_matches_jax(pair, monkeypatch, weights_only):
+    """ar_sample(int8=True): int8 weights and head (dot8), and int8 K/V
+    caches unless MMVID_ARTV_INT8_WEIGHTS_ONLY=1, token for token with
+    JAX's; no decode kernel runs (JAX: fused = not int8), even with
+    MMVID_ARTV_FUSED=1; and the tokens are not the unquantized ones."""
+    core, params, _, pmodel = pair
+    if weights_only:
+        monkeypatch.setenv('MMVID_ARTV_INT8_WEIGHTS_ONLY', '1')
+    monkeypatch.setenv('MMVID_ARTV_FUSED', '1')
+    text, visual = _inputs()
+    want = np.asarray(jartv.ar_sample(core, params, jnp.asarray(text),
+                                      jnp.asarray(visual),
+                                      jax.random.PRNGKey(1),
+                                      temperature=1e-6, int8=True))
+    monkeypatch.setattr(AD, 'launches', 0)
+    args = (pmodel.core, torch.from_numpy(text).long(),
+            torch.from_numpy(visual).long())
+    got = partv.ar_sample(*args, torch.Generator().manual_seed(1),
+                          temperature=1e-6, int8=True)
+    assert AD.launches == 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    base = partv.ar_sample(*args, torch.Generator().manual_seed(1),
+                           temperature=1e-6)
+    assert (base != got).any()
+
+
 @pytest.mark.parametrize('flag,device,want', [
     (None, 'cuda', True), (None, 'cpu', False), ('1', 'cuda', True),
     ('1', 'cpu', True), ('0', 'cuda', False), ('0', 'cpu', False)])

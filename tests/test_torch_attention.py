@@ -166,6 +166,58 @@ def test_bf16_variants_match_jax_pallas_interpret(monkeypatch, bf16_probs):
     np.testing.assert_array_equal(got, plain.float().numpy())
 
 
+@pytest.mark.parametrize('dtype,l,h,d,idx', [
+    ('float32', 29, 2, 64, (5,)), ('float32', 139, 2, 32, (9, 10)),
+    ('bfloat16', 77, 2, 64, (5, 6)), ('bfloat16', 139, 2, 32, (9, 10))])
+def test_int8_variant_matches_jax_pallas_interpret(monkeypatch, dtype, l, h,
+                                                   d, idx):
+    """MMVID_ATTN_INT8=1: the port's dispatch on a CPU tensor (the plain
+    attention_int8_reference) against JAX's int8 Pallas kernel in interpret
+    mode, at ragged L (JAX pads to 16 rows, the port masks nothing of it)
+    with mask_prev rows.  The integers are the same, so bf16 outputs are
+    equal and fp32 outputs differ only by the row sum's order (2e-6, against
+    the 0.05 that tests/test_attention_pallas.py allows int8 from fp32);
+    MMVID_ATTN_BF16=1 beside it changes nothing, as in JAX, where int8_qk
+    is checked first."""
+    from mmvid_tpu_torch.ops import attention_int8 as A8
+    monkeypatch.setenv('MMVID_ATTN_INT8', '1')
+    monkeypatch.setenv('MMVID_ATTN_BF16', '1')
+    rng = np.random.RandomState(l)
+    q, k, v = (rng.randn(2, l, h, d).astype(np.float32) for _ in range(3))
+    mask = build_attention_mask(l, 'mask_prev', index=idx)
+    jdt = jnp.bfloat16 if dtype == 'bfloat16' else jnp.float32
+    want = np.asarray(jax_fused(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)),
+        jnp.asarray(mask.numpy()), interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype))
+                  for x in (q, k, v))
+    before = A8.launches
+    got = A.fused_attention_blhd(tq, tk, tv, mask)
+    assert got.dtype == tq.dtype and A8.launches == before
+    got = got.float().numpy()
+    if dtype == 'bfloat16':
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+    np.testing.assert_array_equal(got, A8.attention_int8_reference(
+        tq, tk, tv, mask, d ** -0.5).float().numpy())
+    fp = A.attention_reference(tq, tk, tv, mask, d ** -0.5).float().numpy()
+    assert np.abs(got - fp).max() > 100 * max(np.abs(got - want).max(),
+                                              1e-7)
+
+
+def test_int8_variant_on_other_devices_raises(monkeypatch):
+    """MMVID_ATTN_INT8=1 on a device that is neither the CPU nor CUDA: no
+    plain fallback."""
+    from mmvid_tpu_torch.ops import attention_int8 as A8
+    monkeypatch.setenv('MMVID_ATTN_INT8', '1')
+    q = torch.empty((1, 8, 2, 32), device='meta')
+    before = A8.launches
+    with pytest.raises(ValueError, match='no int8 attention path'):
+        A.fused_attention_blhd(q, q, q)
+    assert A8.launches == before
+
+
 @pytest.mark.parametrize('l,idx', [(565, (51, 52)), (629, (115, 116))],
                          ids=['flagship', 'text_mask'])
 def test_kernel_emulation_matches_jax_xla(l, idx):

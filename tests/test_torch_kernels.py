@@ -12,12 +12,15 @@ runs on a machine without it, from the repository root:
 import pytest
 import torch
 
+from chip_smoke import disagreement, int8_agrees
 from mmvid_tpu_torch.models.clip import build_attention_mask
 from mmvid_tpu_torch.ops import artv_decode as AD
 from mmvid_tpu_torch.ops import attention as A
+from mmvid_tpu_torch.ops import attention_int8 as A8
 from mmvid_tpu_torch.ops import codebook as C
 from mmvid_tpu_torch.ops import fused_ln_qkv as Q
 from mmvid_tpu_torch.ops import gridstep as G
+from mmvid_tpu_torch.ops import int8 as I8
 from mmvid_tpu_torch.ops import sample_head as S
 
 
@@ -106,6 +109,112 @@ def test_attention_kernel_packed_views(cuda_device, monkeypatch, bf16_probs,
     assert (out.float() - want.float()).abs().max().item() <= 2e-2
     if not bf16_probs:
         assert (out != want).float().mean().item() <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('b,l,h,d,idx,packed', [
+    (16, 565, 12, 64, (51, 52), True),     # flagship, as on the path
+    (16, 629, 12, 64, (115, 116), True),   # text+mask
+    (2, 29, 2, 64, (5,), False),           # ragged, fewer rows than a tile
+    (3, 139, 2, 32, (9, 10), False),       # tiny, D 32
+    (1, 1024, 2, 64, (3,), False)])        # the largest L the kernel takes
+def test_attention_int8_kernel_matches_plain(cuda_device, monkeypatch, dtype,
+                                             b, l, h, d, idx, packed):
+    """MMVID_ATTN_INT8=1: the s8 kernel against attention_int8_reference
+    within chip_smoke.py's int8 limits (``int8_agrees``: quantization
+    steps at most and on average, bf16 outputs differing), which the
+    unquantized function on the same inputs must fail, at three seeds
+    (the readings are printed: ``-rP`` shows them); two calls bitwise
+    equal; one launch a call, none of the bf16 kernel."""
+    monkeypatch.setenv('MMVID_ATTN_INT8', '1')
+    mask = build_attention_mask(l, 'mask_prev', index=idx, device=cuda_device)
+    for seed in (l, l + 3, 7):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        if packed:
+            q, k, v = _packed_qkv(g, cuda_device, b, l, h, d, dtype)
+        else:
+            q, k, v = (torch.randn((b, l, h, d), generator=g,
+                                   device=cuda_device).to(dtype)
+                       for _ in range(3))
+        before, before_bf16 = A8.launches, A.launches
+        out = A.fused_attention_blhd(q, k, v, mask)
+        again = A.fused_attention_blhd(q, k, v, mask)
+        assert (A8.launches, A.launches) == (before + 2, before_bf16)
+        assert out.dtype == dtype and out.shape == (b, l, h, d)
+        assert torch.equal(out, again)
+        want = A8.attention_int8_reference(q, k, v, mask, d ** -0.5)
+        err = disagreement(out, want, v)
+        control = disagreement(A.attention_reference(q, k, v, mask,
+                                                     d ** -0.5), want, v)
+        print(f'seed {seed}: kernel {err}; unquantized {control}')
+        assert int8_agrees(err, dtype), err
+        assert not int8_agrees(control, dtype), control
+
+
+@pytest.mark.cuda
+def test_attention_int8_kernel_rejects_bad_inputs(cuda_device, monkeypatch):
+    """What the kernel does not take raises, launching nothing: L beyond
+    the shared-memory bound, a head dim other than 32 or 64, a row stride
+    that breaks its 16-byte loads."""
+    monkeypatch.setenv('MMVID_ATTN_INT8', '1')
+    before = A8.launches
+    for shape in ((1, 1025, 2, 64), (1, 16, 2, 16)):
+        q = torch.zeros(shape, device=cuda_device)
+        with pytest.raises(ValueError):
+            A.fused_attention_blhd(q, q, q)
+    base = torch.zeros((1, 16, 2 * 64 + 8), device=cuda_device)
+    q = base[..., 2:130].view(1, 16, 2, 64)   # an 8-byte offset base
+    with pytest.raises(ValueError, match='16-byte'):
+        A.fused_attention_blhd(q, q, q)
+    assert A8.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('int8_flag', [False, True],
+                         ids=['bf16_kernel', 'int8_kernel'])
+def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
+    """C1: the kernels write through ctypes and have no backward, so on the
+    card a call with grad enabled and an input that requires grad raises
+    (serving only) and launches nothing; under no_grad it runs."""
+    if int8_flag:
+        monkeypatch.setenv('MMVID_ATTN_INT8', '1')
+    else:
+        monkeypatch.delenv('MMVID_ATTN_INT8', raising=False)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((2, 37, 2, 64), generator=g, device=cuda_device
+                           ).bfloat16() for _ in range(3))
+    q.requires_grad_(True)
+    counts = (A.launches, A8.launches, Q.launches)
+    with pytest.raises(RuntimeError, match='serving only'):
+        A.fused_attention_blhd(q, k, v)
+    x, ln_w, ln_b, w, bias = _ln_qkv_inputs(cuda_device, 2, 37, 128,
+                                            torch.bfloat16)
+    w.requires_grad_(True)
+    with pytest.raises(RuntimeError, match='serving only'):
+        Q.fused_ln_qkv(x, ln_w, ln_b, w, bias)
+    assert (A.launches, A8.launches, Q.launches) == counts
+    with torch.no_grad():
+        A.fused_attention_blhd(q, k, v)
+        Q.fused_ln_qkv(x, ln_w, ln_b, w, bias)
+    assert (A.launches + A8.launches, Q.launches) == (
+        counts[0] + counts[1] + 1, counts[2] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,k,n', [(16, 768, 2304), (16, 3072, 1024),
+                                   (5, 20, 3), (8192, 768, 3072)])
+def test_int_mm_on_the_card_is_exact(cuda_device, m, k, n):
+    """ops.int8.int_mm: a @ w^T through torch._int_mm with the zero padding
+    its cuBLAS route needs (M > 16, K and N multiples of 8), equal to an
+    int32 product."""
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = I8.int_mm(a.to(cuda_device), w.to(cuda_device))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), a.int() @ w.int().t())
 
 
 @pytest.mark.cuda
