@@ -34,10 +34,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``F.scaled_dot_product_attention`` with the same float mask on the
    packed views at L 629 and L 565.
    Then the int8 attention kernel (``MMVID_ATTN_INT8=1``) vs its plain
-   version at L 565 and 629, B16 H12 D64 bf16 on the packed views: outputs
-   differing, and by how many quantization steps; two calls bitwise
-   equal; timed beside its plain version (and SDPA's bf16 time, as
-   context only).
+   version at L 565 and 629, B16 H12 D64 bf16 on the packed views, given
+   the mask with its compact form as the models give it (the compact
+   form equal to the dense mask): outputs differing, and by how many
+   quantization steps; two calls bitwise equal, and equal to a call with
+   the fp32 mask alone; two launches a call; timed with the compact mask
+   and with the fp32 mask, beside its plain version (and SDPA's bf16
+   time, as context only).
 4. sample-head kernels vs their plain version: exact at temp 0 for Y
    given the chosen token, token histograms in distribution (TV bounds);
    at temp 1 both bf16 routes (tensor cores, CUDA cores) against the
@@ -45,8 +48,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    seed) and against each other, timed in turns.
 5. nearest-code kernel vs its plain version: ids equal on a randn
    codebook; within 1e-5 of the best score on the random-init codebook.
-6. fused LN+QKV kernel vs its plain version, bf16 (the kernel's only
-   dtype; fp32 must raise on the card).
+6. fused LN+QKV kernel vs its plain version at the text+mask and
+   flagship shapes (M 16 x 629 and 16 x 565), bf16 (the kernel's only
+   dtype; fp32 must raise on the card), timed beside the gate-off pair
+   ``F.layer_norm`` + ``F.linear``.
 7. ART-V decode-step kernels vs their plain version: both bf16 kernels
    (the phased one, the route, and the streaming one, forced) at full
    width (12 layers, W 626) at B 1, 5 and 64 (pos 0 and 1) beside the
@@ -79,8 +84,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
     decoder's int32 sums exact at every site, and each site alone within
     mean |d| < 0.02, max < 0.2; the whole decoder reported, see
     ``_int8_decoder_checks``); a batch of
-    16 at 20 rounds: launch counts (int8 attention 240, sample head 20,
-    the bf16 attention kernel 0), output checks, determinism by seed,
+    16 at 20 rounds: launch counts (int8 attention 480, two a call:
+    the operand pass and the attention; sample head 20; the bf16
+    attention kernel 0), output checks, determinism by seed,
     ``breakdown.measure``.
 14. ART-V int8 at full width: a warm-up batch of 16 and one timed, output
     checks, the same tokens on one seed, no kernel launched.
@@ -435,15 +441,20 @@ def _set_attn_int8(on: bool):
 def phase_attention_int8():
     """MMVID_ATTN_INT8=1: the s8 kernel against attention_int8_reference
     at the main paths' shapes, B16 H12 D64 bf16 on the packed strided
-    views with mask_prev rows (flagship L 565, text+mask L 629): within
-    the int8 limits (``int8_agrees``), while two controls on the same
-    inputs, the unquantized function (``attention_reference``) and the
-    bf16 kernel, must fall outside them; two calls bitwise equal; kernel,
-    plain and, as context only (it computes the bf16 function, not this
-    one), ``F.scaled_dot_product_attention`` on the same views and
+    views with mask_prev rows (flagship L 565, text+mask L 629), given the
+    mask as the models give it (``models/clip.py::attention_mask``: the
+    fp32 mask and its compact form, which the kernel reads): the compact
+    form equal to the dense mask; within the int8 limits
+    (``int8_agrees``), while two controls on the same inputs, the
+    unquantized function (``attention_reference``) and the bf16 kernel,
+    must fall outside them; two calls bitwise equal, and equal to the call
+    that reads the fp32 mask; two launches a call (the operand pass and
+    the attention); kernel (with the compact mask, and with the fp32 mask
+    alone), plain and, as context only (it computes the bf16 function, not
+    this one), ``F.scaled_dot_product_attention`` on the same views and
     mask."""
     import torch
-    from mmvid_tpu_torch.models.clip import build_attention_mask
+    from mmvid_tpu_torch.models.clip import attention_mask
     from mmvid_tpu_torch.ops import attention as A
     from mmvid_tpu_torch.ops import attention_int8 as A8
 
@@ -451,25 +462,31 @@ def phase_attention_int8():
     try:
         for b, l, h, d, idx in ((16, 565, 12, 64, (51, 52)),
                                 (16, 629, 12, 64, (115, 116))):
-            mask = build_attention_mask(l, 'mask_prev', index=idx,
-                                        device='cuda')
+            masks = attention_mask(l, 'mask_prev', index=idx, device='cuda')
+            mask = masks.dense
+            if not torch.equal(masks.compact.dense(), mask):
+                fail(f'the compact mask differs from the dense one at L={l}')
             q, k, v = _attention_inputs(b, l, h, d, torch.bfloat16, True,
                                         l + 3)
             bf16_kernel = A.fused_attention_blhd(q, k, v, mask)
             _set_attn_int8(True)
             before = (A.launches, A8.launches)
-            out = A.fused_attention_blhd(q, k, v, mask)
-            again = A.fused_attention_blhd(q, k, v, mask)
+            out = A.fused_attention_blhd(q, k, v, masks)
+            again = A.fused_attention_blhd(q, k, v, masks)
             launched = (A.launches - before[0], A8.launches - before[1])
+            dense_read = A.fused_attention_blhd(q, k, v, mask)
             ref = A8.attention_int8_reference(q, k, v, mask, d ** -0.5)
             torch.cuda.synchronize()
             same = torch.equal(out, again)
+            same_dense = torch.equal(out, dense_read)
             dis = disagreement(out, ref, v)
             controls = {
                 'unquantized': disagreement(A.attention_reference(
                     q, k, v, mask, d ** -0.5), ref, v),
                 'bf16_kernel': disagreement(bf16_kernel, ref, v)}
-            ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, mask))
+            ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, masks))
+            ms_dense = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v,
+                                                                   mask))
             plain_ms = cuda_time_ms(lambda: A8.attention_int8_reference(
                 q, k, v, mask, d ** -0.5), calls=5, reps=3)
             _set_attn_int8(False)
@@ -481,10 +498,11 @@ def phase_attention_int8():
             # q, k, v read once, out written once, the mask once
             nbytes = 4 * b * l * h * d * 2 + l * l * 4
             bms, by = bound(nbytes, 4 * b * h * l * l * d, 'int8')
-            rows[l] = dict(dis, bitwise_repeat=same, ms=ms,
-                           plain_ms=plain_ms, library_ms=None,
-                           sdpa_bf16_ms_context=sdpa_ms, bound_ms=bms,
-                           bound_by=by, controls=controls)
+            rows[l] = dict(dis, bitwise_repeat=same,
+                           equal_with_fp32_mask=same_dense, ms=ms,
+                           ms_fp32_mask=ms_dense, plain_ms=plain_ms,
+                           library_ms=None, sdpa_bf16_ms_context=sdpa_ms,
+                           bound_ms=bms, bound_by=by, controls=controls)
             print(f'[attention_int8] B={b} L={l} H={h} D={d} bfloat16 '
                   f'packed mask_prev: max abs err {dis["max_abs_err"]:.3e}, '
                   f'max {dis["max_steps"]:.4f} steps (bound '
@@ -497,13 +515,15 @@ def phase_attention_int8():
                       f'{c["mean_steps"]:.4f} differing '
                       f'{c["differ_share"]:.4f}'
                       for n, c in controls.items())
-                  + f'; two calls bitwise equal {same}; launches (bf16, '
-                  f'int8) {launched}; kernel {ms:.4f} ms plain '
-                  f'{plain_ms:.4f} ms (sdpa bf16, another function: '
-                  f'{sdpa_ms:.4f} ms) bound {bms:.4f} ms ({by})', flush=True)
-            if launched != (0, 2):
-                fail(f'int8 attention launches {launched} != (0, 2)')
-            if not (same and int8_agrees(dis, out.dtype)):
+                  + f'; two calls bitwise equal {same}, equal to the fp32 '
+                  f'mask\'s call {same_dense}; launches (bf16, int8) '
+                  f'{launched}; kernel {ms:.4f} ms (fp32 mask read: '
+                  f'{ms_dense:.4f} ms) plain {plain_ms:.4f} ms (sdpa bf16, '
+                  f'another function: {sdpa_ms:.4f} ms) bound {bms:.4f} ms '
+                  f'({by})', flush=True)
+            if launched != (0, 4):
+                fail(f'int8 attention launches {launched} != (0, 4)')
+            if not (same and same_dense and int8_agrees(dis, out.dtype)):
                 fail(f'int8 attention kernel disagrees with plain at L={l}')
             if any(int8_agrees(c, out.dtype) for c in controls.values()):
                 fail(f'the int8 limits pass an unquantized control at L={l}')
@@ -680,54 +700,68 @@ def phase_codebook():
 
 
 def phase_ln_qkv():
-    """Fused LN+QKV kernel vs plain at the text+mask backbone's shape
-    (M = 16 x 629 rows, D 768, packed W [2304, 768]), bf16; fp32 must
-    raise on the card without a launch."""
+    """Fused LN+QKV kernel vs plain at the text+mask and flagship
+    backbones' shapes (M = 16 x 629 and 16 x 565 rows, D 768, packed W
+    [2304, 768]), bf16, timed beside the gate-off pair ``F.layer_norm`` +
+    ``F.linear``; fp32 must raise on the card without a launch.  Returns
+    the kernels-line row at M 16 x 629 and the readings at both."""
     import torch
     import torch.nn.functional as F
     from mmvid_tpu_torch.ops import fused_ln_qkv as Q
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
-    m, d = 16 * 629, 768
-    g = torch.Generator(device=dev).manual_seed(13)
-    x = torch.randn((m, d), generator=g, device=dev) * 2 + 0.5
-    ln_w = 1 + 0.1 * torch.randn((d,), generator=g, device=dev)
-    ln_b = 0.1 * torch.randn((d,), generator=g, device=dev)
-    w = torch.randn((3 * d, d), generator=g, device=dev) * d ** -0.5
-    b = 0.1 * torch.randn((3 * d,), generator=g, device=dev)
-    before = Q.launches
-    try:
-        Q.fused_ln_qkv(x, ln_w, ln_b, w, b)
-        fail('LN+QKV kernel accepted fp32 on the card')
-    except ValueError:
-        pass
-    if Q.launches != before:
-        fail('LN+QKV counted a launch for a refused fp32 call')
-    xd, wd, bd = x.bfloat16(), w.bfloat16(), b.bfloat16()
-    out = Q.fused_ln_qkv(xd, ln_w, ln_b, wd, bd)
-    ref = Q.ln_qkv_reference(xd, ln_w, ln_b, wd, bd)
-    torch.cuda.synchronize()
-    diff = (out.float() - ref.float()).abs()
-    err = diff.max().item()
-    tol = LNQKV_TOL
-    within = bool((diff <= tol * (1 + ref.float().abs())).all())
-    ms = cuda_time_ms(lambda: Q.fused_ln_qkv(xd, ln_w, ln_b, wd, bd))
-    plain_ms = cuda_time_ms(lambda: Q.ln_qkv_reference(xd, ln_w, ln_b, wd,
-                                                       bd))
-    # what the backbone runs with the gate off
-    unfused_ms = cuda_time_ms(lambda: F.linear(F.layer_norm(
-        xd.float(), (d,), ln_w, ln_b, 1e-5).bfloat16(), wd, bd))
-    print(f'[ln_qkv] M={m} D={d} bfloat16: max abs err {err:.3e} (|plain| '
-          f'max {ref.float().abs().max().item():.3f}; within {tol} * (1 + '
-          f'|plain|): {within}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms '
-          f'unfused F.layer_norm+F.linear {unfused_ms:.4f} ms; fp32 '
-          f'refused', flush=True)
-    if not within:
-        fail(f'LN+QKV: error beyond {tol} * (1 + |plain|)')
-    nbytes = (m * d + 3 * d * d + 3 * d + 3 * m * d) * 2 + 2 * d * 4
-    return (err, ms, plain_ms, None) + bound(nbytes, 2 * m * d * 3 * d,
-                                             'bf16')
+    d = 768
+    at = {}
+    for m in (16 * 629, 16 * 565):
+        g = torch.Generator(device=dev).manual_seed(13)
+        x = torch.randn((m, d), generator=g, device=dev) * 2 + 0.5
+        ln_w = 1 + 0.1 * torch.randn((d,), generator=g, device=dev)
+        ln_b = 0.1 * torch.randn((d,), generator=g, device=dev)
+        w = torch.randn((3 * d, d), generator=g, device=dev) * d ** -0.5
+        b = 0.1 * torch.randn((3 * d,), generator=g, device=dev)
+        before = Q.launches
+        try:
+            Q.fused_ln_qkv(x, ln_w, ln_b, w, b)
+            fail('LN+QKV kernel accepted fp32 on the card')
+        except ValueError:
+            pass
+        if Q.launches != before:
+            fail('LN+QKV counted a launch for a refused fp32 call')
+        xd, wd, bd = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        out = Q.fused_ln_qkv(xd, ln_w, ln_b, wd, bd)
+        ref = Q.ln_qkv_reference(xd, ln_w, ln_b, wd, bd)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        tol = LNQKV_TOL
+        within = bool((diff <= tol * (1 + ref.float().abs())).all())
+        ms = cuda_time_ms(lambda: Q.fused_ln_qkv(xd, ln_w, ln_b, wd, bd))
+        plain_ms = cuda_time_ms(lambda: Q.ln_qkv_reference(xd, ln_w, ln_b,
+                                                           wd, bd))
+        # what the backbone runs with the gate off
+        unfused_ms = cuda_time_ms(lambda: F.linear(F.layer_norm(
+            xd.float(), (d,), ln_w, ln_b, 1e-5).bfloat16(), wd, bd))
+        nbytes = (m * d + 3 * d * d + 3 * d + 3 * m * d) * 2 + 2 * d * 4
+        bms, by = bound(nbytes, 2 * m * d * 3 * d, 'bf16')
+        at[m] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                 'layer_norm_linear_ms': unfused_ms, 'bound_ms': bms,
+                 'bound_by': by}
+        print(f'[ln_qkv] M={m} D={d} bfloat16: max abs err {err:.3e} '
+              f'(|plain| max {ref.float().abs().max().item():.3f}; within '
+              f'{tol} * (1 + |plain|): {within}) kernel {ms:.4f} ms plain '
+              f'{plain_ms:.4f} ms unfused F.layer_norm+F.linear '
+              f'{unfused_ms:.4f} ms bound {bms:.4f} ms ({by}); fp32 '
+              f'refused', flush=True)
+        if not within:
+            fail(f'LN+QKV: error beyond {tol} * (1 + |plain|) at M={m}')
+        if not ms < unfused_ms:
+            print(f'[ln_qkv] note: the kernel is not faster than '
+                  f'F.layer_norm + F.linear at M={m}', flush=True)
+    r = at[16 * 629]
+    row = (r['max_abs_err'], r['ms'], r['plain_ms'], None, r['bound_ms'],
+           r['bound_by'])
+    return row, at
 
 
 def decode_bound(n_layers, b, d, pos, itemsize=2):
@@ -1430,7 +1464,8 @@ def phase_int8_serving():
         reset_counts()
         videos, tokens = run()
         counts = read_counts()
-        want = expected(attention_int8=cfg.clip.layers * steps,
+        # two int8 launches a call: the operand pass and the attention
+        want = expected(attention_int8=2 * cfg.clip.layers * steps,
                         sample_head=steps)
         print(f'[int8] launches {counts} (expected {want})', flush=True)
         if counts != want:
@@ -1648,11 +1683,12 @@ def main():
     keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
             'bound_by')
     sample_head, head_extra = timed(phase_sample_head)
+    ln_qkv, ln_qkv_at = timed(phase_ln_qkv)
     rows = {'attention': tuple(attention[(629, False)][k] for k in keys),
             'attention_int8': tuple(attention_int8[629][k] for k in keys),
             'sample_head': sample_head,
             'codebook': timed(phase_codebook),
-            'fused_ln_qkv': timed(phase_ln_qkv),
+            'fused_ln_qkv': ln_qkv,
             'artv_decode': artv_decode, 'gridstep': gridstep}
     timed(phase_tiny_reference)
     timed(phase_tiny_artv)
@@ -1701,12 +1737,20 @@ def main():
                 'source': 'mmvid_tpu_torch/csrc/attention.cu',
                 'L629': attention_fp32[629], 'L565': attention_fp32[565]}
         if name == 'attention_int8':
-            # MMVID_ATTN_INT8=1; the int8-serving path's launches; the
-            # body at attention.py:47-53,66-72, chosen at :162
+            # MMVID_ATTN_INT8=1; the int8-serving path's launches (two a
+            # call: the operand pass and the attention); the body at
+            # attention.py:47-53,66-72, chosen at :162
+            entry['source'] = 'mmvid_tpu_torch/csrc/attention_int8_sm90.cu'
             entry['at_flagship_L565'] = attention_int8[565]
             entry.update({k: attention_int8[629][k] for k in (
                 'differ_share', 'max_steps', 'mean_steps', 'controls',
-                'bitwise_repeat', 'sdpa_bf16_ms_context')})
+                'bitwise_repeat', 'equal_with_fp32_mask', 'ms_fp32_mask',
+                'sdpa_bf16_ms_context')})
+        if name == 'fused_ln_qkv':   # MMVID_FUSED_LNQKV=1, on wgmma
+            entry['source'] = 'mmvid_tpu_torch/csrc/fused_ln_qkv_sm90.cu'
+            entry['layer_norm_linear_ms'] = ln_qkv_at[16 * 629][
+                'layer_norm_linear_ms']
+            entry['at_flagship_M9040'] = ln_qkv_at[16 * 565]
         if name == 'artv_decode':   # one cooperative launch a step
             # the phased kernel is the route; the streaming one runs only
             # when asked for

@@ -53,12 +53,13 @@ KERNELS = {'attention': attention, 'attention_int8': attention_int8,
            'artv_decode': artv_decode, 'gridstep': gridstep}
 # (kind, substrings of device kernel names); the first match wins
 KINDS = (
-    ('attention kernel, int8', ('attention_int8_kernel',)),
+    ('attention kernel, int8', ('attention_int8_wgmma',
+                                'int8_operands_kernel')),
     ('attention kernel, tensor cores', ('attention_fwd_kernel_wgmma',)),
     ('attention kernel, CUDA cores', ('attention_fwd_kernel',)),
     ('sample-head kernel', ('sample_head_kernel',)),
     ('nearest-code kernel', ('nearest_code_kernel',)),
-    ('LN+QKV kernel', ('ln_qkv_',)),
+    ('LN+QKV kernel', ('ln_qkv_', 'ln_stats_kernel')),
     ('ART-V decode kernel', ('artv_step_kernel',)),
     ('grid-step probe', ('probe_layer_kernel', 'probe_persistent_kernel')),
     ('convolutions', ('conv', 'fprop', 'dgrad', 'implicit_gemm',

@@ -108,30 +108,17 @@ struct Tile {
   // + up to 1023 bytes to align the tiles to the 1024-byte swizzle atom
   static constexpr int kSmem = 1024 + kQBytes + kStages * kStageBytes +
                                8 * kBars;
-  // descriptor swizzle mode: 1 = 128-byte, 2 = 64-byte
-  static constexpr uint64_t kSwizzleMode = D == 64 ? 1 : 2;
 };
 
-// Byte offset of 16-byte chunk c of row r in a swizzled tile (the tile
-// 1024-byte aligned): the chunk index XORed with the address bits 7..9
-// (128-byte rows: r % 8) or 7..8 (64-byte rows: (r / 2) % 4), as the
-// hardware reads it.
+// A tile of 2*D-byte rows with the 128-byte (D 64) or 64-byte (D 32)
+// swizzle: sm90.cuh's swizzle_offset and desc_swizzled.
 template <int D>
 __device__ __forceinline__ uint32_t swizzle(int r, int c) {
-  constexpr int rb = Tile<D>::kRowBytes;
-  return r * rb + ((c ^ ((r * rb >> 7) & (rb / 16 - 1))) << 4);
+  return swizzle_offset(r, c, Tile<D>::kRowBytes);
 }
-
-// wgmma shared-memory descriptor of a tile of 2*D-byte rows at `addr`:
-// 8-row groups 8*2*D bytes apart (the stride byte offset), the leading
-// byte offset unused (the K extent of one wgmma, or V's N = D, lies inside
-// one swizzle row), base offset 0 (tiles are 1024-byte aligned; a k-step
-// inside a row advances the start address by its 32 bytes).
 template <int D>
 __device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
-  constexpr uint64_t sbo = (8 * Tile<D>::kRowBytes) >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (sbo << 32) | (Tile<D>::kSwizzleMode << 62);
+  return desc_swizzled(addr, Tile<D>::kRowBytes);
 }
 
 // One producer thread's part of copying kN rows of 2*D bytes (row i at

@@ -242,10 +242,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kSlabK / 16; ++kk) {
         const int ks = q * (kSlabK / 16) + kk;  // 16-deep step of K
-        const uint64_t da = desc_sw128(
-            a_tile + (ks / 4) * (kRows * 128) + (ks % 4) * 32, 16, 1024);
+        const uint64_t da = desc_swizzled(
+            a_tile + (ks / 4) * (kRows * 128) + (ks % 4) * 32, 128);
         wgmma_n64_tb(acc, da,
-                     desc_sw128(slab(wg, s) + kk * 16 * 128, 16, 1024),
+                     desc_swizzled(slab(wg, s) + kk * 16 * 128, 128),
                      q > 0 || kk > 0);
       }
       wgmma_commit();

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core and bulk-copy
-// kernels (attention_sm90.cu, artv_decode_sm90.cu, sample_head_sm90.cu):
-// mbarriers, cp.async and 1-D bulk copies into shared memory, wgmma's
-// fences and its shared-memory descriptors.
+// kernels (attention_sm90.cu, attention_int8_sm90.cu, artv_decode_sm90.cu,
+// fused_ln_qkv_sm90.cu, sample_head_sm90.cu): mbarriers, cp.async, 1-D
+// bulk copies and 2-D tensor copies (TMA) into shared memory, wgmma's
+// fences, its swizzled tile layouts and their shared-memory descriptors.
 #pragma once
 
 #include "common.cuh"
@@ -123,22 +124,67 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// wgmma shared-memory descriptor with the 128-byte swizzle (tile
-// 1024-byte aligned): `lbo` and `sbo` in bytes.  sbo is the distance of
-// 8-row groups; lbo is unused where the operand's contiguous extent (K for
-// a K-major operand, N for an MN-major one read through the transpose
-// bit) lies inside one 128-byte row, as in every use here.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+// Byte offset of 16-byte chunk c of row r in a tile of rb-byte rows (rb
+// 32, 64 or 128) stored with the rb-byte swizzle, as the hardware reads it:
+// the chunk index XORed with address bits 7 .. 6 + log2(rb / 16) (for 128-
+// byte rows r % 8, for 64-byte rows (r / 2) % 4, for 32-byte rows (r / 4)
+// % 2).  Tiles start at a multiple of 1024 bytes.
+__host__ __device__ __forceinline__ uint32_t swizzle_offset(int r, int c,
+                                                            int rb) {
+  return r * rb + ((c ^ ((r * rb >> 7) & (rb / 16 - 1))) << 4);
 }
 
-// Byte offset of 16-byte chunk c (0 .. 7) of row r in a tile of 128-byte
-// rows with the 128-byte swizzle, as the hardware reads it
 __device__ __forceinline__ uint32_t swizzle128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
+  return swizzle_offset(r, c, 128);
+}
+
+// wgmma shared-memory descriptor of a tile of rb-byte rows with the
+// rb-byte swizzle (swizzle_offset's layout): 8-row groups 8 * rb bytes
+// apart (the stride byte offset), the leading byte offset unused (16): the
+// extent of one wgmma along the row (32 bytes of K for a K-major operand;
+// N for an MN-major one read through the transpose bit) lies inside one
+// row in every use here.  Base offset 0; a step along the row advances
+// the start address by its bytes.
+__device__ __forceinline__ uint64_t desc_swizzled(uint32_t addr, int rb) {
+  const uint64_t mode = rb == 128 ? 1 : rb == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * rb) >> 4) << 32) | (mode << 62);
+}
+
+// 2-D tensor copy (TMA) global -> shared of the box at (c0 inner, c1
+// outer) of the tensor map at `tmap` (a __grid_constant__ parameter's
+// address), counted on `bar`'s transaction bytes; out-of-bounds elements
+// are zero-filled
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// 2-D tensor copy (TMA) shared -> global of the box at (c0 inner, c1
+// outer), elements outside the tensor not written; committed with
+// bulk_commit, waited for with bulk_wait_read
+__device__ __forceinline__ void tma_store_2d(const void* tmap, int c0, int c1,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(tmap),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until this thread's committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// until they are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // 32-bit flag in device memory: a release store at gpu scope

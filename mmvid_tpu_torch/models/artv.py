@@ -60,7 +60,7 @@ from mmvid_tpu_torch.models.clip import (
     NEG_INF,
     ClipStackConfig,
     TransformerStack,
-    build_attention_mask,
+    attention_mask,
     layer_norm_fp32,
 )
 from mmvid_tpu_torch.models.vqgan import VQGanVAE
@@ -192,8 +192,8 @@ class ArtvCore(nn.Module):
                                                           visual_tokens),
                             self.target_embedding(image_tokens).float()],
                            dim=1)[:, :-1]
-        mask = build_attention_mask(cfg.total_seq_len, 'causal',
-                                    device=tokens.device)
+        mask = attention_mask(cfg.total_seq_len, 'causal',
+                              device=tokens.device)
         out = self.transformer['transformer'](tokens, mask)
         if cfg.stable:
             out = out / out.amax(dim=-1, keepdim=True)

@@ -13,7 +13,9 @@ names (``text_emb``, ``transformer.transformer.resblocks.{i}``,
 
 The sequence runs at its true length (565 for the flagship): the JAX
 package pads it to a multiple of 64 for the TPU's tiling, while the CUDA
-attention kernel masks its own ragged edge, so no padding is needed.
+attention kernels mask their own ragged edge, so serving needs no padding.
+Calibration pads as JAX does (``transformer_forward``): its sites record
+the pad rows too.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mmvid_tpu_torch.models.axial import (
@@ -31,9 +34,10 @@ from mmvid_tpu_torch.models.axial import (
 from mmvid_tpu_torch.models.clip import (
     ClipStackConfig,
     TransformerStack,
-    build_attention_mask,
+    attention_mask,
     layer_norm_fp32,
 )
+from mmvid_tpu_torch.ops import int8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,14 +197,22 @@ class BertCore(nn.Module):
 
     def transformer_forward(self, tokens_emb):
         """Full-sequence forward under the mask_prev mask; a shorter
-        sequence gets the full-layout mask sliced [:L, :L]."""
+        sequence gets the full-layout mask sliced [:L, :L].  While
+        ``ops.int8.recording()`` is open, the sequence is padded as the
+        JAX package's BertCore pads it: zero embeddings up to a multiple
+        of 64, ``NEG_INF`` on the mask's pad rows and pad keys, the output
+        sliced back to L; so the calibration sites record JAX's pad rows
+        too and percentile scales agree.  Other forwards run at L."""
         cfg = self.cfg
         L = tokens_emb.shape[1]
-        mask = build_attention_mask(
+        lp = -(-L // 64) * 64 if int8.is_recording() else L
+        mask = attention_mask(
             cfg.total_seq_len, 'mask_prev',
-            index=(cfg.st1_tok_index, cfg.vid_tok_index),
-            device=tokens_emb.device)[:L, :L].contiguous()
-        out = self.transformer['transformer'](tokens_emb, mask)
+            index=(cfg.st1_tok_index, cfg.vid_tok_index), length=L,
+            pad_to=lp, device=tokens_emb.device)
+        if lp != L:
+            tokens_emb = F.pad(tokens_emb, (0, 0, 0, lp - L))
+        out = self.transformer['transformer'](tokens_emb, mask)[:, :L]
         if self.cfg.stable:
             out = out / out.amax(dim=-1, keepdim=True)
         return out

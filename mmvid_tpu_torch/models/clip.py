@@ -28,6 +28,7 @@ refuses to run with grad enabled (rounding has no gradient).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Sequence
 
@@ -36,7 +37,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmvid_tpu_torch.ops import int8
-from mmvid_tpu_torch.ops.attention import fused_attention_blhd
+from mmvid_tpu_torch.ops.attention import (
+    AttentionMask,
+    fused_attention_blhd,
+    slice_mask,
+)
+from mmvid_tpu_torch.ops.attention_int8 import CompactMask, pack_bits
 from mmvid_tpu_torch.ops.fused_ln_qkv import fused_ln_qkv
 
 NEG_INF = -1e9  # finite stand-in for -inf: keeps softmax NaN-free in bf16
@@ -77,6 +83,27 @@ def build_attention_mask(context_length: int, mask_type: str = 'causal',
     else:
         raise NotImplementedError(mask_type)
     return mask
+
+
+@functools.lru_cache(maxsize=64)
+def attention_mask(context_length: int, mask_type: str = 'causal',
+                   index: Optional[tuple] = None,
+                   length: Optional[int] = None,
+                   pad_to: Optional[int] = None,
+                   device=None) -> AttentionMask:
+    """``build_attention_mask(context_length, ...)[:length, :length]``,
+    padded with ``NEG_INF`` rows and keys up to ``pad_to`` (the JAX
+    package's padded layout), with its compact form; made once per
+    arguments and kept.  Every value is 0 or ``NEG_INF`` by construction,
+    so the bits are the ``NEG_INF`` entries, packed on the device."""
+    dense = build_attention_mask(context_length, mask_type, index, device)
+    n = context_length if length is None else length
+    dense = dense[:n, :n]
+    if pad_to is not None and pad_to > n:
+        dense = F.pad(dense, (0, pad_to - n, 0, pad_to - n), value=NEG_INF)
+    dense = dense.contiguous()
+    return AttentionMask(dense, CompactMask(pack_bits(dense == NEG_INF), 0.0,
+                                            NEG_INF))
 
 
 def layer_norm_fp32(ln: nn.LayerNorm, x, dtype):
@@ -162,9 +189,8 @@ class MultiHeadAttention(nn.Module):
         # takes their strides, so no copy is made
         q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, l, h, hd)
                    for i in range(3))
-        if mask is not None:
-            mask = mask[:l, :l].contiguous()
-        out = fused_attention_blhd(q, k, v, mask).reshape(b, l, d)
+        out = fused_attention_blhd(q, k, v, slice_mask(mask, l)).reshape(
+            b, l, d)
         int8.record(f'{site}/attn/out_in', out)
         return _linear(self.out_proj, out,
                        None if scales is None else scales[1],
@@ -203,7 +229,8 @@ class ResidualAttentionBlock(nn.Module):
 
 class TransformerStack(nn.Module):
     """The resblock stack of the MMVID backbone; every block gets the same
-    additive [L, L] mask."""
+    additive [L, L] mask (a tensor, or an ``AttentionMask`` with its
+    compact form)."""
 
     def __init__(self, cfg: ClipStackConfig, dtype=torch.float32):
         super().__init__()

@@ -11,7 +11,8 @@ rounded to bf16 before the product with V, the row sums stay fp32.
 
 ``MMVID_ATTN_INT8=1`` (read at every call, and checked first, as JAX's
 kernel checks ``int8_qk`` before ``bf16_av``) selects JAX's int8 variant,
-``ops/attention_int8.py``.
+``ops/attention_int8.py``.  Its kernel reads a mask's compact form where
+the caller passes an :class:`AttentionMask` (the models build theirs so).
 
 Dispatch rule of :func:`fused_attention_blhd`: a CPU tensor goes to
 :func:`attention_reference`; a CUDA tensor launches the kernel or raises.
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +38,28 @@ launches = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 _fn = None
+
+
+class AttentionMask(NamedTuple):
+    """An additive fp32 [L, L] mask of two values with its compact form
+    (``attention_int8.CompactMask``, which the int8 kernel reads)."""
+    dense: torch.Tensor
+    compact: attention_int8.CompactMask
+
+    def sliced(self, length: int) -> 'AttentionMask':
+        """The mask of the first ``length`` rows and keys."""
+        if length == self.dense.shape[0]:
+            return self
+        return AttentionMask(self.dense[:length, :length].contiguous(),
+                             self.compact.sliced(length))
+
+
+def slice_mask(mask, length: int):
+    """``mask[:length, :length]`` (contiguous) of a dense mask, an
+    :class:`AttentionMask` or None."""
+    if isinstance(mask, AttentionMask):
+        return mask.sliced(length)
+    return None if mask is None else mask[:length, :length].contiguous()
 
 
 def bf16_probs() -> bool:
@@ -126,12 +150,16 @@ def refuse_grad(what: str, *tensors) -> None:
 
 def fused_attention_blhd(q, k, v, mask=None):
     """q, k, v [B, L, H, D] (any strides with a unit head-dim stride);
-    additive mask [L, L] or None -> [B, L, H, D] contiguous, q's dtype.
+    additive mask [L, L], an :class:`AttentionMask` or None -> [B, L, H,
+    D] contiguous, q's dtype.
     Logits are scaled by D ** -0.5; ``MMVID_ATTN_INT8=1`` takes the int8
     variant, else ``MMVID_ATTN_BF16=1`` the bf16-probability variant."""
     global launches
     b, l, h, d = q.shape
     scale = d ** -0.5
+    compact = None
+    if isinstance(mask, AttentionMask):
+        mask, compact = mask
     if q.device.type == 'cuda':
         refuse_grad('attention', q, k, v, mask)
     if mask is None:
@@ -148,7 +176,7 @@ def fused_attention_blhd(q, k, v, mask=None):
                          f'device {q.device}')
     _check_cuda_args(q, k, v, mask, int8)
     if int8:
-        return attention_int8.launch(q, k, v, mask, scale)
+        return attention_int8.launch(q, k, v, mask, scale, compact)
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))

@@ -1,5 +1,7 @@
 """Fused LayerNorm + packed QKV projection: the plain PyTorch version and
-the wrapper of the hand-written CUDA kernel (``csrc/fused_ln_qkv.cu``).
+the wrapper of the hand-written CUDA kernel (``csrc/fused_ln_qkv_sm90.cu``:
+a statistics pass, then the product on Hopper's tensor cores with the
+normalisation of each x slab in shared memory).
 
 Counterpart of ``mmvid_tpu/ops/fused_ln_qkv.py``.  Per row of x:
 
@@ -33,6 +35,8 @@ from mmvid_tpu_torch.ops.attention import refuse_grad
 # Kernel launches since the last reset (read by chip_smoke.py).
 launches = 0
 
+# the kernel stages ln_w and ln_b in shared memory
+MAX_D = 1024
 _fn = None
 
 
@@ -62,8 +66,9 @@ def _check_cuda_args(x, ln_w, ln_b, w, b):
     d = x.shape[-1]
     if x.dtype != torch.bfloat16:
         raise ValueError(f'the LN+QKV kernel takes bf16, not {x.dtype}')
-    if d % 128:
-        raise ValueError(f'D={d} must be a multiple of 128')
+    if d % 128 or d > MAX_D:
+        raise ValueError(f'D={d} must be a multiple of 128, at most '
+                         f'{MAX_D}')
     for name, t, shape, dtype in (('ln_w', ln_w, (d,), torch.float32),
                                   ('ln_b', ln_b, (d,), torch.float32),
                                   ('w', w, (3 * d, d), x.dtype),
@@ -81,7 +86,7 @@ def _check_cuda_args(x, ln_w, ln_b, w, b):
 
 def fused_ln_qkv(x, ln_w, ln_b, w, b):
     """x [..., D] (on the card bf16 with D a multiple of 128, the model's
-    gate; on the CPU fp32 or bf16); ln_w, ln_b [D] fp32; w [3D, D] and
+    gate, up to MAX_D; on the CPU fp32 or bf16); ln_w, ln_b [D] fp32; w [3D, D] and
     b [3D] in x's dtype -> packed qkv [..., 3D] in x's dtype."""
     global launches
     if x.device.type == 'cpu':

@@ -12,8 +12,13 @@ A CPU emulation of the tensor-core kernel's arithmetic (csrc/
 attention_sm90.cu: 128-row query tiles, 64-key tiles, online softmax in
 base 2, P split into bf16 P_hi + P_lo, or bf16 P) is held against
 ``_attention_xla`` at the mask-predict paths' sequences, which checks the
-design's numerics without the card.  The CUDA kernels are held against the
-plain version on the card only, in tests/test_torch_kernels.py.
+design's numerics without the card; so is one of the int8 kernel's
+arithmetic (csrc/attention_int8_sm90.cu: the operand pass, 64-key tiles
+of s8 sums, the mask's compact form, the kernel's order of the row sums)
+against JAX's int8 kernel in interpret mode.  The compact form that
+models/clip.py builds beside every mask is held equal to the dense mask.
+The CUDA kernels are held against the plain version on the card only, in
+tests/test_torch_kernels.py.
 """
 
 import numpy as np
@@ -239,3 +244,190 @@ def test_kernel_emulation_matches_jax_xla(l, idx):
     plain = A.attention_reference(q, k, v, m_port, 64 ** -0.5,
                                   bf16_probs=True).float().numpy()
     assert (np.abs(bf16p - plain) <= bf16_ulp(plain)).all()
+
+
+# every mask a path builds, as (size, kind, index, length, pad_to):
+# mask_prev at the flagship's and text+mask's sequences, causal (ART-V's
+# forward, and its slice to 625), the padded layout of calibration (key
+# and row padding to a multiple of 64), the tiny config's
+MASKS = [(565, 'mask_prev', (51, 52), None, None),
+         (629, 'mask_prev', (115, 116), None, None),
+         (626, 'causal', None, None, None),
+         (626, 'causal', None, 625, None),
+         (565, 'mask_prev', (51, 52), None, 576),
+         (139, 'mask_prev', (9, 10), None, 192),
+         (139, 'mask_prev', (9, 10), 77, None),
+         (139, 'causal', None, None, None)]
+
+
+@pytest.mark.parametrize('size,kind,idx,length,pad_to', MASKS)
+def test_compact_mask_equals_dense(size, kind, idx, length, pad_to):
+    """The compact form that models/clip.py::attention_mask builds beside
+    each dense mask stands for it element by element, also sliced
+    [:l, :l] (MultiHeadAttention.attend's slice), and equals what
+    compact_mask reads off the dense values."""
+    from mmvid_tpu_torch.models.clip import NEG_INF, attention_mask
+    from mmvid_tpu_torch.ops import attention_int8 as A8
+    m = attention_mask(size, kind, index=idx, length=length, pad_to=pad_to,
+                       device=torch.device('cpu'))
+    n = pad_to or length or size
+    assert m.dense.shape == (n, n)
+    assert set(torch.unique(m.dense).tolist()) <= {0.0, NEG_INF}
+    assert (m.compact.c0, m.compact.c1) == (0.0, NEG_INF)
+    assert m.compact.bits.dtype == torch.int32
+    assert m.compact.bits.shape == (n, A8.mask_words(n))
+    assert torch.equal(m.compact.dense(), m.dense)
+    read = A8.compact_mask(m.dense)
+    assert torch.equal(read.bits, m.compact.bits)
+    want = np.asarray(jax_mask(size, kind, index=idx))[:length, :length]
+    if pad_to:
+        want = np.pad(want, ((0, pad_to - want.shape[0]),) * 2,
+                      constant_values=NEG_INF)
+    np.testing.assert_array_equal(m.dense.numpy(), want)
+    for l in {1, 31, 32, 33, 64, 127, 128, 129, n - 1} & set(range(n)):
+        s = A.slice_mask(m, l)
+        assert torch.equal(s.dense, m.dense[:l, :l])
+        assert s.compact.bits.shape == (l, A8.mask_words(l))
+        assert torch.equal(s.compact.dense(), m.dense[:l, :l])
+
+
+def test_compact_mask_refuses_a_third_value():
+    """compact_mask holds two values; a mask with three raises."""
+    from mmvid_tpu_torch.ops import attention_int8 as A8
+    mask = torch.zeros((40, 40))
+    mask[3, :2] = -1e9
+    mask[7, 5] = -3.0
+    with pytest.raises(ValueError, match='two values, not 3'):
+        A8.compact_mask(mask)
+    one = A8.compact_mask(torch.zeros((40, 40)))
+    assert one.c0 == one.c1 == 0.0 and not one.bits.any()
+    assert torch.equal(one.dense(), torch.zeros((40, 40)))
+
+
+def int8_kernel_emulation(q, k, v, compact, scale):
+    """csrc/attention_int8_sm90.cu's arithmetic on the CPU: q, k, v [B, L,
+    H, D], the mask's compact form -> [B, L, H, D] in q's dtype.  The
+    operand pass (per-(batch, head) abs-max scales, q scaled in its dtype,
+    int8 Q, K, V padded with zero rows to a multiple of 64 keys); S tile by
+    tile of 64 keys, each the sum of 32-deep s8 products (exact integers);
+    logits from the bits' two values; keys >= L out of the row max and
+    with p = 0; p8 = rint(p * 127); O = P8 . V8 in integers; each of the
+    four threads of a row sums its keys (2t, 2t + 1 of every 8) in the
+    kernel's order, then (d0 + d1) + (d2 + d3); out = O * (vs / 127) /
+    denom."""
+    b, l, h, d = q.shape
+    lp = -(-l // 64) * 64
+    tiles = lp // 64
+
+    def operands(x):
+        s = torch.clamp_min(x.abs().amax(dim=(1, 3)), 1e-8) / 127.0
+        x8 = torch.round(x / s[:, None, :, None]).long()
+        return (torch.nn.functional.pad(x8.permute(0, 2, 1, 3),
+                                        (0, 0, 0, lp - l)), s)
+
+    q8, qs = operands((q * torch.tensor(scale, dtype=q.dtype)).float())
+    k8, ks = operands(k.float())
+    v8, vs = operands(v.float())
+    qsks = (qs * ks)[..., None, None]                        # [B, H, 1, 1]
+    s_int = torch.zeros((b, h, lp, lp), dtype=torch.int64)
+    for j in range(tiles):
+        keys = slice(64 * j, 64 * j + 64)
+        for kk in range(0, 64, 32):
+            s_int[..., keys] += torch.einsum(
+                'bhld,bhmd->bhlm', q8[..., kk:kk + 32], k8[:, :, keys,
+                                                          kk:kk + 32])
+    bits = compact.dense()
+    mval = torch.nn.functional.pad(bits, (0, lp - l, 0, lp - l))
+    logits = s_int.float() * qsks + mval
+    valid = torch.arange(lp) < l
+    logits = torch.where(valid, logits, torch.tensor(-np.inf))
+    mx = logits.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(logits - mx), torch.zeros(()))
+    p8 = torch.round(p * 127.0)
+    o = torch.einsum('bhlm,bhmd->bhld', p8.long(), v8)
+    # [B, H, Lp, tiles, i, t, e] -> per t, keys in (tile, i, e) order
+    parts = p.view(b, h, lp, tiles, 8, 4, 2).permute(0, 1, 2, 5, 3, 4, 6)
+    parts = parts.reshape(b, h, lp, 4, tiles * 16)
+    den = torch.zeros((b, h, lp, 4))
+    for i in range(parts.shape[-1]):
+        den = den + parts[..., i]
+    den = (den[..., 0] + den[..., 1]) + (den[..., 2] + den[..., 3])
+    out = o.float() * (vs / 127.0)[..., None, None] / den[..., None]
+    return out[:, :, :l].permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize('dtype,l,h,d,kind,idx', [
+    ('float32', 29, 2, 64, 'mask_prev', (5,)),
+    ('float32', 139, 2, 32, 'causal', None),
+    ('bfloat16', 139, 2, 32, 'mask_prev', (9, 10)),
+    ('bfloat16', 200, 2, 64, 'mask_prev', (51, 52)),
+    ('bfloat16', 130, 1, 64, 'causal', None)])
+def test_int8_kernel_emulation_matches_jax_pallas_interpret(
+        monkeypatch, dtype, l, h, d, kind, idx):
+    """The int8 kernel's arithmetic (int8_kernel_emulation: the operand
+    pass, 64-key tiles of s8 sums, the compact mask, the kernel's order of
+    the row sums) against JAX's int8 Pallas kernel in interpret mode,
+    under the same flag.  fp32 within 2e-6 (the row sums' order), as the
+    plain version is held.  bf16: equal to the port's plain version, and
+    equal to JAX's but where an fp32 last-bit difference (XLA's exp
+    against torch's, or a row sum's order) moves one p8 rounding or the
+    output's bf16 rounding: at most one bf16 ulp there, on at most 0.1% of
+    the outputs (the plain version itself differs from JAX's in 2 of the
+    17792 outputs of the L 139 case)."""
+    from mmvid_tpu_torch.models.clip import attention_mask
+    from mmvid_tpu_torch.ops import attention_int8 as A8
+    monkeypatch.setenv('MMVID_ATTN_INT8', '1')
+    rng = np.random.RandomState(l + 1)
+    q, k, v = (rng.randn(2, l, h, d).astype(np.float32) for _ in range(3))
+    m = attention_mask(l, kind, index=idx, device=torch.device('cpu'))
+    jdt = jnp.bfloat16 if dtype == 'bfloat16' else jnp.float32
+    want = np.asarray(jax_fused(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)),
+        jnp.asarray(m.dense.numpy()), interpret=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x).to(getattr(torch, dtype))
+                  for x in (q, k, v))
+    got = int8_kernel_emulation(tq, tk, tv, m.compact, d ** -0.5)
+    assert got.dtype == tq.dtype
+    got = got.float().numpy()
+    if dtype == 'bfloat16':
+        np.testing.assert_array_equal(got, A8.attention_int8_reference(
+            tq, tk, tv, m.dense, d ** -0.5).float().numpy())
+        assert (np.abs(got - want) <= bf16_ulp(want)).all()
+        assert np.mean(got != want) <= 1e-3
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
+
+
+def _rn32(value):
+    """The float32 nearest to an exact Fraction, ties to even."""
+    from fractions import Fraction
+    c = np.float32(float(value))
+    cands = (c, np.nextafter(c, np.float32(np.inf)),
+             np.nextafter(c, np.float32(-np.inf)))
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - value),
+                                     int(np.float32(v).view(np.uint32)) & 1))
+
+
+def test_int8_quantize_without_division_is_exact():
+    """The int8 kernel's operand pass takes x / s as Markstein's correction
+    of x * RN(1 / s): q = RN(x * y), r = x - q * s (one fma, exact), then
+    RN(q + r * y) (one fma), which is RN(x / s), the quotient the plain
+    version rounds.  Checked with exact rationals on random scales and on
+    quotients a few ulps from a half-integer (where rint would flip)."""
+    from fractions import Fraction as Fr
+    rng = np.random.RandomState(0)
+    for trial in range(3000):
+        m = np.float32(10 ** rng.uniform(-3, 2))
+        s = _rn32(Fr(float(max(m, np.float32(1e-8)))) / 127)
+        y = _rn32(1 / Fr(float(s)))
+        if trial % 2:
+            half = Fr(int(rng.randint(-127, 127))) + Fr(1, 2)
+            x = _rn32(half * Fr(float(s))
+                      * (1 + Fr(int(rng.randint(-4, 5)), 2 ** 24)))
+        else:
+            x = np.float32(rng.uniform(-1, 1) * m)
+        fx, fs, fy = Fr(float(x)), Fr(float(s)), Fr(float(y))
+        q = _rn32(fx * fy)
+        r = _rn32(fx - Fr(float(q)) * fs)
+        got = _rn32(Fr(float(q)) + Fr(float(r)) * fy)
+        assert got == _rn32(fx / fs), (x, s)

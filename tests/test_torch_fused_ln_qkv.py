@@ -8,7 +8,9 @@ order); a 2-layer width-128 stack with MMVID_FUSED_LNQKV=1 in both
 packages within 1e-4, the bound of the port's other stack tests.  In bf16
 both round h and the output to bf16, and a last-bit difference of the
 fp32 statistics can flip one rounding: 2e-2, a few bf16 ulps at |qkv|
-about 2.
+about 2.  A CPU emulation of the CUDA kernel's statistics, normalisation
+and product order is held against the Pallas kernel within one bf16 ulp
+of max(|out|, 1).
 """
 
 import numpy as np
@@ -154,3 +156,70 @@ def test_converter_round_trip_of_the_stack():
             np.testing.assert_array_equal(
                 back[blk]['attn'][proj]['kernel'],
                 np.asarray(params[blk]['attn'][proj]['kernel']))
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at the larger of |x| and 1 (8 significant bits)."""
+    return np.exp2(np.floor(np.log2(np.maximum(np.abs(x), 1.0))) - 7)
+
+
+def _f32(x):
+    return np.asarray(x, np.float64).astype(np.float32)
+
+
+def kernel_emulation(x, ln_w, ln_b, w, b):
+    """csrc/fused_ln_qkv_sm90.cu's arithmetic on the CPU: x [M, D], w
+    [3D, D], b [3D] bf16 (numpy fp32 arrays of bf16 values), ln_w, ln_b
+    fp32 -> qkv [M, 3D] as fp32 values of bf16.  The statistics pass: lane
+    l of a warp sums the 8-value chunks l, l + 32, ... of its row in order
+    (x by adds, x^2 by fmas), the 32 lanes by a butterfly, var = s2 / D -
+    mu * mu with one rounding (the compiler's fma); h = bf16((x - mu) *
+    rstd * ln_w + ln_b), each op rounded; the product in 64-deep slabs of
+    four 16-deep wgmma steps, the fp32 sum updated once a step (the
+    step's 16 products and the sum rounded once); b added in fp32."""
+    m, d = x.shape
+    s = np.zeros((m, 32), np.float32)
+    s2 = np.zeros((m, 32), np.float32)
+    for c in range(d // 8):
+        for e in range(8):
+            val = x[:, 8 * c + e]
+            s[:, c % 32] = s[:, c % 32] + val
+            s2[:, c % 32] = _f32(val.astype(np.float64) ** 2
+                                 + s2[:, c % 32])
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, lanes ^ off]
+        s2 = s2 + s2[:, lanes ^ off]
+    mu = s[:, :1] / np.float32(d)
+    var = _f32(s2[:, :1] / np.float32(d) - mu.astype(np.float64) ** 2)
+    rstd = (np.float32(1) / np.sqrt(var + np.float32(1e-5))).astype(
+        np.float32)
+    h = ((x - mu) * rstd) * ln_w + ln_b
+    h = torch.from_numpy(h.astype(np.float32)).bfloat16().float().numpy()
+    acc = np.zeros((m, w.shape[0]), np.float32)
+    for k0 in range(0, d, 16):
+        acc = _f32(acc + h[:, k0:k0 + 16].astype(np.float64)
+                   @ w[:, k0:k0 + 16].T.astype(np.float64))
+    out = acc + b
+    return torch.from_numpy(out).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize('b,l,d', [(2, 37, 128), (3, 100, 256)])
+def test_kernel_emulation_matches_jax_kernel_interpret(b, l, d):
+    """The wgmma kernel's statistics, normalisation and product order
+    (kernel_emulation; ragged M against the 128-row tile and 3D against
+    the 256-column tile) against the JAX package's Pallas kernel in
+    interpret mode, bf16: within one bf16 ulp of max(|out|, 1) (a
+    last-bit difference of the statistics or of an fp32 sum flips one
+    rounding of h or of the output)."""
+    x, scale, bias, ws, bs = _inputs(b, l, d, seed=3)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16))  # noqa: E731
+    xb, wsb, bsb = bf(x), [bf(w) for w in ws], [bf(v) for v in bs]
+    want = _jax_interpret(xb, scale, bias, wsb, bsb)
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    got = kernel_emulation(
+        f32(xb).reshape(-1, d), scale, bias,
+        f32(np.concatenate([w.T for w in wsb], axis=0)),
+        f32(np.concatenate(bsb))).reshape(want.shape)
+    assert (np.abs(got - want) <= bf16_ulp(want)).all()
+    assert np.mean(got != want) <= 0.01

@@ -267,13 +267,9 @@ def test_backbone_calibration_matches_jax(pair, percentile):
         percentile) == want
 
 
-def test_model_calibration_abs_max_matches_jax(pair):
-    """Whole-model calibration forwards (all-[MASK] and random targets):
-    abs-max scales agree to their rounding step.  (JAX's BertCore pads the
-    sequence to a multiple of 64 and its sites record those pad rows too;
-    the port runs the true length, so only the abs-max, which real rows
-    hold, is compared here; the stack test above compares every
-    quantile.)"""
+def _model_calibration(pair, percentile):
+    """(port, JAX) scales of the whole-model calibration forwards
+    (all-[MASK] and random targets) on the same text and weights."""
     jmodel, pmodel = pair
     cfg = jmodel.cfg
     rng = np.random.RandomState(4)
@@ -292,10 +288,53 @@ def test_model_calibration_abs_max_matches_jax(pair):
             pmodel.core(torch.from_numpy(text).long(), None,
                         torch.from_numpy(target).long())
         recs.append(r)
-    want = jint8.calibrate_int8_scales(trees, cfg.clip.layers)
-    got = pint8.calibrate_int8_scales(recs, cfg.clip.layers)
+    return (pint8.calibrate_int8_scales(recs, cfg.clip.layers, percentile),
+            jint8.calibrate_int8_scales(trees, cfg.clip.layers, percentile))
+
+
+def test_model_calibration_abs_max_matches_jax(pair):
+    """Whole-model calibration forwards (all-[MASK] and random targets):
+    abs-max scales agree to their rounding step.  (While recording, the
+    port pads the sequence to a multiple of 64 as JAX's BertCore does, so
+    both record the same rows; the percentile test below compares the
+    quantiles that the pad rows move.)"""
+    got, want = _model_calibration(pair, None)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
                                atol=SCALE_STEP)
+
+
+@pytest.mark.parametrize('percentile', [99.9, 99.99])
+def test_model_calibration_percentile_matches_jax(pair, percentile):
+    """C3: whole-model percentile calibration gives JAX's scales (within
+    their rounding step).  JAX's BertCore pads the sequence to a multiple
+    of 64 and its sites record the pad rows; the port pads the same way
+    while recording, so the quantiles are taken over the same rows.
+    Serving forwards stay unpadded (test_serving_forward_is_unpadded)."""
+    got, want = _model_calibration(pair, percentile)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=SCALE_STEP)
+
+
+def test_serving_forward_is_unpadded(pair):
+    """Outside recording(), the stack runs the true length: the mask that
+    reaches attention is [L, L]; while recording it is the padded one."""
+    _, pmodel = pair
+    cfg = pmodel.cfg
+    seen = []
+    attn = pmodel.transformer['transformer'].resblocks[0].attn
+    hook = attn.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].shape[1]))
+    try:
+        text = torch.randint(1, 100, (1, cfg.text_seq_len),
+                             generator=torch.Generator().manual_seed(0))
+        target = torch.full((1, cfg.target_seq_len), cfg.mask_token)
+        with torch.no_grad():
+            pmodel.core(text, None, target)
+            with pint8.recording():
+                pmodel.core(text, None, target)
+    finally:
+        hook.remove()
+    assert seen == [cfg.total_seq_len, -(-cfg.total_seq_len // 64) * 64]
 
 
 # the JAX package's decoder test config (tests/test_int8.py): resnet

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import disagreement, int8_agrees
-from mmvid_tpu_torch.models.clip import build_attention_mask
+from mmvid_tpu_torch.models.clip import attention_mask, build_attention_mask
 from mmvid_tpu_torch.ops import artv_decode as AD
 from mmvid_tpu_torch.ops import attention as A
 from mmvid_tpu_torch.ops import attention_int8 as A8
@@ -112,6 +112,8 @@ def test_attention_kernel_packed_views(cuda_device, monkeypatch, bf16_probs,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('compact', [True, False],
+                         ids=['compact_mask', 'fp32_mask'])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['fp32', 'bf16'])
 @pytest.mark.parametrize('b,l,h,d,idx,packed', [
@@ -119,17 +121,23 @@ def test_attention_kernel_packed_views(cuda_device, monkeypatch, bf16_probs,
     (16, 629, 12, 64, (115, 116), True),   # text+mask
     (2, 29, 2, 64, (5,), False),           # ragged, fewer rows than a tile
     (3, 139, 2, 32, (9, 10), False),       # tiny, D 32
+    (2, 300, 3, 64, (40, 41), True),       # ragged: a one-warpgroup tile
     (1, 1024, 2, 64, (3,), False)])        # the largest L the kernel takes
-def test_attention_int8_kernel_matches_plain(cuda_device, monkeypatch, dtype,
-                                             b, l, h, d, idx, packed):
+def test_attention_int8_kernel_matches_plain(cuda_device, monkeypatch,
+                                             compact, dtype, b, l, h, d, idx,
+                                             packed):
     """MMVID_ATTN_INT8=1: the s8 kernel against attention_int8_reference
     within chip_smoke.py's int8 limits (``int8_agrees``: quantization
     steps at most and on average, bf16 outputs differing), which the
     unquantized function on the same inputs must fail, at three seeds
     (the readings are printed: ``-rP`` shows them); two calls bitwise
-    equal; one launch a call, none of the bf16 kernel."""
+    equal; two launches a call (the operand pass and the attention), none
+    of the bf16 kernel.  With the mask's compact form, as the models pass
+    it, and with the fp32 mask alone, which the kernel then reads."""
     monkeypatch.setenv('MMVID_ATTN_INT8', '1')
-    mask = build_attention_mask(l, 'mask_prev', index=idx, device=cuda_device)
+    masks = attention_mask(l, 'mask_prev', index=idx, device=cuda_device)
+    mask = masks if compact else build_attention_mask(
+        l, 'mask_prev', index=idx, device=cuda_device)
     for seed in (l, l + 3, 7):
         g = torch.Generator(device=cuda_device).manual_seed(seed)
         if packed:
@@ -141,13 +149,13 @@ def test_attention_int8_kernel_matches_plain(cuda_device, monkeypatch, dtype,
         before, before_bf16 = A8.launches, A.launches
         out = A.fused_attention_blhd(q, k, v, mask)
         again = A.fused_attention_blhd(q, k, v, mask)
-        assert (A8.launches, A.launches) == (before + 2, before_bf16)
+        assert (A8.launches, A.launches) == (before + 4, before_bf16)
         assert out.dtype == dtype and out.shape == (b, l, h, d)
         assert torch.equal(out, again)
-        want = A8.attention_int8_reference(q, k, v, mask, d ** -0.5)
+        want = A8.attention_int8_reference(q, k, v, masks.dense, d ** -0.5)
         err = disagreement(out, want, v)
-        control = disagreement(A.attention_reference(q, k, v, mask,
-                                                     d ** -0.5), want, v)
+        control = disagreement(A.attention_reference(
+            q, k, v, masks.dense, d ** -0.5), want, v)
         print(f'seed {seed}: kernel {err}; unquantized {control}')
         assert int8_agrees(err, dtype), err
         assert not int8_agrees(control, dtype), control
@@ -198,8 +206,10 @@ def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
     with torch.no_grad():
         A.fused_attention_blhd(q, k, v)
         Q.fused_ln_qkv(x, ln_w, ln_b, w, bias)
-    assert (A.launches + A8.launches, Q.launches) == (
-        counts[0] + counts[1] + 1, counts[2] + 1)
+    # the int8 kernel counts two launches a call
+    assert (A.launches, A8.launches, Q.launches) == (
+        counts[0] + (not int8_flag), counts[1] + 2 * int8_flag,
+        counts[2] + 1)
 
 
 @pytest.mark.cuda
@@ -334,13 +344,15 @@ def _ln_qkv_inputs(device, b, l, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('b,l,d', [(16, 629, 768), (2, 37, 128)])
+@pytest.mark.parametrize('b,l,d', [(16, 629, 768), (16, 565, 768),
+                                   (3, 333, 768), (2, 37, 128)])
 def test_ln_qkv_kernel_matches_plain(cuda_device, b, l, d):
-    """The text+mask backbone's shape and the CPU tests' width-128 shape
-    (ragged rows), in bf16 within 2e-2 * (1 + |plain|) (assert_allclose's
-    form with rtol = atol): h and the output are rounded to bf16, and a
-    last-bit difference of the LN statistics flips one rounding, one bf16
-    ulp (2^-8 relative)."""
+    """The text+mask and flagship backbones' shapes, a ragged M (999 rows:
+    the last 128-row tile partial) and the CPU tests' width-128 shape
+    (3D = 384: the last 256-column tile partial), in bf16 within 2e-2 * (1
+    + |plain|) (assert_allclose's form with rtol = atol): h and the output
+    are rounded to bf16, and a last-bit difference of the LN statistics
+    flips one rounding, one bf16 ulp (2^-8 relative)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     x, ln_w, ln_b, w, bias = _ln_qkv_inputs(cuda_device, b, l, d,
                                             torch.bfloat16)
