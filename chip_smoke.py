@@ -14,7 +14,8 @@ backbone from the text-to-video flags with ``--ar``: a prefill of the
 115-position control prefix, then 511 KV-cached decode steps), through
 ``generate.generate_videos``, on the card's default path (the whole-step
 decode kernel) and then with ``MMVID_ARTV_FUSED=0`` (the per-layer step);
-then int8 serving: the flagship calibrated by
+then ART-V's exact speculative decode (``MMVID_ARTV_SPEC=8``) with a
+control frame through the cvae; then int8 serving: the flagship calibrated by
 ``ops.int8.quantize_for_serving`` (w8a8 backbone and VQGAN decoder) under
 ``MMVID_ATTN_INT8=1`` (the int8 attention kernel), and ART-V's int8 decode
 (``generate_images(int8=True)``).
@@ -46,8 +47,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at temp 1 both bf16 routes (tensor cores, CUDA cores) against the
    plain version fed the kernels' own noise (``philox_gumbel`` at one
    seed) and against each other, timed in turns.
-5. nearest-code kernel vs its plain version: ids equal on a randn
-   codebook; within 1e-5 of the best score on the random-init codebook.
+5. nearest-code kernel vs its plain version at M 1024, 4096 and 8192
+   (D 256, K 1024): ids equal on a randn codebook; within 1e-5 of the
+   best score on the random-init codebook; kernel, plain and bound times
+   at each M.
 6. fused LN+QKV kernel vs its plain version at the text+mask and
    flagship shapes (M 16 x 629 and 16 x 565), bf16 (the kernel's only
    dtype; fp32 must raise on the card), timed beside the gate-off pair
@@ -64,7 +67,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    192 launches a call, and the cost of one launch.
 9. tiny models on the card vs the same weights on the CPU: the flagship,
    the text+mask model's cvae ids and forward logits, and ART-V's greedy
-   tokens, each device on its default decode path.
+   tokens, each device on its default decode path; then ART-V's exact
+   speculative decode on the card: greedy tokens equal to ``ar_sample``'s
+   (decode kernel and per-layer step) at k 1, 4 and 8, forced
+   acceptance's chunk counts, and the sampled distribution against the
+   baseline's (chi^2 and TV, 800 lanes, CUDA generators).
 10. flagship path: 6 prompts at batch 4, launch counts, output checks,
     determinism by seed; then ``breakdown.measure`` of a batch of 16.
 11. text+mask path: one batch of 16, launch counts, output checks,
@@ -78,7 +85,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
     two, ``breakdown.measure``
     for each (one timed call of each for the per-layer path, seconds a
     batch).
-13. int8 serving, the flagship at full width: bf16 logits of one forward,
+13. ART-V's speculative decode at full width (MMVID_ARTV_SPEC=8, one
+    control frame through the cvae and the nearest-code kernel): a greedy
+    batch (launch counts, output checks, tokens a chunk), then
+    ``breakdown.measure`` of the floor (determinism by seed) and of the
+    forced ceiling, and the share of the greedy tokens equal to the
+    per-layer baseline's (reported).
+14. int8 serving, the flagship at full width: bf16 logits of one forward,
     then ``quantize_for_serving`` under MMVID_ATTN_INT8=1 and the JAX
     package's gates (logits cosine > 0.99, argmax agreement > 0.9; the
     decoder's int32 sums exact at every site, and each site alone within
@@ -88,7 +101,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
     the operand pass and the attention; sample head 20; the bf16
     attention kernel 0), output checks, determinism by seed,
     ``breakdown.measure``.
-14. ART-V int8 at full width: a warm-up batch of 16 and one timed, output
+15. ART-V int8 at full width: a warm-up batch of 16 and one timed, output
     checks, the same tokens on one seed, no kernel launched.
 
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
@@ -228,11 +241,17 @@ def fail(msg: str):
     sys.exit(1)
 
 
+# device cycles that a timed run waits behind (about 2.5 ms), so the host
+# queues its calls meanwhile and their host time stays out of the reading
+HOST_AHEAD_CYCLES = 5_000_000
+
+
 def cuda_time_ms(fn, calls: int = 20, reps: int = 5,
                  warmup: int = 3) -> float:
     """Device time per call, in ms: CUDA events around ``calls``
-    back-to-back calls (so the host queues ahead and its launch overhead
-    stays out of the device time), over ``calls``; median of ``reps``."""
+    back-to-back calls queued behind a device-side wait (so the host's
+    launch overhead stays out of the device time, also for a call shorter
+    than its host work), over ``calls``; median of ``reps``."""
     import torch
     for _ in range(warmup):
         fn()
@@ -240,6 +259,8 @@ def cuda_time_ms(fn, calls: int = 20, reps: int = 5,
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
         start.record()
         for _ in range(calls):
             fn()
@@ -658,45 +679,59 @@ def phase_sample_head():
 
 
 def phase_codebook():
-    """Nearest-code kernel vs plain at the text+mask path's shape (M = 16
-    control frames x 64 latents, D 256, K 1024)."""
+    """Nearest-code kernel vs plain at the paths' shapes, D 256, K 1024:
+    M 1024 (16 control frames x 64 latents: text+mask, ART-V's speculative
+    path), 4096 (the image_and_video recipe's 4 control frames) and 8192
+    (one video's 8 frames: recon_images, the VQGAN's training encode).
+    Returns the M 1024 row and the times at every M."""
     import torch
     from mmvid_tpu_torch.ops import codebook as C
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device('cuda')
-    m, d, k = 1024, 256, 1024
-    g = torch.Generator(device=dev).manual_seed(11)
-    z = torch.randn((m, d), generator=g, device=dev)
-    spread = torch.randn((k, d), generator=g, device=dev)
-    init = (torch.rand((k, d), generator=g, device=dev) * 2 - 1) / k
+    d, k = 256, 1024
+    at_m = {}
+    for m in (1024, 4096, 8192):
+        g = torch.Generator(device=dev).manual_seed(11)
+        z = torch.randn((m, d), generator=g, device=dev)
+        spread = torch.randn((k, d), generator=g, device=dev)
+        init = (torch.rand((k, d), generator=g, device=dev) * 2 - 1) / k
 
-    def gap(cb, idx):
-        """best score - chosen score, in fp64, per row."""
-        s = z.double() @ cb.double().t() - 0.5 * cb.double().square().sum(
-            -1)[None]
-        return s.max(-1).values - s.gather(1, idx[:, None])[:, 0]
+        def gap(cb, idx):
+            """best score - chosen score, in fp64, per row."""
+            s = z.double() @ cb.double().t() - 0.5 * cb.double().square(
+            ).sum(-1)[None]
+            return s.max(-1).values - s.gather(1, idx[:, None])[:, 0]
 
-    idx = C.nearest_codebook_indices(z, spread)
-    ref = C.nearest_codebook_reference(z, spread)
-    torch.cuda.synchronize()
-    n_diff = int((idx != ref).sum())
-    idx0 = C.nearest_codebook_indices(z, init)
-    gaps = torch.cat([gap(spread, idx), gap(init, idx0)])
-    err = gaps.max().item()
-    ms = cuda_time_ms(lambda: C.nearest_codebook_indices(z, init))
-    plain_ms = cuda_time_ms(lambda: C.nearest_codebook_reference(z, init))
-    print(f'[codebook] M={m} D={d} K={k} fp32: randn codebook ids '
-          f'differing from plain {n_diff}; max score gap to the best '
-          f'(randn and random-init codebooks) {err:.3e} (tol '
-          f'{CODE_GAP_TOL}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms',
-          flush=True)
-    if n_diff or not (idx.min() >= 0 and idx.max() < k):
-        fail(f'codebook kernel ids differ from plain in {n_diff} rows')
-    if not err <= CODE_GAP_TOL:
-        fail(f'codebook kernel score gap {err} > {CODE_GAP_TOL}')
-    nbytes = (m * d + k * d) * 4 + m * 8
-    return (err, ms, plain_ms, None) + bound(nbytes, 2 * m * k * d, 'fp32')
+        idx = C.nearest_codebook_indices(z, spread)
+        ref = C.nearest_codebook_reference(z, spread)
+        torch.cuda.synchronize()
+        n_diff = int((idx != ref).sum())
+        idx0 = C.nearest_codebook_indices(z, init)
+        gaps = torch.cat([gap(spread, idx), gap(init, idx0)])
+        err = gaps.max().item()
+        ms = cuda_time_ms(lambda: C.nearest_codebook_indices(z, init))
+        plain_ms = cuda_time_ms(
+            lambda: C.nearest_codebook_reference(z, init))
+        nbytes = (m * d + k * d) * 4 + m * 8
+        b_ms, b_by = bound(nbytes, 2 * m * k * d, 'fp32')
+        print(f'[codebook] M={m} D={d} K={k} fp32: randn codebook ids '
+              f'differing from plain {n_diff}; max score gap to the best '
+              f'(randn and random-init codebooks) {err:.3e} (tol '
+              f'{CODE_GAP_TOL}); kernel {ms:.4f} ms plain {plain_ms:.4f} '
+              f'ms bound {b_ms:.4f} ms ({b_by})', flush=True)
+        if n_diff or not (idx.min() >= 0 and idx.max() < k):
+            fail(f'codebook kernel ids differ from plain in {n_diff} rows '
+                 f'at M={m}')
+        if not err <= CODE_GAP_TOL:
+            fail(f'codebook kernel score gap {err} > {CODE_GAP_TOL} at '
+                 f'M={m}')
+        at_m[m] = {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                   'bound_ms': b_ms, 'bound_by': b_by}
+    row = at_m[1024]
+    return ((row['max_abs_err'], row['ms'], row['plain_ms'], None,
+             row['bound_ms'], row['bound_by']),
+            {f'M{m}': at_m[m] for m in (4096, 8192)})
 
 
 def phase_ln_qkv():
@@ -1133,6 +1168,137 @@ def phase_tiny_artv():
         fail('tiny ART-V on the card disagrees with the CPU')
 
 
+SPEC_KS = (1, 4, 8)
+# the sampled-distribution test of tests/test_artv_spec.py (800 lanes, a
+# 32-token vocabulary): the pooled two-sample chi^2 of each position's
+# counts (31 degrees of freedom, alpha about 1e-4) and the max TV
+# within max(1.3 x the baseline's split-half TV, 0.10)
+SPEC_LANES, SPEC_CHI2, SPEC_TV_FACTOR, SPEC_TV_FLOOR = 800, 66.6, 1.3, 0.10
+
+
+def _marginals(tokens, vocab):
+    """[R, N] tokens -> [N, vocab] counts a position."""
+    import torch
+    return torch.stack([torch.bincount(tokens[:, p], minlength=vocab)
+                        for p in range(tokens.shape[1])]).double()
+
+
+def _chi2(c1, c2):
+    """Max over positions of the pooled two-sample chi^2 statistic."""
+    n1, n2 = c1.sum(1, keepdim=True), c2.sum(1, keepdim=True)
+    pooled = (c1 + c2) / (n1 + n2)
+    e1, e2 = n1 * pooled, n2 * pooled
+    keep = pooled > 0
+    stat = (((c1 - e1) ** 2 / e1.clamp_min(1e-30))
+            + ((c2 - e2) ** 2 / e2.clamp_min(1e-30))) * keep
+    return stat.sum(1).max().item()
+
+
+def _tv_counts(c1, c2):
+    p, q = c1 / c1.sum(1, keepdim=True), c2 / c2.sum(1, keepdim=True)
+    return (0.5 * (p - q).abs().sum(1)).max().item()
+
+
+def phase_tiny_artv_spec():
+    """ART-V's exact speculative decode (``ar_sample_spec``) with the tiny
+    fp32 model on the card: greedy tokens equal to ``ar_sample``'s on the
+    card's default step (the decode kernel) and with MMVID_ARTV_FUSED=0,
+    for k 1, 4 and 8; forced acceptance commits ceil(127 / (k + 1)) chunks
+    a lane; and at temperature 1, on a 32-token vocabulary, 800 lanes of
+    the speculative path against 800 of the baseline, each drawn from a
+    CUDA generator (the chi^2 and TV bounds above)."""
+    import dataclasses
+    import torch
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch.models import artv as partv
+    from mmvid_tpu_torch.models.artv_spec import ar_sample_spec
+    from mmvid_tpu_torch.ops import artv_decode as AD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, _ = factories.artv_tiny(device='cuda', seed=3)
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(3)
+    text = torch.randint(1, 50, (2, cfg.text_seq_len), generator=g).cuda()
+    visual = torch.randint(0, cfg.num_image_tokens, (2, cfg.visual_seq_len),
+                           generator=g).cuda()
+    n_loop = cfg.target_seq_len - 1
+    base = {}
+    for tag, gate in (('kernel', None), ('per-layer', '0')):
+        if gate:
+            os.environ['MMVID_ARTV_FUSED'] = gate
+        try:
+            before = AD.launches
+            base[tag] = partv.ar_sample(
+                model.core, text, visual,
+                torch.Generator(device='cuda').manual_seed(1),
+                temperature=1e-6)
+            steps = AD.launches - before
+        finally:
+            os.environ.pop('MMVID_ARTV_FUSED', None)
+        if steps != (n_loop if gate is None else 0):
+            fail(f'tiny ART-V baseline ({tag}) ran {steps} decode-kernel '
+                 f'steps')
+    diffs = {}
+    for k in SPEC_KS:
+        toks, steps = ar_sample_spec(
+            model.core, text, visual,
+            torch.Generator(device='cuda').manual_seed(2), k,
+            temperature=1e-6)
+        diffs[k] = {tag: int((toks != b).sum()) for tag, b in base.items()}
+        os.environ['MMVID_ARTV_SPEC_FORCE'] = '1'
+        try:
+            _, forced = ar_sample_spec(
+                model.core, text, visual,
+                torch.Generator(device='cuda').manual_seed(2), k)
+        finally:
+            os.environ.pop('MMVID_ARTV_SPEC_FORCE', None)
+        want = -(-n_loop // (k + 1))
+        print(f'[tiny spec] k={k} fp32 greedy: tokens differing from '
+              f'ar_sample {diffs[k]} of {toks.numel()}; chunks {steps.tolist()}'
+              f'; forced acceptance {forced.tolist()} chunks (expected '
+              f'{want})', flush=True)
+        if any(diffs[k].values()):
+            fail(f'speculative greedy tokens differ from ar_sample at k={k}')
+        if forced.tolist() != [want] * 2:
+            fail(f'forced acceptance ran {forced.tolist()} chunks, not {want}')
+
+    # the sampled distribution: 32 tokens, 4 x 4 a frame, 2 frames
+    pcfg = dataclasses.replace(cfg, num_image_tokens=32, image_fmap_size=4,
+                               image_size=16)
+    small = partv.ArtvModel(pcfg, vae=None)
+    factories.init_weights(small, torch.Generator().manual_seed(0))
+    small = small.cuda().eval()
+    g = torch.Generator().manual_seed(7)
+    text = torch.randint(1, 50, (1, pcfg.text_seq_len), generator=g).expand(
+        SPEC_LANES, -1).cuda()
+    visual = torch.randint(0, 32, (1, pcfg.visual_seq_len), generator=g
+                           ).expand(SPEC_LANES, -1).cuda()
+    os.environ['MMVID_ARTV_FUSED'] = '0'   # 800 lanes: past B5's batch
+    try:
+        base = partv.ar_sample(small.core, text, visual,
+                               torch.Generator(device='cuda').manual_seed(5))
+    finally:
+        os.environ.pop('MMVID_ARTV_FUSED', None)
+    spec, steps = ar_sample_spec(small.core, text, visual,
+                                 torch.Generator(device='cuda').manual_seed(6),
+                                 4)
+    c_base, c_spec = _marginals(base, 32), _marginals(spec, 32)
+    chi2 = _chi2(c_base, c_spec)
+    half = _tv_counts(_marginals(base[:SPEC_LANES // 2], 32),
+                      _marginals(base[SPEC_LANES // 2:], 32))
+    cross = _tv_counts(c_base, c_spec)
+    tv_bound = max(SPEC_TV_FACTOR * half, SPEC_TV_FLOOR)
+    print(f'[tiny spec] k=4 temperature 1, {SPEC_LANES} lanes, 32 tokens: '
+          f'chi2 {chi2:.2f} (< {SPEC_CHI2}), TV {cross:.4f} (< {tv_bound:.4f}'
+          f', split-half {half:.4f}); tokens a chunk '
+          f'{(pcfg.target_seq_len - 1) / steps.double().mean().item():.3f}',
+          flush=True)
+    if not (chi2 < SPEC_CHI2 and cross < tv_bound):
+        fail('the speculative path drifted from the baseline distribution')
+    return {'greedy_tokens_differing': diffs, 'chi2': chi2, 'tv': cross,
+            'tv_split_half': half}
+
+
 def report(tag: str, res: dict):
     """Print ``breakdown.measure``'s result: a summary and its JSON."""
     print(f'[{tag}] batch {res["batch"]}, {res["steps"]} steps: '
@@ -1396,6 +1562,91 @@ def phase_artv():
           f'roundings flip near-ties, and a flipped token changes every '
           f'later step of its row)', flush=True)
     return counts['artv'], counts['artv per-layer']
+
+
+def phase_artv_spec():
+    """ART-V's exact speculative decode at full width (``MMVID_ARTV_SPEC=8``,
+    bf16, batch 16), with one control frame a prompt through the cvae, so
+    the nearest-code kernel runs on the path, and its tokens draft frame
+    0: one greedy batch through ``ArtvModel.generate_images(visual=frames,
+    temperature=1e-6, spec_stats=True)`` (launch counts: the codebook
+    kernel once, the decode kernel never, as in JAX; output checks; the
+    tokens a chunk), then ``breakdown.measure`` of the floor at
+    temperature 1 (random weights accept almost no draft; one timed batch,
+    whose runs under one seed must give the same tokens) and of the
+    ceiling under MMVID_ARTV_SPEC_FORCE=1; and the share of the greedy
+    tokens equal to the per-layer baseline's (MMVID_ARTV_FUSED=0),
+    reported, not gated: near-ties of random weights in bf16 flip."""
+    import torch
+    from mmvid_tpu_torch import breakdown
+
+    t0 = time.perf_counter()
+    model = breakdown.build('artv_spec')
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    print(f'[artv spec] built in {time.perf_counter() - t0:.2f} s: k '
+          f'{breakdown.SPEC_K}, control prefix {cfg.control_seq_len + 1}, '
+          f'a cvae: {model.cvae is not None}', flush=True)
+    text, control = breakdown.inputs(model, 'artv_spec', breakdown.BATCH)
+    frames = control['visual']
+    n_loop = cfg.target_seq_len - 1
+
+    def greedy(**kw):
+        gen = torch.Generator(device='cuda').manual_seed(0)
+        out = model.generate_images(gen, text, visual=frames,
+                                    temperature=1e-6, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    os.environ['MMVID_ARTV_SPEC'] = str(breakdown.SPEC_K)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        videos, tokens, steps = greedy(spec_stats=True)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        want = expected(codebook=1)
+        tpc = n_loop / steps.double().mean().item()
+        print(f'[artv spec] launches {counts} (expected {want}); greedy batch '
+              f'{dt:.3f} s; spec acceptance {tpc:.3f} tokens/chunk (ceiling '
+              f'{breakdown.SPEC_K + 1})', flush=True)
+        if counts != want:
+            fail(f'artv spec launch counts {counts} != {want}')
+        _check_videos('artv spec', cfg, videos, tokens)
+        print(f'[artv spec] videos {tuple(videos.shape)}, finite in [0,1], '
+              f'tokens < {cfg.num_image_tokens}', flush=True)
+        # temperature 1, seconds a batch: one timed batch
+        floor = breakdown.measure(model, 'artv_spec', reps=1, warm=False)
+        report('artv spec floor', floor)
+        if not floor['same_tokens_across_runs']:
+            fail('artv spec: the same seed gave different tokens')
+        os.environ['MMVID_ARTV_SPEC_FORCE'] = '1'
+        try:
+            ceiling = breakdown.measure(model, 'artv_spec')
+        finally:
+            os.environ.pop('MMVID_ARTV_SPEC_FORCE', None)
+        report('artv spec ceiling', ceiling)
+    finally:
+        os.environ.pop('MMVID_ARTV_SPEC', None)
+    print(f'[artv spec] temperature 1: {floor["tokens_per_chunk"]:.4f} tokens '
+          f'a chunk at the floor, {ceiling["tokens_per_chunk"]:.4f} forced; '
+          f'same seed same tokens: {floor["same_tokens_across_runs"]}',
+          flush=True)
+    os.environ['MMVID_ARTV_FUSED'] = '0'
+    try:
+        base = greedy(decode=False)[1]
+    finally:
+        os.environ.pop('MMVID_ARTV_FUSED', None)
+    equal = tokens == base
+    first = (int((~equal).any(0).nonzero()[0]) if not equal.all()
+             else None)
+    print(f'[artv spec] greedy bf16: share of tokens equal to the per-layer '
+          f'baseline {equal.double().mean().item():.4f}, first differing '
+          f'position {first} (not gated: bf16 near-ties of random weights)',
+          flush=True)
+    return counts, {'floor': floor, 'ceiling': ceiling,
+                    'greedy_equal_share': equal.double().mean().item(),
+                    'greedy_first_difference': first}
 
 
 def _cosine(a, b):
@@ -1684,17 +1935,20 @@ def main():
             'bound_by')
     sample_head, head_extra = timed(phase_sample_head)
     ln_qkv, ln_qkv_at = timed(phase_ln_qkv)
+    codebook, codebook_at = timed(phase_codebook)
     rows = {'attention': tuple(attention[(629, False)][k] for k in keys),
             'attention_int8': tuple(attention_int8[629][k] for k in keys),
             'sample_head': sample_head,
-            'codebook': timed(phase_codebook),
+            'codebook': codebook,
             'fused_ln_qkv': ln_qkv,
             'artv_decode': artv_decode, 'gridstep': gridstep}
     timed(phase_tiny_reference)
     timed(phase_tiny_artv)
+    timed(phase_tiny_artv_spec)
     flagship = timed(phase_main_path)
     text_mask, fused = timed(phase_text_mask)
     artv, artv_per_layer = timed(phase_artv)
+    artv_spec, _ = timed(phase_artv_spec)
     int8_serving = timed(phase_int8_serving)
     _, artv_int8_counts = timed(phase_artv_int8)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
@@ -1723,6 +1977,7 @@ def main():
                                       'text_mask_fused': fused[name],
                                       'artv': artv[name],
                                       'artv_per_layer': artv_per_layer[name],
+                                      'artv_spec': artv_spec[name],
                                       'int8_serving': int8_serving[name],
                                       'artv_int8': artv_int8_counts[name]}}
         if name == 'attention':
@@ -1762,6 +2017,9 @@ def main():
                 'ms_at_pos': {pos: e['stream']['ms'] for pos, e in
                               decode_by_pos['at_pos'].items()},
                 'b64_pos370_ms': decode_by_pos['b64_pos370']['stream_ms']}
+        if name == 'codebook':   # 2-D tiles, one launch a call
+            entry['source'] = 'mmvid_tpu_torch/csrc/codebook_sm90.cu'
+            entry['at'] = codebook_at
         if name == 'sample_head':   # the bf16 route, on wgmma
             entry['source'] = 'mmvid_tpu_torch/csrc/sample_head_sm90.cu'
             entry.update(head_extra)

@@ -5,6 +5,8 @@ commit 3f73783) and the port's current ones (``csrc/attention_int8_sm90.cu``
 and ``csrc/fused_ln_qkv_sm90.cu``), each built as it is and as variants
 with one part of its work cut out, timed in turns on the card.  The
 variants compute wrong outputs on purpose; only their times are read.
+Likewise the first nearest-code kernel (``csrc/codebook.cu`` of commit
+8e5084f) against the current one (``csrc/codebook_sm90.cu``).
 
 int8 attention, on the main paths' inputs (B16 H12 D64 bf16 on the packed
 QKV views, ``mask_prev`` rows, L 565 and 629):
@@ -32,11 +34,20 @@ old kernel, the route (``ops/fused_ln_qkv.py``), the gate-off pair
 normalisation (``no_norm``), its products (``no_mma``), its output stores
 (``no_store``) or its statistics pass (``no_stats``).
 
+Nearest code (fp32, D 256, K 1024) at M 1024, 4096 and 8192 (the
+text+mask control frames at batch 16, the image_and_video recipe's 4
+control frames, one video's 8 frames): the old kernel, the route
+(``ops/codebook.py``), the plain version, and the current kernel as it
+is (``as_is``), without its products (``no_fma``) and without its
+cross-tile merge (``no_merge``).
+
 Usage (needs nvcc and a CUDA card; the old sources from git history, e.g.
-``git show 3f73783:mmvid_tpu_torch/csrc/attention_int8.cu > OLD8.cu``):
+``git show 3f73783:mmvid_tpu_torch/csrc/attention_int8.cu > OLD8.cu``,
+``git show 8e5084f:mmvid_tpu_torch/csrc/codebook.cu > OLDCB.cu``; each
+source is optional and names the families timed):
 
     python -m mmvid_tpu_torch.attribution --int8-source OLD8.cu \\
-        --lnqkv-source OLDLN.cu [--out FILE]
+        --lnqkv-source OLDLN.cu --codebook-source OLDCB.cu [--out FILE]
 
 Prints the card, one line per (shape, variant) and one JSON object.
 """
@@ -99,6 +110,16 @@ NEW_LNQKV = {
                   'for (int bx = 0; bx < 0; ++bx)')],
     'no_stats': [(r'  ln_stats_kernel<<<', '  if (M < 0) ln_stats_kernel<<<')],
 }
+NEW_CODEBOOK = {
+    'as_is': [],
+    'no_fma': [(r'for \(int q = 0; q < kBK / 4; \+\+q\) \{\n      float4 av',
+                'for (int q = 0; q < 0; ++q) {\n      float4 av')],
+    'no_merge': [(r'  if \(!is_last\) return;', '  return;')],
+}
+OLD_CODEBOOK_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 2)
+NEW_CODEBOOK_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 5)
 OLD_INT8_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 3
                  + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
@@ -117,21 +138,35 @@ def patch(src: str, subs) -> str:
     return src
 
 
-def build(int8_source: Path, lnqkv_source: Path, tmp: Path) -> dict:
+def build(int8_source, lnqkv_source, codebook_source, tmp: Path) -> dict:
     """{(family, variant): C entry point}, one library each, all nvcc runs
-    at once.  Families: old_int8, new_int8, old_lnqkv, new_lnqkv."""
+    at once.  Families: old_int8, new_int8 (with ``int8_source``),
+    old_lnqkv, new_lnqkv (``lnqkv_source``), old_codebook, new_codebook
+    (``codebook_source``)."""
     nvcc = _build.find_nvcc()
     for name in ('common.cuh', 'sm90.cuh'):
         (tmp / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
-    old8 = int8_source.read_text()
-    new8 = (_build.CSRC_DIR / 'attention_int8_sm90.cu').read_text()
-    newln = (_build.CSRC_DIR / 'fused_ln_qkv_sm90.cu').read_text()
-    sources = {('old_int8', n): patch(old8, v) for n, v in OLD_INT8.items()}
-    sources.update({('new_int8', n): patch(new8, v)
-                    for n, v in NEW_INT8.items()})
-    sources[('old_lnqkv', 'as_is')] = lnqkv_source.read_text()
-    sources.update({('new_lnqkv', n): patch(newln, v)
-                    for n, v in NEW_LNQKV.items()})
+
+    def current(name):
+        return (_build.CSRC_DIR / name).read_text()
+
+    sources = {}
+    if int8_source:
+        old8, new8 = int8_source.read_text(), current('attention_int8_sm90.cu')
+        sources.update({('old_int8', n): patch(old8, v)
+                        for n, v in OLD_INT8.items()})
+        sources.update({('new_int8', n): patch(new8, v)
+                        for n, v in NEW_INT8.items()})
+    if lnqkv_source:
+        newln = current('fused_ln_qkv_sm90.cu')
+        sources[('old_lnqkv', 'as_is')] = lnqkv_source.read_text()
+        sources.update({('new_lnqkv', n): patch(newln, v)
+                        for n, v in NEW_LNQKV.items()})
+    if codebook_source:
+        newcb = current('codebook_sm90.cu')
+        sources[('old_codebook', 'as_is')] = codebook_source.read_text()
+        sources.update({('new_codebook', n): patch(newcb, v)
+                        for n, v in NEW_CODEBOOK.items()})
     cmds, libs = [], {}
     for key, src in sources.items():
         stem = '_'.join(key)
@@ -146,6 +181,10 @@ def build(int8_source: Path, lnqkv_source: Path, tmp: Path) -> dict:
         lib = ctypes.CDLL(str(path))
         if key[0].endswith('lnqkv'):
             fn, args = lib.mmvid_ln_qkv, LNQKV_ARGS
+        elif key[0].endswith('codebook'):
+            fn = lib.mmvid_nearest_code
+            args = (OLD_CODEBOOK_ARGS if key[0] == 'old_codebook'
+                    else NEW_CODEBOOK_ARGS)
         else:
             fn = lib.mmvid_attention_int8_fwd
             args = OLD_INT8_ARGS if key[0] == 'old_int8' else NEW_INT8_ARGS
@@ -156,12 +195,16 @@ def build(int8_source: Path, lnqkv_source: Path, tmp: Path) -> dict:
 
 
 def time_ms(fn, calls=20, reps=5):
+    """Device ms a call (``chip_smoke.cuda_time_ms``'s method: the calls
+    queued behind a device-side wait, so host time stays out)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)
         a.record()
         for _ in range(calls):
             fn()
@@ -264,10 +307,44 @@ def ln_qkv(fns, res):
             print(f'[attribution] LN+QKV M={m} {n}: {t:.4f} ms', flush=True)
 
 
+def nearest_code(fns, res):
+    from mmvid_tpu_torch.ops import codebook as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, k = 256, 1024
+    g = torch.Generator(device='cuda').manual_seed(11)
+    cb = (torch.rand((k, d), generator=g, device='cuda') * 2 - 1) / k
+    stream = torch.cuda.current_stream().cuda_stream
+    for m in (1024, 4096, 8192):
+        z = torch.randn((m, d), generator=g, device='cuda')
+        idx = torch.empty((m,), dtype=torch.int64, device='cuda')
+        tiles = -(-k // C.CODES_PER_TILE)
+        part_s = torch.empty((tiles, m), device='cuda')
+        part_i = torch.empty((tiles, m), dtype=torch.int32, device='cuda')
+        counters = torch.zeros((-(-m // C.ROWS_PER_TILE),),
+                               dtype=torch.int32, device='cuda')
+        calls = {}
+        for (family, name), fn in fns.items():
+            if family == 'old_codebook':
+                calls['old'] = checked(fn, z.data_ptr(), cb.data_ptr(), m, d,
+                                       k, idx.data_ptr(), stream)
+            elif family == 'new_codebook':
+                calls[f'new_{name}'] = checked(
+                    fn, z.data_ptr(), cb.data_ptr(), m, d, k,
+                    part_s.data_ptr(), part_i.data_ptr(),
+                    counters.data_ptr(), idx.data_ptr(), stream)
+        calls['new'] = lambda: C.nearest_codebook_indices(z, cb)
+        calls['plain'] = lambda: C.nearest_codebook_reference(z, cb)
+        res['codebook_ms'][m] = in_turns(calls)
+        for n, t in res['codebook_ms'][m].items():
+            print(f'[attribution] nearest code M={m} {n}: {t:.4f} ms',
+                  flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--int8-source', type=Path, required=True)
-    ap.add_argument('--lnqkv-source', type=Path, required=True)
+    ap.add_argument('--int8-source', type=Path, default=None)
+    ap.add_argument('--lnqkv-source', type=Path, default=None)
+    ap.add_argument('--codebook-source', type=Path, default=None)
     ap.add_argument('--out', type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -276,13 +353,19 @@ def main(argv=None):
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    res = {'device': smi, 'int8_attention_ms': {}, 'ln_qkv_ms': {}}
+    res = {'device': smi, 'int8_attention_ms': {}, 'ln_qkv_ms': {},
+           'codebook_ms': {}}
     _build.library()
     with tempfile.TemporaryDirectory() as tmp:
-        fns = build(args.int8_source, args.lnqkv_source, Path(tmp))
+        fns = build(args.int8_source, args.lnqkv_source,
+                    args.codebook_source, Path(tmp))
         with torch.no_grad():
-            int8_attention(fns, res)
-            ln_qkv(fns, res)
+            if args.int8_source:
+                int8_attention(fns, res)
+            if args.lnqkv_source:
+                ln_qkv(fns, res)
+            if args.codebook_source:
+                nearest_code(fns, res)
     print(json.dumps(res), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

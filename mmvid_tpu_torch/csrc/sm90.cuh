@@ -86,6 +86,16 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+// close this thread's group of cp.asyncs so far; wait until at most N of
+// its groups are still in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // arrive on `bar` once this thread's cp.asyncs so far have landed (one of
 // the barrier's expected arrivals)
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {

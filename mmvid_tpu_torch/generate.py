@@ -5,7 +5,10 @@ Counterpart of the repository's ``generate.py``: mask-predict sampling,
 and ART-V with ``--ar`` or for a checkpoint whose hparams say ``ar``
 (they override the flag, as in the JAX CLI); ``--int8`` calibrates a
 mask-predict model at load and serves it w8a8
-(``ops.int8.quantize_for_serving``), or runs ART-V's int8 decode.
+(``ops.int8.quantize_for_serving``), or runs ART-V's int8 decode;
+``--ar --spec K`` samples ART-V by the exact speculative decode
+(``models/artv_spec.py``, K drafts a chunk) and prints the tokens a chunk
+forward committed.
 Loads a reference ``dalle.pt`` once, then streams prompt batches through
 the model's ``generate_images``, padding the last batch to the static
 batch size.
@@ -17,6 +20,8 @@ Usage:
     python -m mmvid_tpu_torch.generate --dalle_path ... --prompt_file p.txt
     MMVID_ATTN_INT8=1 python -m mmvid_tpu_torch.generate --dalle_path ... \\
         --prompts "a man is smiling" --int8
+    python -m mmvid_tpu_torch.generate --dalle_path ... --ar --spec 8 \\
+        --prompts "a man is smiling"
 
 ``load_model`` and ``generate_videos`` need only torch and numpy;
 ``main`` also writes files through ``mmvid_tpu_torch.utils.html``, whose
@@ -26,9 +31,10 @@ writers import PIL or imageio when they write.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
-from typing import Iterator, List, NamedTuple
+from typing import Iterator, List, NamedTuple, Optional
 
 import torch
 
@@ -87,6 +93,15 @@ def parse_args(argv=None):
     p.add_argument('--loss_img_weight', type=int, default=7)
     p.add_argument('--ar', action='store_true',
                    help='sample as ART-V (checkpoint hparams override)')
+    p.add_argument('--spec', type=int, default=0, metavar='K',
+                   help='(with --ar) exact speculative decode: verify K '
+                        'copy-previous-frame draft tokens a chunk forward '
+                        '(models/artv_spec.py); the same output '
+                        'distribution as the baseline, faster as the '
+                        'served weights accept more drafts')
+    p.add_argument('--bench_unsafe', action='store_true',
+                   help='allow the benchmark-only MMVID_ARTV_SPEC_FORCE=1, '
+                        'whose output is garbage by design')
     p.add_argument('--int8', action='store_true',
                    help='int8 serving: a mask-predict model is calibrated '
                         'at load and runs its backbone and VQGAN decoder '
@@ -129,17 +144,20 @@ class Batch(NamedTuple):
     prompts: List[str]
     videos: torch.Tensor   # [len(prompts), T, H, W, 3] in [0, 1]
     tokens: torch.Tensor   # [len(prompts), T * n] int64
+    steps: Optional[torch.Tensor] = None   # [len(prompts)]: spec_stats
 
 
 def generate_videos(model, tokenizer, prompts, batch_size: int,
                     generator: torch.Generator, mask_predict_steps: int = 0,
                     dynamic: bool = False, mp_config=None,
-                    int8: bool = False) -> Iterator[Batch]:
+                    int8: bool = False,
+                    spec_stats: bool = False) -> Iterator[Batch]:
     """Yield one Batch per ``batch_size`` prompts; the last batch is
     padded with empty prompts to keep the batch shape static, and the
     padding is dropped from what is yielded.  ``generator`` lives on the
     model's device.  ``int8``: ART-V's int8 decode (a mask-predict model
-    is quantized when it is built)."""
+    is quantized when it is built).  ``spec_stats`` (ART-V): each Batch
+    carries the forwards each lane ran (``ArtvModel.generate_images``)."""
     device = next(model.parameters()).device
     cfg = model.cfg
     for i in range(0, len(prompts), batch_size):
@@ -149,14 +167,26 @@ def generate_videos(model, tokenizer, prompts, batch_size: int,
                                   truncate_text=True)
         text = torch.as_tensor(toks, dtype=torch.long).to(device)
         kw = {'int8': True} if int8 else {}
-        videos, seq = model.generate_images(
+        if spec_stats:
+            kw['spec_stats'] = True
+        out = model.generate_images(
             generator, text, mask_predict_steps=mask_predict_steps,
             dynamic=dynamic, mp_config=mp_config or DEFAULT_MP_CONFIG, **kw)
-        yield Batch(chunk, videos[:len(chunk)], seq[:len(chunk)])
+        steps = out[2][:len(chunk)] if spec_stats else None
+        yield Batch(chunk, out[0][:len(chunk)], out[1][:len(chunk)], steps)
 
 
 def main(args=None):
     args = args or parse_args()
+    # forced acceptance is a benchmark's ceiling, garbage by design: refused
+    # in serving, as the JAX CLI refuses it
+    if (os.environ.get('MMVID_ARTV_SPEC_FORCE') == '1'
+            and not args.bench_unsafe):
+        raise SystemExit(
+            'MMVID_ARTV_SPEC_FORCE=1 is a bench-only ceiling knob that '
+            'accepts all speculative drafts: generated videos would be '
+            'garbage. Unset it, or pass --bench_unsafe if you really are '
+            'benchmarking through this CLI.')
     prompts = list(args.prompts or [])
     if args.prompt_file:
         with open(args.prompt_file) as f:
@@ -164,6 +194,28 @@ def main(args=None):
     if not prompts:
         raise SystemExit('no prompts given')
     model, tokenizer = load_model(args)
+    if args.spec:
+        if not args.ar:
+            raise SystemExit('--spec requires --ar (speculative decode '
+                             'speeds up the autoregressive sampler; '
+                             'mask-predict is already parallel)')
+        if args.int8:
+            raise SystemExit('--spec is a bf16 decode path; drop --int8')
+        print(f'speculative AR decode: chunks of {args.spec} '
+              f'copy-previous-frame drafts, exact verification')
+    flag = os.environ.get('MMVID_ARTV_SPEC')
+    if args.spec:   # ar_sample reads it at every call
+        os.environ['MMVID_ARTV_SPEC'] = str(args.spec)
+    try:
+        _write_videos(args, model, tokenizer, prompts)
+    finally:
+        if args.spec and flag is None:
+            os.environ.pop('MMVID_ARTV_SPEC', None)
+        elif args.spec:
+            os.environ['MMVID_ARTV_SPEC'] = flag
+
+
+def _write_videos(args, model, tokenizer, prompts):
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     generator = torch.Generator(device=args.device).manual_seed(args.seed)
@@ -173,7 +225,16 @@ def main(args=None):
     for batch in generate_videos(model, tokenizer, prompts, args.batch_size,
                                  generator, args.mask_predict_steps,
                                  args.dynamic,
-                                 int8=args.int8 and args.ar):
+                                 int8=args.int8 and args.ar,
+                                 spec_stats=bool(args.spec)):
+        if batch.steps is not None:
+            # tokens committed a chunk forward on these weights and
+            # prompts (1.0: no gain; spec + 1: every draft accepted)
+            n_loop = model.cfg.target_seq_len - 1
+            tpc = n_loop / batch.steps.clamp_min(1).double().cpu()
+            print(f'  spec acceptance: {tpc.mean():.2f} tokens/chunk (min '
+                  f'{tpc.min():.2f}, max {tpc.max():.2f}; ceiling '
+                  f'{args.spec + 1})')
         videos = batch.videos.float().cpu().numpy()
         for j, (prompt, vid) in enumerate(zip(batch.prompts, videos)):
             stem = (f'{n_done + j:04d}_'

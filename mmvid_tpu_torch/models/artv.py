@@ -28,6 +28,9 @@ are read at every call.  Products take bf16 (the compute dtype) operands with
 fp32 sums and outputs, as the JAX package's ``preferred_element_type``
 does: the plain ops multiply fp32 copies of the rounded operands.
 
+``MMVID_ARTV_SPEC=k`` (read at every call, as in JAX) sends a call without
+``int8`` to the exact speculative decode of ``models/artv_spec.py``.
+
 ``ar_sample(..., int8=True)`` is the JAX package's int8 decode (serving,
 beyond the reference): the blocks' and the head's weights quantized per
 output channel (``quant_weight``), every product of the step an int8
@@ -411,11 +414,22 @@ def _grow(cache, width):
 @int8_ops.exact_fp32_products()
 def ar_sample(core: ArtvCore, text, visual_tokens, generator,
               filter_thres: float = 0.5, temperature: float = 1.0,
-              int8: bool = False):
+              int8: bool = False, return_steps: bool = False):
     """KV-cached sampling of all target tokens -> [B, target_seq_len]
     int64 in [0, num_image_tokens).  ``generator`` (on the model's device)
     draws each step's noise.  ``int8``: the int8 decode of the module
-    docstring."""
+    docstring.  ``MMVID_ARTV_SPEC=k`` (read at every call, as in JAX)
+    routes a call without ``int8`` to the exact speculative decode
+    (``models/artv_spec.ar_sample_spec``).  ``return_steps`` also returns
+    the forwards each lane ran [B] (target_seq_len - 1 here; the chunk
+    count on the speculative path)."""
+    spec_k = int(os.environ.get('MMVID_ARTV_SPEC', '0') or 0)
+    if spec_k > 0 and not int8:
+        from mmvid_tpu_torch.models.artv_spec import ar_sample_spec
+        toks, steps = ar_sample_spec(core, text, visual_tokens, generator,
+                                     spec_k, filter_thres=filter_thres,
+                                     temperature=temperature)
+        return (toks, steps) if return_steps else toks
     cfg = core.cfg
     heads, n_layers = cfg.clip.heads, cfg.clip.layers
     dt, dim = core.dtype, cfg.dim
@@ -518,7 +532,11 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
             fed.append(tok)
             tok = sample_tok(generator, image_logits(x), k_img,
                              temperature)
-    return torch.stack(fed + [tok], dim=1)
+    toks = torch.stack(fed + [tok], dim=1)
+    if return_steps:
+        return toks, torch.full((b,), n_steps, dtype=torch.long,
+                                device=text.device)
+    return toks
 
 
 class ArtvModel(nn.Module):
@@ -580,20 +598,23 @@ class ArtvModel(nn.Module):
     @torch.no_grad()
     def generate_images(self, generator, text, *, visual=None,
                         filter_thres=0.5, temperature=1.0, decode=True,
-                        int8=False, **unused):
+                        int8=False, spec_stats=False, **unused):
         """text [B, text_seq_len] int -> (videos [B, T, H, W, 3] in [0, 1]
-        or None when ``decode`` is False, img_seq [B, T*n] int64).
-        ``int8``: the int8 decode of ``ar_sample``.  The
-        mask-predict keywords (``mask_predict_steps``, ``dynamic``,
+        or None when ``decode`` is False, img_seq [B, T*n] int64), and with
+        ``spec_stats`` a third, the forwards each lane ran [B]: with
+        ``MMVID_ARTV_SPEC=k`` (target_seq_len - 1) / steps is the tokens a
+        chunk (the speculation's gain), on the baseline path steps is
+        target_seq_len - 1.  ``int8``: the int8 decode of ``ar_sample``.
+        The mask-predict keywords (``mask_predict_steps``, ``dynamic``,
         ``mp_config``) are taken and ignored, so
         ``generate.generate_videos`` serves both models."""
         vtok = self.visual_tokens(visual, text.shape[0], text.device)
-        seq = ar_sample(self.core, text, vtok, generator,
-                        filter_thres=filter_thres, temperature=temperature,
-                        int8=int8)
-        if not decode:
-            return None, seq
-        return self.decode_video(seq), seq
+        seq, steps = ar_sample(self.core, text, vtok, generator,
+                               filter_thres=filter_thres,
+                               temperature=temperature, int8=int8,
+                               return_steps=True)
+        videos = self.decode_video(seq) if decode else None
+        return (videos, seq, steps) if spec_stats else (videos, seq)
 
     @torch.no_grad()
     def decode_video(self, img_seq):

@@ -141,6 +141,19 @@ def test_nearest_code_wrapper_takes_plain_on_cpu(monkeypatch):
     assert torch.equal(got, C.nearest_codebook_reference(z, cb))
 
 
+@pytest.mark.parametrize('zshape,cbshape,match', [
+    ((16, 66), (1024, 66), 'multiple of 4'),
+    ((16, 64), (1024, 32), r'\[K, D=64\]'),
+    ((0, 64), (1024, 64), 'empty'),
+    ((16, 64), (0, 64), 'empty'),
+    ((64 * 65535 + 1, 4), (8, 4), 'row tiles')])
+def test_nearest_code_kernel_checks_refuse(zshape, cbshape, match):
+    """What the kernel does not take is refused by the wrapper's checks,
+    before a launch (run here on CPU tensors: they read only shapes)."""
+    with pytest.raises(ValueError, match=match):
+        C._check_cuda_args(torch.zeros(zshape), torch.zeros(cbshape))
+
+
 @pytest.mark.parametrize('name', sorted(CONFIGS))
 def test_encoder_latents_match_jax(name):
     kw = CONFIGS[name]
