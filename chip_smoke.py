@@ -18,9 +18,14 @@ then ART-V's exact speculative decode (``MMVID_ARTV_SPEC=8``) with a
 control frame through the cvae; then int8 serving: the flagship calibrated by
 ``ops.int8.quantize_for_serving`` (w8a8 backbone and VQGAN decoder) under
 ``MMVID_ATTN_INT8=1`` (the int8 attention kernel), and ART-V's int8 decode
-(``generate_images(int8=True)``).
+(``generate_images(int8=True)``); then training: the flagship
+text-to-video recipe's MSM / REL / VID step at full width (fp32
+parameters, bf16 compute, each block rematerialised, the frozen VQGAN
+tokenizing targets and the warped frame inside the step) and one ART-V
+step.
 The paths' models, inputs and batch-16 timings come from
-``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``, ``measure``).
+``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``, ``measure``,
+``build_train``, ``train_batch``, ``measure_train``).
 Phases, in order; any failure exits non-zero and prints no result line:
 
 1. device: CUDA is required; prints the card's name and power limit.
@@ -42,6 +47,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the fp32 mask alone; two launches a call; timed with the compact mask
    and with the fp32 mask, beside its plain version (and SDPA's bf16
    time, as context only).
+   Then attention's backward (``FusedAttention``: the kernel's forward,
+   the fp32 recompute of JAX's XLA VJP in torch ops) against autograd
+   through the plain version, B16 H12 D64 at L 565 and 629, mask_prev and
+   causal, fp32 and bf16, on the packed views (ATTN_BWD_TOL); timed beside
+   ``F.scaled_dot_product_attention``'s forward and backward.
 4. sample-head kernels vs their plain version: exact at temp 0 for Y
    given the chosen token, token histograms in distribution (TV bounds);
    at temp 1 both bf16 routes (tensor cores, CUDA cores) against the
@@ -71,7 +81,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    speculative decode on the card: greedy tokens equal to ``ar_sample``'s
    (decode kernel and per-layer step) at k 1, 4 and 8, forced
    acceptance's chunk counts, and the sampled distribution against the
-   baseline's (chi^2 and TV, 800 lanes, CUDA generators).
+   baseline's (chi^2 and TV, 800 lanes, CUDA generators); then the tiny
+   training builds (flagship 3 steps, ART-V 1) on the card and on the CPU
+   from the same weights, batch and draws, TF32 off: ids, losses and
+   parameters agree, launch counts a step exact.
 10. flagship path: 6 prompts at batch 4, launch counts, output checks,
     determinism by seed; then ``breakdown.measure`` of a batch of 16.
 11. text+mask path: one batch of 16, launch counts, output checks,
@@ -103,6 +116,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
     ``breakdown.measure``.
 15. ART-V int8 at full width: a warm-up batch of 16 and one timed, output
     checks, the same tokens on one seed, no kernel launched.
+16. training at full width, batch 16: the flagship's step through
+    ``breakdown.measure_train`` (every loss finite; launches a step
+    exact: attention 72, nearest code 2, and 36 calls of attention's
+    backward; the VQGAN unchanged), then 8 steps on a fixed batch with
+    fixed draws at a constant lr (the loss falls); then one ART-V step
+    (attention 12, nearest code 1, backward 12).
 
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
 then as its last line ``{"ok": true, "device": {...}}``.  Run from the
@@ -184,6 +203,37 @@ DECODE_DEEP_TOL_B64 = 7.5e-2
 # grid-step probe vs plain, fp32 outputs of bf16 products summed in
 # another order
 PROBE_TOL = 1e-4
+# attention's backward (FusedAttention, the kernel's forward and
+# attention_backward's fp32 recompute) vs autograd through
+# attention_reference on the same packed views: |got - want| <= tol * (1 +
+# |want|) elementwise.  Both compute the same fp32 products in another
+# order; bf16 gradients are rounded from them, so a last-bit difference
+# can flip one rounding (one bf16 ulp, 2^-8 relative).  On the H100 at
+# this script's shapes and seeds: at most 4.0e-7 in fp32, 2.6e-3 in bf16
+ATTN_BWD_TOL = {'float32': 1e-4, 'bfloat16': 1e-2}
+# the tiny fp32 training steps on the card vs the CPU, TF32 off: every
+# parameter within this after 3 Adam steps, except the key projection's
+# bias, whose gradient is exactly 0 (softmax cancels a constant added to
+# a query's logits): Adam moves it by up to the lr a step on each
+# device's own rounding noise, so it is held to 3 x the lr summed over the
+# steps (tests/test_torch_training.py::_hold_params).  On the H100: the
+# flagship's parameters 2.2e-6 apart after 3 steps, ART-V's 5.2e-6 after
+# one, the key biases 8.7e-5, the losses at most 9.5e-7
+TRAIN_PARAM_TOL = 1e-5
+TRAIN_LOSS_TOL = 1e-4
+# the full-width step's launches: 3 forwards (MSM, REL's negative, VID's
+# negative) x 12 blocks, each forward run again under remat; the nearest
+# code twice (the 8 target frames, M = B * 512, and the warped frame, M = B
+# * 64); ART-V: one causal forward of 12 blocks, no remat, and the targets
+# tokenized once
+TRAIN_LAUNCHES = {'train': {'attention': 72, 'codebook': 2},
+                  'train_artv': {'attention': 12, 'codebook': 1}}
+# attention's backward (FusedAttention.backward) a step: once for each
+# block of each forward (remat reruns the forward, not the backward)
+TRAIN_BACKWARD_CALLS = {'train': 3 * 12, 'train_artv': 12}
+# steps on one fixed batch with fixed draws at a constant lr, over which
+# the full-width loss must fall
+FALL_STEPS = 8
 # int8 attention kernel vs plain (disagreement below): the integers are
 # the same, and only expf's last bit can move p * 127 across a rounding
 # tie (one quantization step of one output over its row sum) or the row
@@ -223,6 +273,7 @@ def reset_counts():
     from mmvid_tpu_torch.breakdown import KERNELS
     for mod in KERNELS.values():
         mod.launches = 0
+    KERNELS['attention'].backward_calls = 0
 
 
 def read_counts():
@@ -450,6 +501,116 @@ def phase_attention():
           f'{fp32_rows[629]["ms"]:.4f} ms, L565 {fp32_rows[565]["ms"]:.4f} '
           f'ms', flush=True)
     return rows, fp32_rows
+
+
+def _packed_grads(fn, qkv, cot, mask):
+    """d qkv of sum(fn(q, k, v, mask) * cot), q, k, v strided views of
+    the packed projection qkv [B, L, 3 * H * D] (models/clip.py)."""
+    import torch
+    b, l, h, d = cot.shape
+    x = qkv.detach().requires_grad_(True)
+    q, k, v = (x[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+               for i in range(3))
+    return torch.autograd.grad(fn(q, k, v, mask), x, cot)[0]
+
+
+def phase_attention_backward():
+    """Attention's backward (``ops.attention.FusedAttention``: the
+    kernel's forward, then the fp32 recompute of JAX's XLA VJP in torch
+    ops) against autograd through ``attention_reference`` on the card, on
+    the packed strided q, k, v views: B16 H12 D64 at L565 and L629 (the
+    flagship's and text+mask's), mask_prev and causal, fp32 and bf16,
+    within ATTN_BWD_TOL.  Times, on the flagship's training shape (bf16,
+    L565 mask_prev): the backward alone, the kernel's forward, the plain
+    forward and backward, and ``F.scaled_dot_product_attention``'s
+    forward and backward on the same float mask; the backward's bound:
+    the larger of its bytes over the memory rate and its fp32 operations
+    (10 B H L^2 D, the recompute's products) over the fp32 peak, and the
+    bf16 peak's beside it."""
+    import torch
+    from mmvid_tpu_torch.models.clip import build_attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, d = 16, 12, 64
+    scale = d ** -0.5
+
+    def plain(q, k, v, mask):
+        return A.attention_reference(q, k, v, mask, scale)
+
+    errs = {}
+    for l, kind, idx in ((565, 'mask_prev', (51, 52)),
+                         (629, 'mask_prev', (115, 116)),
+                         (565, 'causal', None), (629, 'causal', None)):
+        mask = build_attention_mask(l, kind, index=idx, device='cuda')
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device='cuda').manual_seed(l)
+            qkv = torch.randn((b, l, 3 * h * d), generator=g,
+                              device='cuda').to(dtype)
+            cot = torch.randn((b, l, h, d), generator=g,
+                              device='cuda').to(dtype)
+            before = A.launches
+            got = _packed_grads(A.fused_attention_blhd, qkv, cot, mask)
+            launched = A.launches - before
+            want = _packed_grads(plain, qkv, cot, mask)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            rel = (diff / (1 + want.float().abs())).max().item()
+            name = str(dtype).split('.')[-1]
+            tol = ATTN_BWD_TOL[name]
+            print(f'[attention bwd] B={b} L={l} H={h} D={d} packed {kind} '
+                  f'{name}: d qkv max abs err {err:.3e}, max err / (1 + '
+                  f'|plain|) {rel:.3e} (tol {tol}); forward kernel '
+                  f'launches {launched}', flush=True)
+            if not rel <= tol:
+                fail(f'attention backward L={l} {kind} {name}: {rel} > '
+                     f'{tol}')
+            if launched != 1:
+                fail(f'attention backward: the forward launched the kernel '
+                     f'{launched} times, not once')
+            errs[(l, kind, name)] = rel
+            del got, want, qkv, cot
+
+    # times on the flagship's training shape
+    l, idx = 565, (51, 52)
+    mask = build_attention_mask(l, 'mask_prev', index=idx, device='cuda')
+    g = torch.Generator(device='cuda').manual_seed(7)
+    qkv = torch.randn((b, l, 3 * h * d), generator=g,
+                      device='cuda').bfloat16()
+    cot = torch.randn((b, l, h, d), generator=g, device='cuda').bfloat16()
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+               for i in range(3))
+    bwd_ms = cuda_time_ms(lambda: A.attention_backward(q, k, v, mask, scale,
+                                                       cot))
+    with torch.no_grad():
+        fwd_ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, mask))
+    plain_ms = cuda_time_ms(lambda: _packed_grads(plain, qkv, cot, mask))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    mt, ct = mask.to(torch.bfloat16), cot.transpose(1, 2)
+
+    def sdpa():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mt)
+        return torch.autograd.grad(out, (qt, kt, vt), ct)
+
+    sdpa_ms = cuda_time_ms(sdpa)
+    nbytes = 7 * b * l * h * d * 2 + l * l * 4
+    flops = 10 * b * h * l * l * d
+    bms, by = bound(nbytes, flops, 'fp32')
+    bms_bf16, _ = bound(nbytes, flops, 'bf16')
+    row = {'max_abs_err': max(errs.values()), 'errs': {
+        f'L{l_}_{k_}_{n_}': e for (l_, k_, n_), e in errs.items()},
+        'ms': bwd_ms, 'forward_kernel_ms': fwd_ms,
+        'plain_fwd_bwd_ms': plain_ms, 'sdpa_fwd_bwd_ms': sdpa_ms,
+        'bound_ms': bms, 'bound_by': by, 'bound_bf16_ms': bms_bf16}
+    print(f'[attention bwd] B={b} L={l} H={h} D={d} bf16 packed mask_prev: '
+          f'backward (recompute) {bwd_ms:.4f} ms, kernel forward '
+          f'{fwd_ms:.4f} ms, plain forward+backward {plain_ms:.4f} ms, sdpa '
+          f'forward+backward {sdpa_ms:.4f} ms; bound {bms:.4f} ms ({by}, '
+          f'fp32 products), {bms_bf16:.4f} ms at the bf16 peak', flush=True)
+    return row
 
 
 def _set_attn_int8(on: bool):
@@ -1166,6 +1327,132 @@ def phase_tiny_artv():
           f'on the card, {cpu_steps} counted on the CPU)', flush=True)
     if n_diff or cpu_steps or steps != cpu.cfg.target_seq_len - 1:
         fail('tiny ART-V on the card disagrees with the CPU')
+
+
+def _spread_codebook(models, seed):
+    """One randn codebook (spread: the random-init one has near-ties) in
+    each model's vae."""
+    import torch
+    with torch.no_grad():
+        w = models[0].vae.model.quantize.embedding.weight
+        cb = torch.randn(w.shape, generator=torch.Generator().manual_seed(
+            seed))
+        for m in models:
+            m.vae.model.quantize.embedding.weight.copy_(cb)
+
+
+def _param_gap(a, b, dim, lr_sum):
+    """(max |a - b| over the parameters, the key biases' elements apart;
+    the key biases' max), ``_hold_params``' split."""
+    import torch
+    gap, key_gap = 0.0, 0.0
+    for (name, p), q in zip(a.items(), b.values()):
+        d = (p.detach().cpu() - q.detach().cpu()).abs()
+        if name.endswith('attn.in_proj_bias'):
+            key_gap = max(key_gap, d[dim:2 * dim].max().item())
+            d = torch.cat([d[:dim], d[2 * dim:]])
+        gap = max(gap, d.max().item())
+    return gap, key_gap
+
+
+def phase_tiny_train():
+    """The tiny fp32 training build takes 3 steps on the card (the
+    attention kernel's forward, the nearest-code kernel) and on the CPU
+    (the plain versions) from the same weights, batch and draws (drawn on
+    the CPU), TF32 off for matmuls and cuDNN convolutions: token ids
+    equal, losses within TRAIN_LOSS_TOL, parameters within
+    TRAIN_PARAM_TOL (the key biases within 3 x the summed lr); launch
+    counts a step exact.  Then ART-V's tiny build one step the same
+    way."""
+    import torch
+    from mmvid_tpu_torch import breakdown, factories, training
+    from mmvid_tpu_torch.models.masking import sample_msm_mask
+    from mmvid_tpu_torch.models.warp import warp_draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tc = training.TrainConfig(lr_scheduler='none', learning_rate=1e-3,
+                              rel_no_fully_masked=True, dropout_vc=0.0)
+    models = [factories.flagship_train(tiny=True, dtype=torch.float32,
+                                       device=dev, seed=5, remat=True)[0]
+              for dev in ('cpu', 'cuda')]
+    _spread_codebook(models, 5)
+    cfg = models[0].cfg
+    batch = breakdown.train_batch(models[0], 4, 'cpu')
+    g = torch.Generator().manual_seed(6)
+    draws = [{'keep': k, 'nfm': n,
+              'warp': warp_draws(g, 4, cfg.num_targets,
+                                 tc.vid_strategy_prob)}
+             for k, n in (sample_msm_mask(g, cfg, tc.msm_strategy_prob,
+                                          tc.msm_bernoulli_prob, batch=4)
+                          for _ in range(3))]
+    ids = [m.get_image_tokens(batch['target'].to(dev)).cpu()
+           for m, dev in zip(models, ('cpu', 'cuda'))]
+    n_diff = int((ids[0] != ids[1]).sum())
+    runs = []
+    reset_counts()
+    for model, dev in zip(models, ('cpu', 'cuda')):
+        state = training.create_train_state(model, tc)
+        step = training.make_train_step(model, tc)
+        to = (lambda t: t.to(dev)) if dev == 'cuda' else (lambda t: t)
+        mv = lambda d: {k: (to(v) if torch.is_tensor(v) else
+                            {kk: to(vv) for kk, vv in v.items()})
+                        for k, v in d.items()}
+        losses = []
+        for i in range(3):
+            state, m = step(state, {k: to(v) for k, v in batch.items()},
+                            None, draws=mv(draws[i]))
+            losses.append(m['loss'].item())
+        runs.append((state, losses))
+    counts = read_counts()
+    want = expected(attention=3 * 3 * cfg.clip.layers * 2, codebook=3 * 2)
+    loss_gap = max(abs(a - b) for a, b in zip(runs[0][1], runs[1][1]))
+    gap, key_gap = _param_gap(runs[0][0].params, runs[1][0].params,
+                              cfg.dim, 3 * tc.learning_rate)
+    print(f'[tiny train] flagship fp32, 3 steps card vs CPU: target ids '
+          f'differing {n_diff} of {ids[0].numel()}; losses {runs[1][1]} '
+          f'(CPU {runs[0][1]}), max gap {loss_gap:.3e} (tol '
+          f'{TRAIN_LOSS_TOL}); parameters max gap {gap:.3e} (tol '
+          f'{TRAIN_PARAM_TOL}), key biases {key_gap:.3e} (bound '
+          f'{9 * tc.learning_rate:.1e}); launches {counts} (expected '
+          f'{want})', flush=True)
+    if n_diff or not loss_gap <= TRAIN_LOSS_TOL:
+        fail('tiny training step on the card disagrees with the CPU')
+    if not (gap <= TRAIN_PARAM_TOL and key_gap <= 9 * tc.learning_rate):
+        fail('tiny training step: parameters on the card disagree with '
+             'the CPU')
+    if counts != want:
+        fail(f'tiny training launches {counts} != {want}')
+
+    models = [factories.artv_train(tiny=True, dtype=torch.float32,
+                                   device=dev, seed=5)[0]
+              for dev in ('cpu', 'cuda')]
+    _spread_codebook(models, 6)
+    tca = training.TrainConfig(beta_msm=1.0, lr_scheduler='none',
+                               learning_rate=1e-3, dropout_vc=0.0)
+    batch = breakdown.train_batch(models[0], 2, 'cpu')
+    out = []
+    reset_counts()
+    for model, dev in zip(models, ('cpu', 'cuda')):
+        state = training.create_train_state(model, tca)
+        state, m = training.make_train_step(model, tca)(
+            state, {k: v.to(dev) for k, v in batch.items()}, None)
+        out.append((state, m['loss'].item()))
+    counts = read_counts()
+    want = expected(attention=models[0].cfg.clip.layers, codebook=1)
+    gap, key_gap = _param_gap(out[0][0].params, out[1][0].params,
+                              models[0].cfg.dim, tca.learning_rate)
+    loss_gap = abs(out[0][1] - out[1][1])
+    print(f'[tiny train] ART-V fp32, 1 step card vs CPU: loss {out[1][1]} '
+          f'(CPU {out[0][1]}), gap {loss_gap:.3e}; parameters max gap '
+          f'{gap:.3e}, key biases {key_gap:.3e}; launches {counts} '
+          f'(expected {want})', flush=True)
+    if not (loss_gap <= TRAIN_LOSS_TOL and gap <= TRAIN_PARAM_TOL
+            and key_gap <= 3 * tca.learning_rate):
+        fail('tiny ART-V training step on the card disagrees with the CPU')
+    torch.backends.cudnn.allow_tf32 = True
+    if counts != want:
+        fail(f'tiny ART-V training launches {counts} != {want}')
 
 
 SPEC_KS = (1, 4, 8)
@@ -1908,6 +2195,93 @@ def phase_artv_int8():
             'warmup_s': warm}, counts
 
 
+def _train_report(tag, res):
+    print(f'[{tag}] batch {res["batch"]}: {res["ms"]:.2f} ms a step (mean '
+          f'of {res["steps"]} after a warm-up step of {res["warmup_s"]:.2f} '
+          f's), {res["videos_s"]:.2f} videos/s, {res["frames_s"]:.2f} '
+          f'frames/s, peak memory {res["peak_memory_bytes"]} B, device idle '
+          f'{res["idle_share"]:.4f}; losses {res["losses"]}; launches a '
+          f'step {res["launches_per_step"]}, attention backward calls a '
+          f'step {res["attention_backward_calls_per_step"]}', flush=True)
+    print(f'[{tag}] breakdown {json.dumps(res)}', flush=True)
+
+
+def _check_train(tag, path, res):
+    import math
+    if not all(math.isfinite(x) for x in res['losses'] + [res['grad_norm']]):
+        fail(f'{tag}: a loss or the gradient norm is not finite')
+    want = expected(**TRAIN_LAUNCHES[path])
+    if res['launches_per_step'] != want:
+        fail(f'{tag}: launches a step {res["launches_per_step"]} != {want}')
+    calls = res['attention_backward_calls_per_step']
+    if calls != TRAIN_BACKWARD_CALLS[path]:
+        fail(f'{tag}: attention backward calls a step {calls} != '
+             f'{TRAIN_BACKWARD_CALLS[path]}')
+
+
+def phase_train():
+    """The flagship's training step at full width (the text-to-video
+    recipe: BERT 768 x 12 x 12, sequence 565, the full VQGAN, beta 7 / 0.5
+    / 0.5, rel_no_fully_masked, bf16 compute on fp32 parameters, each
+    block rematerialised), batch 16, through ``breakdown.measure_train``:
+    every loss finite, the launches a step exact (TRAIN_LAUNCHES) and
+    attention's backward calls too (TRAIN_BACKWARD_CALLS), the
+    VQGAN unchanged; then FALL_STEPS steps on one fixed batch with fixed
+    draws at a constant lr: the loss falls.  Then one full-width ART-V
+    step the same way (B1 under the causal mask, no remat)."""
+    import torch
+    from mmvid_tpu_torch import breakdown, training
+    from mmvid_tpu_torch.models.masking import sample_msm_mask
+    from mmvid_tpu_torch.models.warp import warp_draws
+
+    t0 = time.perf_counter()
+    model = breakdown.build_train('train')
+    torch.cuda.synchronize()
+    print(f'[train] flagship training build in '
+          f'{time.perf_counter() - t0:.2f} s', flush=True)
+    vae = [p.detach().clone() for p in model.vae.parameters()]
+    res = breakdown.measure_train(model, 'train', breakdown.BATCH)
+    _train_report('train', res)
+    _check_train('train', 'train', res)
+
+    cfg = model.cfg
+    tc = breakdown.train_config('train', lr_scheduler='none')
+    state = training.create_train_state(model, tc)
+    step = training.make_train_step(model, tc)
+    data = breakdown.train_batch(model, breakdown.BATCH)
+    g = torch.Generator(device='cuda').manual_seed(11)
+    keep, nfm = sample_msm_mask(g, cfg, tc.msm_strategy_prob,
+                                tc.msm_bernoulli_prob, batch=breakdown.BATCH,
+                                device='cuda')
+    draws = {'keep': keep, 'nfm': nfm,
+             'warp': warp_draws(g, breakdown.BATCH, cfg.num_targets,
+                                tc.vid_strategy_prob, 'cuda')}
+    losses = []
+    for _ in range(FALL_STEPS):
+        state, m = step(state, data, None, draws=draws)
+        losses.append(m['loss'])
+    losses = [x.item() for x in losses]
+    print(f'[train] fixed batch and draws, lr {tc.learning_rate} constant, '
+          f'{FALL_STEPS} steps: losses {losses}', flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f'train: the loss did not fall on a fixed batch: {losses}')
+    same = all(torch.equal(a, b) for a, b in zip(vae, model.vae.parameters()))
+    print(f'[train] VQGAN unchanged: {same}', flush=True)
+    if not same:
+        fail('train: the frozen VQGAN changed')
+    del model, state, step, vae, data
+    torch.cuda.empty_cache()
+
+    model = breakdown.build_train('train_artv')
+    res_artv = breakdown.measure_train(model, 'train_artv', breakdown.BATCH,
+                                       steps=1)
+    _train_report('train artv', res_artv)
+    _check_train('train artv', 'train_artv', res_artv)
+    del model
+    torch.cuda.empty_cache()
+    return res, res_artv
+
+
 def timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1928,6 +2302,7 @@ def main():
     phase_device()
     timed(phase_build)
     attention, attention_fp32 = timed(phase_attention)
+    attention_bwd = timed(phase_attention_backward)
     attention_int8 = timed(phase_attention_int8)
     artv_decode, decode_by_pos = timed(phase_artv_decode)
     gridstep, probe = timed(phase_gridstep)
@@ -1945,12 +2320,14 @@ def main():
     timed(phase_tiny_reference)
     timed(phase_tiny_artv)
     timed(phase_tiny_artv_spec)
+    timed(phase_tiny_train)
     flagship = timed(phase_main_path)
     text_mask, fused = timed(phase_text_mask)
     artv, artv_per_layer = timed(phase_artv)
     artv_spec, _ = timed(phase_artv_spec)
     int8_serving = timed(phase_int8_serving)
     _, artv_int8_counts = timed(phase_artv_int8)
+    train, train_artv = timed(phase_train)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
                'attention_int8': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
@@ -1979,7 +2356,12 @@ def main():
                                       'artv_per_layer': artv_per_layer[name],
                                       'artv_spec': artv_spec[name],
                                       'int8_serving': int8_serving[name],
-                                      'artv_int8': artv_int8_counts[name]}}
+                                      'artv_int8': artv_int8_counts[name],
+                                      # a training step each
+                                      'train': train['launches_per_step'][
+                                          name],
+                                      'train_artv': train_artv[
+                                          'launches_per_step'][name]}}
         if name == 'attention':
             # the bf16 route (the main paths'), the tensor-core kernel,
             # on packed views; the fp32 route's CUDA-core kernel beside it
@@ -1991,6 +2373,17 @@ def main():
             entry['fp32_route'] = {
                 'source': 'mmvid_tpu_torch/csrc/attention.cu',
                 'L629': attention_fp32[629], 'L565': attention_fp32[565]}
+            # B1-bwd: JAX's XLA VJP of the kernel (no pallas_call), torch
+            # ops here; its calls in the profiled training steps
+            entry['backward'] = {
+                'route': 'torch ops (fp32 recompute)',
+                'source': 'mmvid_tpu_torch/ops/attention.py',
+                'replaces': 'mmvid_tpu/ops/attention.py:126',
+                'calls_per_step': {
+                    'train': train['attention_backward_calls_per_step'],
+                    'train_artv': train_artv[
+                        'attention_backward_calls_per_step']},
+                **attention_bwd}
         if name == 'attention_int8':
             # MMVID_ATTN_INT8=1; the int8-serving path's launches (two a
             # call: the operand pass and the attention); the body at

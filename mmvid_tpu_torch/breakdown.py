@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where one sampling batch of the port spends its time on the card.
+"""Where one sampling batch, or one training step, of the port spends its
+time on the card.
 
 Builds a full-width bf16 model from a seed, for the flagship text-to-video
 path (``factories.flagship``), the text+mask visual-control path
@@ -23,6 +24,18 @@ batch), mask-predict at 20 rounds and ``dynamic=False`` (the recipes'
 * whether the timed runs, all from one seed, gave the same tokens;
 * for ``artv_spec``, the chunk forwards a lane ran and the tokens a chunk.
 
+``--path train`` and ``--path train_artv`` time the training step instead
+(:func:`measure_train`, which ``bench_train.py`` and ``chip_smoke.py``
+call too): the flagship text-to-video recipe's step (MSM / REL / VID,
+beta 7 / 0.5 / 0.5, ``rel_no_fully_masked``; the frozen VQGAN tokenizing
+the 8 target frames and the warped frame inside it) or ART-V's, on the
+training build (fp32 parameters, bf16 compute, the flagship's blocks
+rematerialised), batch 16 of synthetic text ids and uniform frames from
+``np.random.RandomState(0)``: one warm-up step, then 5 timed steps on the
+host clock ending in a sync; peak device memory over them; one profiled
+step (device time by kind, idle share, the kernels' launches and
+attention's backward calls a step).
+
 ``chip_smoke.py`` builds its models and times its batches with
 :func:`build`, :func:`inputs` and :func:`measure`.  Usage (needs a CUDA
 device; prints one JSON line per path, with the paths taken: the fused
@@ -33,6 +46,8 @@ the card unless ``MMVID_ARTV_FUSED=0``), ``MMVID_ATTN_BF16``):
     MMVID_FUSED_LNQKV=1 python -m mmvid_tpu_torch.breakdown --path text_mask
     MMVID_ARTV_FUSED=0 python -m mmvid_tpu_torch.breakdown --path artv
     python -m mmvid_tpu_torch.breakdown --path artv_spec
+    python -m mmvid_tpu_torch.breakdown --path train train_artv
+    python -m mmvid_tpu_torch.breakdown --path train --batch 8
 
 ``--path artv_spec`` prints two lines: the floor (random weights accept
 almost no draft) and the ceiling under ``MMVID_ARTV_SPEC_FORCE=1`` (every
@@ -48,9 +63,10 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
-from mmvid_tpu_torch import factories
+from mmvid_tpu_torch import factories, training
 from mmvid_tpu_torch.models.artv import fused_decode
 from mmvid_tpu_torch.ops import artv_decode, attention, attention_int8
 from mmvid_tpu_torch.ops import codebook, fused_ln_qkv, gridstep, sample_head
@@ -214,16 +230,51 @@ def _measure(model, path, batch, steps, reps, warm):
     phases = {'control': ctrl * 1e3, 'sampler': (no_decode - ctrl) * 1e3,
               'decode': dec * 1e3}
 
+    prof = profile_run(batch_run)
+    launches = prof.pop('launches')
+    spec = {}
+    if path == 'artv_spec':
+        chunks = out[2].double().mean().item()
+        spec = {'spec_k': SPEC_K,
+                'spec_force': os.environ.get('MMVID_ARTV_SPEC_FORCE') == '1',
+                'chunks_per_lane': chunks, 'tokens_per_chunk': steps / chunks}
+    return {
+        'path': path, 'batch': batch, 'steps': steps,
+        'sequence': cfg.total_seq_len,
+        'fused_lnqkv': os.environ.get('MMVID_FUSED_LNQKV') == '1',
+        'artv_fused': path == 'artv' and fused_decode('cuda'),
+        **spec,
+        'attn_bf16_probs': attention.bf16_probs(),
+        'attn_int8': attention_int8.enabled(),
+        'int8_backbone': cfg.clip.int8_scales is not None,
+        's_per_batch': dt, 's_all': whole,
+        'frames_per_s': batch * cfg.num_targets / dt,
+        'peak_memory_bytes': peak, 'phases_ms': phases,
+        'launches': launches,
+        # the whole and the no-decode runs draw from one seed
+        'same_tokens_across_runs': bool(torch.equal(first[1], seq)),
+        **prof}
+
+
+def profile_run(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the port's kernels'
+    launches in it and attention's backward calls
+    (``FusedAttention.backward``), its device events, device time by
+    kind, the device's busy time and the call's host-side span (ms), and
+    the idle share (the part of the span covered by no device
+    activity)."""
     for mod in KERNELS.values():
         mod.launches = 0
+    attention.backward_calls = 0
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function('mmvid_batch'):
-            batch_run()
+            fn()
             torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in KERNELS.items()}
+    backward_calls = attention.backward_calls
     # the profiler's raw events (times in ns): prof.events() builds a
     # Python object tree of every host op first, which takes minutes for a
     # batch of half a million launches (the gate-off ART-V path)
@@ -247,37 +298,119 @@ def _measure(model, path, batch, steps, reps, warm):
     if cur_e is not None:
         busy += cur_e - cur_s
     span = window.duration_ns()
-    spec = {}
-    if path == 'artv_spec':
-        chunks = out[2].double().mean().item()
-        spec = {'spec_k': SPEC_K,
-                'spec_force': os.environ.get('MMVID_ARTV_SPEC_FORCE') == '1',
-                'chunks_per_lane': chunks, 'tokens_per_chunk': steps / chunks}
-    return {
-        'path': path, 'batch': batch, 'steps': steps,
-        'sequence': cfg.total_seq_len,
-        'fused_lnqkv': os.environ.get('MMVID_FUSED_LNQKV') == '1',
-        'artv_fused': path == 'artv' and fused_decode('cuda'),
-        **spec,
-        'attn_bf16_probs': attention.bf16_probs(),
-        'attn_int8': attention_int8.enabled(),
-        'int8_backbone': cfg.clip.int8_scales is not None,
-        's_per_batch': dt, 's_all': whole,
-        'frames_per_s': batch * cfg.num_targets / dt,
-        'peak_memory_bytes': peak, 'phases_ms': phases,
-        'launches': launches, 'device_events': len(dev),
-        # the whole and the no-decode runs draw from one seed
-        'same_tokens_across_runs': bool(torch.equal(first[1], seq)),
-        'device_ms_by_kind': {k: v / 1e6 for k, v in sorted(
-            by_kind.items(), key=lambda kv: -kv[1])},
-        'device_busy_ms': busy / 1e6, 'batch_span_ms': span / 1e6,
-        'idle_share': 1 - busy / span if span > 0 else None}
+    return {'launches': launches,
+            'attention_backward_calls': backward_calls,
+            'device_events': len(dev),
+            'device_ms_by_kind': {k: v / 1e6 for k, v in sorted(
+                by_kind.items(), key=lambda kv: -kv[1])},
+            'device_busy_ms': busy / 1e6, 'batch_span_ms': span / 1e6,
+            'idle_share': 1 - busy / span if span > 0 else None}
+
+
+TRAIN_STEPS = 5   # timed training steps, after one warm-up step
+
+
+def train_config(path: str, **changes) -> training.TrainConfig:
+    """The recipe's TrainConfig: the flagship text-to-video recipe
+    (scripts/mmvoxceleb/text_to_video/train.sh: beta 7 / 0.5 / 0.5,
+    ``--rel_no_fully_masked``; the rest as scripts/bench_train.py sets
+    it), or ART-V's (beta_msm 1, which AR mode forces)."""
+    if path == 'train_artv':
+        return training.TrainConfig(beta_msm=1.0, lr_scheduler_warmup=5000,
+                                    dropout_vc=0.1, **changes)
+    return training.TrainConfig(beta_msm=7.0, beta_rel=0.5, beta_vid=0.5,
+                                lr_scheduler_warmup=5000, dropout_vc=0.1,
+                                rel_no_fully_masked=True, **changes)
+
+
+def build_train(path: str, device='cuda'):
+    """The full-width training build on ``device``, weights from seed 0,
+    fp32 parameters computing in bf16: the flagship (each block
+    rematerialised) or ART-V."""
+    if path == 'train':
+        model, _ = factories.flagship_train(device=device, seed=0)
+    elif path == 'train_artv':
+        model, _ = factories.artv_train(device=device, seed=0)
+    else:
+        raise ValueError(f'unknown training path {path!r}')
+    return model
+
+
+def train_batch(model, batch: int, device='cuda') -> dict:
+    """scripts/bench_train.py's synthetic batch: text ids in [1, 49000)
+    (in [1, num_text_tokens) for a smaller vocabulary) and uniform frames
+    [B, T, H, W, 3], from ``np.random.RandomState(0)``."""
+    cfg = model.cfg
+    rng = np.random.RandomState(0)
+    text = rng.randint(1, min(49000, cfg.num_text_tokens),
+                       (batch, cfg.text_seq_len))
+    frames = rng.uniform(0, 1, (batch, cfg.num_targets, cfg.image_size,
+                                cfg.image_size, 3))
+    return {'text': torch.as_tensor(text, dtype=torch.long, device=device),
+            'target': torch.as_tensor(frames, dtype=torch.float32,
+                                      device=device)}
+
+
+def measure_train(model, path: str = 'train', batch: int = BATCH,
+                  steps: int = TRAIN_STEPS, profiled=True) -> dict:
+    """The training step's numbers (the module docstring), one JSON-ready
+    dict: ``ms`` a step (mean of ``steps`` after a warm-up step, host
+    clock, ending in a sync, as scripts/bench_train.py times JAX's),
+    ``videos_s``, ``frames_s``, the last step's ``loss`` and every timed
+    step's (``losses``); on the card also the peak memory over the timed
+    steps and, with ``profiled``, one more step under the profiler
+    (launches and attention's backward calls a step, device time by
+    kind, idle share), on the recipe's
+    config (:func:`train_config`)."""
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    cuda = dev.type == 'cuda'
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tc = train_config(path)
+    state = training.create_train_state(model, tc)
+    step = training.make_train_step(model, tc)
+    data = train_batch(model, batch, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def run():
+        nonlocal state
+        state, metrics = step(state, data, gen)
+        return metrics
+
+    t0 = time.perf_counter()
+    run()
+    sync()
+    warm = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = [run() for _ in range(steps)]
+    sync()
+    dt = (time.perf_counter() - t0) / steps
+    losses = [float(m['loss']) for m in metrics]
+    res = {'what': 'train_step', 'path': path, 'batch': batch,
+           'ms': dt * 1e3, 'videos_s': batch / dt,
+           'frames_s': batch * cfg.num_targets / dt, 'loss': losses[-1],
+           'losses': losses, 'grad_norm': float(metrics[-1]['grad_norm']),
+           'warmup_s': warm, 'steps': steps, 'sequence': cfg.total_seq_len,
+           'remat': cfg.clip.remat, 'device': str(dev),
+           'peak_memory_bytes': (torch.cuda.max_memory_allocated() if cuda
+                                 else None)}
+    if cuda and profiled:
+        prof = profile_run(run)
+        res['launches_per_step'] = prof.pop('launches')
+        res['attention_backward_calls_per_step'] = prof.pop(
+            'attention_backward_calls')
+        res.update(prof)
+    return res
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--path', nargs='+', default=['text_mask'],
-                   choices=['text_mask', 'flagship', 'artv', 'artv_spec'])
+                   choices=['text_mask', 'flagship', 'artv', 'artv_spec',
+                            'train', 'train_artv'])
+    p.add_argument('--batch', type=int, default=BATCH)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
@@ -285,13 +418,18 @@ def main(argv=None):
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
     for path in args.path:
+        if path.startswith('train'):
+            res = measure_train(build_train(path), path, args.batch)
+            res['card'] = card
+            print(json.dumps(res), flush=True)
+            continue
         model = build(path)
         # artv_spec: the floor, then the ceiling with every draft accepted
         for force in ((None, '1') if path == 'artv_spec' else (None,)):
             if force:
                 os.environ['MMVID_ARTV_SPEC_FORCE'] = force
             try:
-                res = measure(model, path)
+                res = measure(model, path, args.batch)
             finally:
                 os.environ.pop('MMVID_ARTV_SPEC_FORCE', None)
             res['card'] = card

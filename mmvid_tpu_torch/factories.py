@@ -4,7 +4,10 @@ from CLI args.
 Counterpart of ``__graft_entry__._flagship`` and of ``get_vae_model`` /
 ``get_dalle`` in ``mmvid_tpu/factories.py`` (mask-predict models with the
 cvae of the visual-control recipes, and ART-V with ``--ar``; the
-pretrained-CLIP graft and the fixed language model come later).  Every
+pretrained-CLIP graft and the fixed language model come later), and the
+training builds of the flagship and ART-V (:func:`flagship_train`,
+:func:`artv_train`: fp32 parameters, the compute dtype at use, each block
+rematerialised, as ``scripts/bench_train.py`` builds JAX's).  Every
 factory puts the model on ``device``, the card unless the caller asks for
 the CPU.
 """
@@ -51,14 +54,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def flagship(tiny: bool = False, dtype=torch.float32, device='cuda',
-             seed: int = 0, use_cvae: bool = False):
+             seed: int = 0, use_cvae: bool = False, param_dtype=None,
+             remat: bool = False):
     """Flagship text-to-video model (scripts/mmvoxceleb/text_to_video):
     768 x 12-layer backbone, 8 frames at 128 px -> 8x8 tokens each,
     text_seq_len 50; ``tiny`` is the JAX package's CPU test size.
     ``use_cvae`` adds one visual control frame tokenized by a cvae of the
     same VQGAN architecture (the text+mask recipe's layout).  Weights are
-    drawn from ``torch.Generator().manual_seed(seed)``.  Returns
-    (model, vae)."""
+    drawn from ``torch.Generator().manual_seed(seed)``; ``param_dtype``
+    (``dtype`` unless given) is the backbone's and heads' parameters'
+    dtype; ``remat`` checkpoints each backbone block under grad
+    (``ClipStackConfig.remat``).  Returns (model, vae)."""
     if tiny:
         vq_cfg = VQGanConfig(resolution=16, ch=32, ch_mult=(1, 2),
                              num_res_blocks=1, z_channels=64, embed_dim=64,
@@ -67,26 +73,28 @@ def flagship(tiny: bool = False, dtype=torch.float32, device='cuda',
         cfg = BertConfig(dim=64, num_text_tokens=100, text_seq_len=8,
                          num_visuals=0, num_targets=2, num_image_tokens=1024,
                          image_fmap_size=8, image_size=16,
-                         clip=ClipStackConfig(width=64, layers=2, heads=2))
+                         clip=ClipStackConfig(width=64, layers=2, heads=2,
+                                              remat=remat))
     else:
         vq_cfg, image_size = VQGanConfig(), 128
         cfg = BertConfig(dim=768, num_text_tokens=49408, text_seq_len=50,
                          num_visuals=0, num_targets=8, num_image_tokens=1024,
                          image_fmap_size=8, image_size=128,
                          clip=ClipStackConfig(width=768, layers=12,
-                                              heads=12))
+                                              heads=12, remat=remat))
     vae = VQGanVAE(image_size=image_size, cfg=vq_cfg, dtype=dtype)
     cvae = None
     if use_cvae:
         cfg = dataclasses.replace(cfg, num_visuals=1)
         cvae = VQGanVAE(image_size=image_size, cfg=vq_cfg, dtype=dtype)
-    model = MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype)
+    model = MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype,
+                      param_dtype=param_dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval(), model.vae
 
 
 def artv_tiny(dtype=torch.float32, device='cuda', seed: int = 0,
-              use_cvae: bool = False):
+              use_cvae: bool = False, param_dtype=None):
     """ART-V, the autoregressive baseline, at the JAX package's CPU test
     size (tests/test_artv.py: dim 64, 2 layers, 2 heads, 6 text positions
     of 50 tokens, one visual position block, 2 frames at 32 px).  The
@@ -103,9 +111,38 @@ def artv_tiny(dtype=torch.float32, device='cuda', seed: int = 0,
     vae = VQGanVAE(image_size=32, cfg=vq_cfg, dtype=dtype)
     cvae = (VQGanVAE(image_size=32, cfg=vq_cfg, dtype=dtype)
             if use_cvae else None)
-    model = ArtvModel(cfg, vae, cvae=cvae, dtype=dtype)
+    model = ArtvModel(cfg, vae, cvae=cvae, dtype=dtype,
+                      param_dtype=param_dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval(), model.vae
+
+
+def flagship_train(tiny: bool = False, dtype=torch.bfloat16,
+                   device='cuda', seed: int = 0, remat: bool = True):
+    """The flagship's training build: :func:`flagship`'s model with fp32
+    parameters, computing in ``dtype`` (the weights cast at use), each
+    block rematerialised with ``remat``; weights from ``seed`` (the same
+    values as the serving build's before its rounding).  Returns (model,
+    vae); train ``model.core``'s parameters, the VQGAN stays frozen."""
+    return flagship(tiny=tiny, dtype=dtype, device=device, seed=seed,
+                    param_dtype=torch.float32, remat=remat)
+
+
+def artv_train(tiny: bool = False, dtype=torch.bfloat16, device='cuda',
+               seed: int = 0):
+    """ART-V's training build: fp32 parameters computing in ``dtype``, no
+    remat (as JAX trains it); the full-width model of :func:`artv_args`
+    (the text-to-video flags with ``--ar``), or with ``tiny``
+    :func:`artv_tiny`'s.  Weights from ``seed``.  Returns (model, vae)."""
+    if tiny:
+        return artv_tiny(dtype=dtype, device=device, seed=seed,
+                         param_dtype=torch.float32)
+    args = artv_args()
+    vae = get_vae_model(args, dtype=dtype, device=device)
+    model = get_dalle(args, vae, dtype=dtype, device=device,
+                      param_dtype=torch.float32).eval()
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model, vae
 
 
 def build_clip_config(which_transformer: str) -> ClipStackConfig:
@@ -162,10 +199,12 @@ def get_vae_model(args, dtype=torch.float32, device='cuda') -> VQGanVAE:
 
 
 def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
-              dtype=torch.float32, device='cuda') -> MMVIDBert | ArtvModel:
+              dtype=torch.float32, device='cuda',
+              param_dtype=None) -> MMVIDBert | ArtvModel:
     """MMVIDBert from CLI args, or ArtvModel with ``args.ar``, with
     ``cvae`` tokenizing the visual controls when given (weights left to
-    the caller)."""
+    the caller; ``param_dtype``: the dense parameters', ``dtype``
+    unless given)."""
     clip_cfg = build_clip_config(args.which_transformer)
     if args.dim != clip_cfg.width:
         raise ValueError(f'--dim {args.dim} must match the '
@@ -179,7 +218,8 @@ def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
             image_fmap_size=vae.fmap_size, image_size=vae.image_size,
             loss_img_weight=getattr(args, 'loss_img_weight', 7),
             clip=clip_cfg)
-        return ArtvModel(cfg, vae, cvae=cvae, dtype=dtype).to(device)
+        return ArtvModel(cfg, vae, cvae=cvae, dtype=dtype,
+                         param_dtype=param_dtype).to(device)
     cfg = BertConfig(
         dim=args.dim, num_text_tokens=49408, text_seq_len=args.text_seq_len,
         num_visuals=args.num_visuals, num_targets=args.num_targets,
@@ -188,4 +228,5 @@ def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
         use_separate_visual_emb=args.use_separate_visual_emb,
         fixed_language_model=args.fixed_language_model,
         text_emb_bottleneck=args.text_emb_bottleneck, clip=clip_cfg)
-    return MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype).to(device)
+    return MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype,
+                     param_dtype=param_dtype).to(device)

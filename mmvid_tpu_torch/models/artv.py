@@ -1,9 +1,10 @@
 """ART-V, the autoregressive baseline, in PyTorch, with its KV-cached
 sampler.
 
-Counterpart of ``mmvid_tpu/models/artv.py`` (the sampling surface: config,
-embeddings, the causal training forward, ``logits_block_mask``,
-``ar_sample`` and the ``ArtvModel`` wrapper).
+Counterpart of ``mmvid_tpu/models/artv.py``: config, embeddings, the
+causal training forward, ``logits_block_mask``, the training loss
+(``artv_loss``: the weighted segment cross-entropy), ``ar_sample`` and the
+``ArtvModel`` wrapper.
 
 Sequence: <bos>+text (text_seq_len+1) | visual (num_visuals*n) | target
 (num_targets*n) under a causal mask, with disjoint vocabulary ranges (text
@@ -48,6 +49,7 @@ of integer-valued tensors (exact: D * 127^2 and W * 127^2 stay below
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -65,6 +67,7 @@ from mmvid_tpu_torch.models.clip import (
     TransformerStack,
     attention_mask,
     layer_norm_fp32,
+    linear,
 )
 from mmvid_tpu_torch.models.vqgan import VQGanVAE
 from mmvid_tpu_torch.ops import int8 as int8_ops
@@ -131,11 +134,15 @@ class ArtvConfig:
 
 
 class ArtvCore(nn.Module):
-    """All learned parameters of ART-V plus the causal training forward."""
+    """All learned parameters of ART-V plus the causal training forward.
+    ``dtype`` is the compute dtype, ``param_dtype`` the dense layers'
+    parameters' (``dtype`` unless given)."""
 
-    def __init__(self, cfg: ArtvConfig, dtype=torch.float32):
+    def __init__(self, cfg: ArtvConfig, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
+        param_dtype = param_dtype or dtype
         d, f = cfg.dim, cfg.image_fmap_size
         self.text_emb = nn.Embedding(cfg.effective_num_text_tokens, d)
         self.image_emb = nn.Embedding(cfg.num_image_tokens, d)
@@ -149,10 +156,11 @@ class ArtvCore(nn.Module):
         self.special_emb = nn.Embedding(4, d)
         self.estimation_pos_emb = nn.Embedding(2, d)
         self.transformer = nn.ModuleDict(
-            {'transformer': TransformerStack(cfg.clip, dtype=dtype)})
+            {'transformer': TransformerStack(cfg.clip, dtype=dtype,
+                                             param_dtype=param_dtype)})
         self.to_logits = nn.Sequential(
             nn.LayerNorm(d, eps=1e-5),
-            nn.Linear(d, cfg.total_tokens, dtype=dtype))
+            nn.Linear(d, cfg.total_tokens, dtype=param_dtype))
 
     def control_tokens_embedding(self, text, visual_tokens=None):
         """<bos>+text+visual embeddings [B, 1+text+visual, D] fp32.  text
@@ -185,7 +193,8 @@ class ArtvCore(nn.Module):
         """to_logits: fp32 LayerNorm, then the head in the compute dtype,
         fp32 out."""
         head = self.to_logits
-        return head[1](layer_norm_fp32(head[0], h, self.dtype)).float()
+        return linear(head[1], layer_norm_fp32(head[0], h, self.dtype)
+                      ).float()
 
     def forward(self, text, visual_tokens, image_tokens):
         """Training forward -> logits [B, total_seq_len, total_tokens]
@@ -212,6 +221,48 @@ def logits_block_mask(cfg: ArtvConfig) -> np.ndarray:
     m[t:t + v, cfg.effective_num_text_tokens:cfg.num_control_tokens] = False
     m[t + v:, cfg.num_control_tokens:] = False
     return m
+
+
+@functools.lru_cache(maxsize=8)
+def _block_mask(cfg: ArtvConfig, device) -> torch.Tensor:
+    """:func:`logits_block_mask` on ``device``, made once (it is [626,
+    51570] at full width)."""
+    return torch.as_tensor(logits_block_mask(cfg), device=device)
+
+
+def artv_loss(core: ArtvCore, text, visual_tokens, image_tokens):
+    """(loss, 0, 0): the weighted segment cross-entropy of the causal
+    forward, text + loss_vis_weight * visual + loss_img_weight * image
+    over their sum, each segment's logits restricted to its vocabulary
+    range (:func:`logits_block_mask`).  text [B, text_seq_len] raw ids
+    (0 = padding), visual_tokens [B, visual_seq_len] (-1 = absent),
+    image_tokens [B, target_seq_len]."""
+    cfg = core.cfg
+    dev = text.device
+    logits = core(text, visual_tokens, image_tokens)
+    logits = logits.masked_fill(_block_mask(cfg, dev)[None], float('-inf'))
+    # labels: text (without <bos>) | visual + text offset | image + the
+    # control offset, padding and absent ids remapped as the embeddings do
+    text_range = (torch.arange(cfg.text_seq_len, device=dev)
+                  + (cfg.effective_num_text_tokens - cfg.text_seq_len))
+    labels = [torch.where(text == 0, text_range[None], text)]
+    if cfg.num_visuals > 0:
+        visual_range = (torch.arange(cfg.visual_seq_len, device=dev)
+                        + (cfg.num_visual_tokens - cfg.visual_seq_len))
+        labels.append(torch.where(visual_tokens == -1, visual_range[None],
+                                  visual_tokens)
+                      + cfg.effective_num_text_tokens)
+    labels.append(image_tokens + cfg.num_control_tokens)
+    labels = torch.cat(labels, dim=1)
+    nll = -torch.log_softmax(logits, dim=-1).gather(
+        -1, labels[..., None])[..., 0]
+    t, c = cfg.text_seq_len, cfg.control_seq_len
+    zero = torch.zeros((), device=dev)
+    loss_vis = nll[:, t:c].mean() if cfg.num_visuals > 0 else zero
+    loss = (nll[:, :t].mean() + cfg.loss_vis_weight * loss_vis
+            + cfg.loss_img_weight * nll[:, c:].mean()) / (
+                cfg.loss_img_weight + cfg.loss_vis_weight + 1.0)
+    return loss, zero, zero
 
 
 # ---------------------------------------------------------------------------
@@ -552,9 +603,10 @@ class ArtvModel(nn.Module):
     optional_keys = ('special_emb.weight', 'estimation_pos_emb.weight')
 
     def __init__(self, cfg: ArtvConfig, vae: VQGanVAE,
-                 cvae: VQGanVAE | None = None, dtype=torch.float32):
+                 cvae: VQGanVAE | None = None, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
-        core = ArtvCore(cfg, dtype=dtype)
+        core = ArtvCore(cfg, dtype=dtype, param_dtype=param_dtype)
         for name, child in core.named_children():
             self.add_module(name, child)
         object.__setattr__(self, 'core', core)  # not a second registration
@@ -587,6 +639,17 @@ class ArtvModel(nn.Module):
             return visual
         return torch.full((batch, self.cfg.visual_seq_len), -1,
                           dtype=torch.long, device=device)
+
+    def loss(self, generator, *, text, visual=None, target=None, **unused):
+        """(loss, 0, 0), :func:`artv_loss` on the tokenized control and
+        targets (frames through the frozen VQGANs, or ids); the step's
+        beta_msm scales it (1 in AR mode, as JAX's config forces).  The
+        mask-predict keywords and ``generator`` are taken and unused."""
+        b = text.shape[0]
+        visual_tokens = self.visual_tokens(visual, b, text.device)
+        if target.dim() >= 4:
+            target = self.get_image_tokens(target)
+        return artv_loss(self.core, text, visual_tokens, target)
 
     @torch.no_grad()
     def prefill(self, text, visual=None):

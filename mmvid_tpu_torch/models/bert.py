@@ -1,7 +1,8 @@
 """BERT-style non-autoregressive multimodal video transformer in PyTorch.
 
-Counterpart of ``mmvid_tpu/models/bert.py`` (the sampling surface: config,
-embeddings, transformer forward and heads; losses come with training).
+Counterpart of ``mmvid_tpu/models/bert.py``: config, embeddings,
+transformer forward and heads, and the training losses (``bert_losses``:
+MSM cross-entropy, REL and VID binary cross-entropies).
 
 Sequence layout:
   [REL](1) | text(text_seq_len) | visual(num_visuals*n (+SEP)) |
@@ -36,6 +37,7 @@ from mmvid_tpu_torch.models.clip import (
     TransformerStack,
     attention_mask,
     layer_norm_fp32,
+    linear,
 )
 from mmvid_tpu_torch.ops import int8
 
@@ -131,15 +133,19 @@ def _head(dim: int, out: int, dtype) -> nn.Sequential:
 
 
 class BertCore(nn.Module):
-    """All learned parameters of the BERT plus its forward passes."""
+    """All learned parameters of the BERT plus its forward passes.
+    ``dtype`` is the compute dtype, ``param_dtype`` the dense layers'
+    parameters' (``dtype`` unless given; embeddings and norms are fp32)."""
 
-    def __init__(self, cfg: BertConfig, dtype=torch.float32):
+    def __init__(self, cfg: BertConfig, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         if cfg.fixed_language_model is not None:
             raise NotImplementedError(
                 'fixed_language_model text features are not ported yet '
-                '(ROADMAP.md queue A, item 12)')
+                '(ROADMAP.md queue A, item 9)')
         self.cfg, self.dtype = cfg, dtype
+        param_dtype = param_dtype or dtype
         d = cfg.dim
         self.text_emb = nn.Embedding(cfg.effective_num_text_tokens, d)
         self.text_pos_emb = nn.Embedding(cfg.effective_text_seq_len, d)
@@ -157,16 +163,19 @@ class BertCore(nn.Module):
         # the reference nests the resblock stack one level deeper
         # (OpenAICLIPTransformer.transformer), hence transformer.transformer
         self.transformer = nn.ModuleDict(
-            {'transformer': TransformerStack(cfg.clip, dtype=dtype)})
-        self.to_logits = _head(d, cfg.num_image_tokens, dtype)
-        self.to_logits_rel = _head(d, 1, dtype)
-        self.to_logits_vid = _head(d, 1, dtype)
+            {'transformer': TransformerStack(cfg.clip, dtype=dtype,
+                                             param_dtype=param_dtype)})
+        self.to_logits = _head(d, cfg.num_image_tokens, param_dtype)
+        self.to_logits_rel = _head(d, 1, param_dtype)
+        self.to_logits_vid = _head(d, 1, param_dtype)
 
-    def control_embedding(self, text, visual_tokens=None):
+    def control_embedding(self, text, visual_tokens=None, drop_visual=False):
         """[REL] | text | visual | [ST1][VID] -> [B, control_seq_len, D]
         fp32.  text: [B, text_seq_len] int tokens, padding id 0 remapped to
         a unique id per position; visual_tokens: [B, visual_seq_len] int
-        tokens when cfg.num_visuals > 0."""
+        tokens when cfg.num_visuals > 0.  ``drop_visual``: negvc's negative
+        control, [REL] | text | [ST1][VID] with no visual segment (shorter
+        than control_seq_len when cfg.num_visuals > 0)."""
         cfg = self.cfg
         b, dev = text.shape[0], text.device
         before_tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
@@ -178,7 +187,7 @@ class BertCore(nn.Module):
         text = torch.where(text == 0, text_range[None, :], text)
         parts.append(self.text_emb(text) + self.text_pos_emb(pos)[None])
 
-        if cfg.num_visuals > 0:
+        if cfg.num_visuals > 0 and not drop_visual:
             if visual_tokens is None:
                 raise ValueError('num_visuals > 0 needs visual_tokens')
             emb = (self.visual_emb if cfg.use_separate_visual_emb
@@ -218,7 +227,8 @@ class BertCore(nn.Module):
         return out
 
     def _apply_head(self, head: nn.Sequential, h):
-        return head[1](layer_norm_fp32(head[0], h, self.dtype)).float()
+        return linear(head[1], layer_norm_fp32(head[0], h, self.dtype)
+                      ).float()
 
     def to_logits_msm(self, h):
         return self._apply_head(self.to_logits, h)
@@ -248,7 +258,111 @@ class BertCore(nn.Module):
         rel, vid = self.to_logits_rel_vid(out)
         return out[:, self.cfg.control_seq_len:], rel, vid
 
+    def forward_rel_logit(self, control_emb, target_emb):
+        """The REL logit [B] alone: negvc's negative forward, whose control
+        may be shorter than control_seq_len (the mask sliced [:L, :L])."""
+        out = self._forward_tokens(control_emb, target_emb)
+        return self._apply_head(self.to_logits_rel,
+                                out[:, self.cfg.rel_tok_index])[..., 0]
+
     def forward(self, text, visual_tokens, target_tokens):
         control = self.control_embedding(text, visual_tokens)
         return self.forward_full(control,
                                  self.target_embedding(target_tokens))
+
+
+# ---------------------------------------------------------------------------
+# Losses (all random inputs drawn by the caller: models/masking.py and
+# models/warp.py)
+# ---------------------------------------------------------------------------
+
+def cross_entropy_masked(logits, labels, keep_gt_mask):
+    """MSM loss: the mean CE over the positions whose ground truth was
+    replaced by [MASK] (keep_gt_mask False)."""
+    nll = -torch.log_softmax(logits, dim=-1).gather(
+        -1, labels[..., None])[..., 0]
+    w = (~keep_gt_mask.bool()).float()
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def bce_logits_none(logit, label):
+    """Binary cross-entropy with logits, per element."""
+    return (logit.clamp_min(0) - logit * label
+            + torch.log1p(torch.exp(-logit.abs())))
+
+
+def bce_logits(logit, label):
+    """Binary cross-entropy with logits, mean reduction."""
+    return bce_logits_none(logit, label).mean()
+
+
+def swap_halves(x):
+    """REL's negative control: the batch's two halves swapped (an odd batch
+    rolls by one)."""
+    b = x.shape[0]
+    if b % 2 == 0:
+        return torch.cat([x[b // 2:], x[:b // 2]], dim=0)
+    return torch.roll(x, 1, dims=0)
+
+
+def bert_losses(core: BertCore, *, text, visual_tokens, target_tokens,
+                target_tokens_warp=None, keep_gt_mask=None,
+                not_fully_masked=None, rel=False, vid=False,
+                rel_no_fully_masked=False, control_neg=None):
+    """(loss_msm, loss_rel, loss_vid), the JAX package's ``bert_losses``.
+
+    keep_gt_mask [B, target_seq_len] bool: True keeps the ground-truth
+    token visible.  target_tokens_warp: the VID negatives, tokenized.
+    control_neg: text_neg ids for negvc, whose negative control is
+    [REL] | text_neg | [ST1][VID] with the visual segment dropped.
+    ``rel_no_fully_masked``: REL and VID weighted by not_fully_masked [B]
+    (the samples whose MSM strategy kept some ground truth)."""
+    cfg = core.cfg
+    control_emb = core.control_embedding(text, visual_tokens)
+    masked_target = torch.where(keep_gt_mask, target_tokens,
+                                cfg.mask_token)
+    target_emb = core.target_embedding(masked_target)
+    logits_msm, logit_rel_pos, logit_vid_pos, _ = core.forward_full(
+        control_emb, target_emb)
+    loss_msm = cross_entropy_masked(logits_msm, target_tokens, keep_gt_mask)
+
+    b, dev = text.shape[0], logits_msm.device
+    ones = torch.ones((b,), device=dev)
+    zeros = torch.zeros((b,), device=dev)
+    zero = torch.zeros((), device=dev)
+    if rel:
+        if control_neg is not None:
+            control_neg_emb = core.control_embedding(control_neg, None,
+                                                     drop_visual=True)
+        else:
+            control_neg_emb = swap_halves(control_emb)
+        logit_rel_neg = core.forward_rel_logit(control_neg_emb, target_emb)
+        if rel_no_fully_masked:
+            nfm = not_fully_masked.float()
+            loss_rel = (((bce_logits_none(logit_rel_pos, ones)
+                          + bce_logits_none(logit_rel_neg, zeros)) * nfm
+                         ).sum() / nfm.sum().clamp_min(1.0))
+        else:
+            loss_rel = (bce_logits(logit_rel_pos, ones)
+                        + bce_logits(logit_rel_neg, zeros))
+    else:
+        loss_rel = zero
+
+    if vid and cfg.num_targets > 1 and target_tokens_warp is not None:
+        warp_masked = torch.where(keep_gt_mask, target_tokens_warp,
+                                  cfg.mask_token)
+        _, _, logit_vid_neg, _ = core.forward_full(
+            control_emb, core.target_embedding(warp_masked))
+        if rel_no_fully_masked:
+            # as in the JAX package: the sums over the whole batch, each
+            # divided by the count of not-fully-masked samples
+            nfm_sum = not_fully_masked.float().sum().clamp_min(1.0)
+            loss_vid = (bce_logits_none(logit_vid_pos, ones).sum() / nfm_sum
+                        + bce_logits_none(logit_vid_neg, zeros).sum()
+                        / nfm_sum)
+        else:
+            loss_vid = (bce_logits(logit_vid_pos, ones)
+                        + bce_logits(logit_vid_neg, zeros))
+    else:
+        loss_vid = zero
+    return loss_msm, loss_rel, loss_vid

@@ -23,6 +23,16 @@ quantizations).  The same four sites record their inputs inside
 ``ops.int8.recording()``, under ``blocks_{i}/attn/qkv_in`` ...  Both
 bypass the fused LN+QKV gate, as in the JAX package; a quantized stack
 refuses to run with grad enabled (rounding has no gradient).
+
+Parameter and compute dtypes: the modules make their parameters in
+``param_dtype`` (the compute dtype unless given) and cast each weight to
+the compute dtype where it is used, so a training build holds fp32
+parameters and computes in bf16, as flax's ``nn.Dense(dtype=bf16)`` with
+its default fp32 ``param_dtype`` does; a serving build (both dtypes the
+same) casts nothing.  ``ClipStackConfig.remat`` checkpoints each block
+under grad (``torch.utils.checkpoint``, non-reentrant), JAX's
+``nn.remat``: the block's forward, the attention kernel included, runs
+again in the backward.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmvid_tpu_torch.ops import int8
 from mmvid_tpu_torch.ops.attention import (
@@ -53,6 +64,7 @@ class ClipStackConfig:
     width: int = 768
     layers: int = 12
     heads: int = 12
+    remat: bool = False       # checkpoint each block (training memory)
     # w8a8 serving: per layer (qkv_in, out_in, fc_in, proj_in) activation
     # scales from ops.int8 calibration; None = the unquantized path
     int8_scales: Optional[tuple] = None
@@ -120,6 +132,8 @@ class QuickGELU(nn.Module):
 
 class Mlp(nn.Module):
     def __init__(self, width: int, dtype=torch.float32):
+        """``dtype``: the parameters' dtype; the compute dtype is the
+        input's."""
         super().__init__()
         self.c_fc = nn.Linear(width, 4 * width, dtype=dtype)
         self.gelu = QuickGELU()
@@ -143,9 +157,27 @@ class Mlp(nn.Module):
                        self.w8.get('c_proj'))
 
 
+def linear(layer: nn.Linear, x):
+    """``layer(x)`` with the weight and bias cast to x's dtype (the compute
+    dtype) at use; no cast where the parameters are in it already."""
+    return _dense(x, layer.weight, layer.bias)
+
+
+def _dense(x, w, b):
+    return F.linear(x, *_cast(x.dtype, w, b))
+
+
+def _cast(dtype, w, b):
+    """(w, b) in ``dtype``; a serving build's are in it already (the
+    check is cheaper on the host than a no-op cast)."""
+    if w.dtype == dtype:
+        return w, b
+    return w.to(dtype), b.to(dtype)
+
+
 def _linear(layer: nn.Linear, x, a_scale, w8=None):
     if a_scale is None:
-        return layer(x)
+        return linear(layer, x)
     return int8.quantized_dense(x, layer.weight, layer.bias, a_scale, w8)
 
 
@@ -154,6 +186,8 @@ class MultiHeadAttention(nn.Module):
     layout: one packed ``in_proj_weight`` [3D, D] and ``out_proj``."""
 
     def __init__(self, width: int, heads: int, dtype=torch.float32):
+        """``dtype``: the parameters' dtype; the compute dtype is the
+        input's."""
         super().__init__()
         self.width, self.heads = width, heads
         self.in_proj_weight = nn.Parameter(
@@ -172,7 +206,7 @@ class MultiHeadAttention(nn.Module):
         """``scales``: (qkv_in, out_in) for the int8 path, else None."""
         int8.record(f'{site}/attn/qkv_in', x)
         if scales is None:
-            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+            qkv = _dense(x, self.in_proj_weight, self.in_proj_bias)
         else:
             qkv = int8.quantized_dense(x, self.in_proj_weight,
                                        self.in_proj_bias, scales[0],
@@ -198,12 +232,14 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, dtype=torch.float32):
+    def __init__(self, width: int, heads: int, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         self.dtype = dtype
-        self.attn = MultiHeadAttention(width, heads, dtype=dtype)
+        param_dtype = param_dtype or dtype
+        self.attn = MultiHeadAttention(width, heads, dtype=param_dtype)
         self.ln_1 = nn.LayerNorm(width, eps=1e-5)
-        self.mlp = Mlp(width, dtype=dtype)
+        self.mlp = Mlp(width, dtype=param_dtype)
         self.ln_2 = nn.LayerNorm(width, eps=1e-5)
 
     def forward(self, x, mask=None, scales=None, site=''):
@@ -216,8 +252,8 @@ class ResidualAttentionBlock(nn.Module):
             # gate, mmvid_tpu/models/clip.py ResidualAttentionBlock; the
             # int8 path and calibration go through the separate sites)
             qkv = fused_ln_qkv(x, self.ln_1.weight, self.ln_1.bias,
-                               self.attn.in_proj_weight,
-                               self.attn.in_proj_bias)
+                               *_cast(self.dtype, self.attn.in_proj_weight,
+                                      self.attn.in_proj_bias))
             x = x + self.attn.attend(qkv, mask)
         else:
             x = x + self.attn(layer_norm_fp32(self.ln_1, x, self.dtype),
@@ -232,20 +268,32 @@ class TransformerStack(nn.Module):
     additive [L, L] mask (a tensor, or an ``AttentionMask`` with its
     compact form)."""
 
-    def __init__(self, cfg: ClipStackConfig, dtype=torch.float32):
+    def __init__(self, cfg: ClipStackConfig, dtype=torch.float32,
+                 param_dtype=None):
+        """``dtype``: the compute dtype; ``param_dtype``: the parameters'
+        (``dtype`` unless given)."""
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(cfg.width, cfg.heads, dtype=dtype)
+            ResidualAttentionBlock(cfg.width, cfg.heads, dtype=dtype,
+                                   param_dtype=param_dtype)
             for _ in range(cfg.layers))
 
     def forward(self, x, mask=None):
         i8 = self.cfg.int8_scales
+        if i8 is not None and self.cfg.remat:
+            raise RuntimeError(
+                'the int8 path is serving-only (rounding has no gradient): '
+                'disable remat or int8_scales')
         if i8 is not None and torch.is_grad_enabled():
             raise RuntimeError(
                 'the int8 path is serving-only (rounding has no gradient): '
                 'run the quantized stack under torch.no_grad()')
+        remat = self.cfg.remat and torch.is_grad_enabled()
         x = x.to(self.dtype)
         for i, block in enumerate(self.resblocks):
-            x = block(x, mask, i8[i] if i8 else None, f'blocks_{i}')
+            if remat:
+                x = checkpoint(block, x, mask, use_reentrant=False)
+            else:
+                x = block(x, mask, i8[i] if i8 else None, f'blocks_{i}')
         return x.float()

@@ -1,8 +1,7 @@
-"""Visual-control token erasers in PyTorch.
+"""Visual-control token erasers and the MSM training masks in PyTorch.
 
-Counterpart of ``mmvid_tpu/models/masking.py`` (the sampling side:
-``random_erase_codebook`` and ``erase_codebook_face``; the training masks
-of ``sample_msm_mask`` come with training).  Random draws come from an
+Counterpart of ``mmvid_tpu/models/masking.py``: ``random_erase_codebook``
+and ``erase_codebook_face`` (sampling), ``sample_msm_mask`` (training).  Random draws come from an
 explicit ``torch.Generator`` on the tokens' device; they are tensor ops
 throughout, so nothing is read back to the host.  The JAX package draws
 from its own PRNG, so the random modes agree with it in distribution, the
@@ -118,3 +117,42 @@ def erase_codebook_face(generator, visual_tokens, cfg, vc_mode: str,
     else:
         raise NotImplementedError(vc_mode)
     return out.reshape(b, -1)
+
+
+def sample_msm_mask(generator, cfg, msm_strategy_prob,
+                    msm_bernoulli_prob=(0.2, 0.5), pc_prob: float = 0.0,
+                    batch: int = 1, device=None):
+    """Per-sample keep masks of the MSM loss: (keep [B, target_seq_len]
+    bool, True keeps the ground-truth token visible, False replaces it by
+    [MASK]; not_fully_masked [B] fp32).  Each sample draws one of four
+    strategies with ``msm_strategy_prob``: keep each token with p ~
+    U(msm_bernoulli_prob); mask everything (not_fully_masked 0); keep
+    outside one random box shared by the frames (scale (0.2, 0.8), ratio
+    (0.5, 2)); keep only inside it.  With ``pc_prob`` > 0, a sample keeps
+    in addition, with that probability, 1 to max(T // 2, 1) whole random
+    frames (preservation control)."""
+    t, h = cfg.num_targets, cfg.image_fmap_size
+    n = cfg.target_seq_len
+    probs = torch.as_tensor(msm_strategy_prob, dtype=torch.float32,
+                            device=device)
+    strategy = torch.multinomial(probs.expand(batch, -1), 1,
+                                 generator=generator)[:, 0]
+    p_keep = _uniform((batch, 1), generator, device, *msm_bernoulli_prob)
+    m1 = _uniform((batch, n), generator, device) < p_keep
+    box = _random_box_mask(generator, batch, t, h, h, scale=(0.2, 0.8),
+                           ratio=(0.5, 2.0), device=device).reshape(batch, n)
+    s = strategy[:, None]
+    # strategy 1 (mask everything) keeps nothing
+    keep = torch.where(s == 0, m1, (s == 2) & ~box | (s == 3) & box)
+    nfm = (strategy != 1).float()
+    if pc_prob > 0:
+        use_pc = _uniform((batch,), generator, device) < pc_prob
+        t_overlap = 1 + (_uniform((batch,), generator, device)
+                         * max(t // 2, 1)).long().clamp_max(
+                             max(t // 2, 1) - 1)
+        # a random permutation's first t_overlap frames
+        rank = _uniform((batch, t), generator, device).argsort(-1).argsort(-1)
+        frame_keep = (rank < t_overlap[:, None]).repeat_interleave(
+            cfg.image_seq_len, dim=1)
+        keep = torch.where(use_pc[:, None], keep | frame_keep, keep)
+    return keep, nfm

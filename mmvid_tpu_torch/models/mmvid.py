@@ -1,23 +1,26 @@
 """Top-level MMVID model in PyTorch: BertCore + the VQGAN tokenizers (vae
-for the targets, an optional cvae for visual controls), with batched
-mask-predict generation.
+for the targets, an optional cvae for visual controls), with the training
+loss and batched mask-predict generation.
 
-Counterpart of ``mmvid_tpu/models/mmvid.py`` (the generation surface:
-tokenization, the visual-control pipeline, ``generate_images``).  PyTorch
-runs eagerly, so there is no trace cache.
+Counterpart of ``mmvid_tpu/models/mmvid.py``: tokenization, the
+visual-control pipeline, ``loss`` (MSM / REL / VID, with the frozen VQGANs
+tokenizing targets and VID negatives inside it) and ``generate_images``.
+PyTorch runs eagerly, so there is no trace cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 from torch import nn
 
-from mmvid_tpu_torch.models.bert import BertConfig, BertCore
+from mmvid_tpu_torch.models.bert import BertConfig, BertCore, bert_losses
 from mmvid_tpu_torch.models.masking import (
     erase_codebook_face,
     random_erase_codebook,
+    sample_msm_mask,
 )
 from mmvid_tpu_torch.models.sampler import (
     arrange_preserve_tokens,
@@ -26,6 +29,12 @@ from mmvid_tpu_torch.models.sampler import (
     preserve_layout,
 )
 from mmvid_tpu_torch.models.vqgan import VQGanVAE
+from mmvid_tpu_torch.models.warp import (
+    apply_warp_token_plan,
+    warp,
+    warp_token_plan,
+    warp_video_with_color,
+)
 
 DEFAULT_MP_CONFIG = {
     'T1_n': 10, 'T2_n': 10, 'T3_n': 30, 'N1_n': 0.9, 'N2_n': 0.1,
@@ -45,14 +54,18 @@ class MMVIDBert(nn.Module):
     objects, so ``core`` sees every load and device move), which makes
     ``state_dict()`` the reference ``dalle.pt`` ``weights`` payload:
     ``transformer.*``, ``to_logits.*``, ``image_emb.weight`` ...,
-    ``vae.model.*``, ``cvae.model.*``."""
+    ``vae.model.*``, ``cvae.model.*``.  The trainable parameters are
+    ``core``'s; the VQGANs stay frozen.  ``dtype`` is the compute dtype,
+    ``param_dtype`` the core's dense parameters' (``dtype`` unless given:
+    a training build holds fp32 parameters and computes in bf16)."""
 
     def __init__(self, cfg: BertConfig, vae: VQGanVAE,
-                 cvae: VQGanVAE | None = None, dtype=torch.float32):
+                 cvae: VQGanVAE | None = None, dtype=torch.float32,
+                 param_dtype=None):
         super().__init__()
         if cvae is not None:
             cfg = dataclasses.replace(cfg, use_separate_visual_emb=True)
-        core = BertCore(cfg, dtype=dtype)
+        core = BertCore(cfg, dtype=dtype, param_dtype=param_dtype)
         for name, child in core.named_children():
             self.add_module(name, child)
         object.__setattr__(self, 'core', core)  # not a second registration
@@ -106,9 +119,13 @@ class MMVIDBert(nn.Module):
             return None
         if visual.dim() >= 4 and visual.is_floating_point():
             if visual_aug_mode == 'motion_color':
-                raise NotImplementedError(
-                    "visual_aug_mode='motion_color' needs models/warp.py, "
-                    'not ported yet (ROADMAP.md queue A, item 6b)')
+                # with p 0.9, one color shift a sample over the frames
+                # after the first
+                do = torch.rand((), generator=generator,
+                                device=visual.device) < 0.9
+                shifted = torch.cat([visual[:, :1], warp_video_with_color(
+                    generator, visual[:, 1:])], dim=1)
+                visual = torch.where(do, shifted, visual)
             tokens = self.get_image_tokens(visual, which_vae='cvae',
                                            insert_sep=cfg.insert_sep)
         else:
@@ -143,6 +160,78 @@ class MMVIDBert(nn.Module):
         imgs = self._tokenizer(which_vae).decode(
             toks.reshape(b * t, self.cfg.image_seq_len))
         return imgs.reshape((b, t) + imgs.shape[1:])
+
+    # -- training loss -------------------------------------------------
+
+    def loss(self, generator, *, text, visual=None, target=None,
+             rel=False, vid=False, msm_strategy_prob=(0.7, 0.1, 0.1, 0.1),
+             msm_bernoulli_prob=(0.2, 0.5), rel_no_fully_masked=False,
+             vid_strategy_prob=(0.25, 0.25, 0.25, 0.25), pc_prob=0.0,
+             erase_visual=False, erase_visual_half=False, vc_mode=None,
+             face_mode=None, visual_aug_mode=None, negvc=False,
+             visual_neg=None, text_neg=None, visual_drop=None, draws=None):
+        """(loss_msm, loss_rel, loss_vid), the JAX package's
+        ``MMVIDBert.loss``.  target: frames [B, T, H, W, 3] in [0, 1] or
+        ids [B, target_seq_len]; the frozen VQGANs tokenize targets,
+        visual controls and the VID negatives under no_grad.
+        ``visual_drop``: a bool (or 0-d tensor), True replaces the visual
+        control by a fully [MASK] row (the dropout_vc path).
+        ``generator`` draws the MSM masks, the VID warps and the visual
+        erasers.  ``draws``, the deterministic hook: a dict that may carry
+        ``keep`` and ``nfm`` (:func:`sample_msm_mask`'s outputs), ``warp``
+        (:func:`models.warp.warp_draws`'s) and ``visual_drop``, used in
+        place of the generator's draws."""
+        cfg = self.cfg
+        draws = draws or {}
+        b, dev = text.shape[0], text.device
+        visual_drop = draws.get('visual_drop', visual_drop)
+        visual_tokens = None
+        if cfg.num_visuals > 0:
+            if visual is not None:
+                visual_tokens = self.prepare_visual_tokens(
+                    generator, visual, erase_visual=erase_visual,
+                    erase_visual_half=erase_visual_half, vc_mode=vc_mode,
+                    face_mode=face_mode, visual_aug_mode=visual_aug_mode)
+                if visual_drop is not None:
+                    visual_tokens = torch.where(
+                        torch.as_tensor(visual_drop, device=dev),
+                        self.fully_masked_visual(b, dev), visual_tokens)
+            else:
+                visual_tokens = self.fully_masked_visual(b, dev)
+
+        target_frames = None
+        if target.dim() >= 4:
+            target_frames = target
+            target = self.get_image_tokens(target)
+        if 'keep' in draws:
+            keep, nfm = draws['keep'], draws['nfm']
+        else:
+            keep, nfm = sample_msm_mask(generator, cfg, msm_strategy_prob,
+                                        msm_bernoulli_prob, pc_prob,
+                                        batch=b, device=dev)
+
+        target_warp = None
+        if vid and cfg.num_targets > 1 and target_frames is not None:
+            wd = draws.get('warp')
+            if os.environ.get('MMVID_TOKEN_WARP', '1') == '1':
+                # only the modified frame is encoded again
+                mod_frame, plan = warp_token_plan(
+                    generator, target_frames, vid_strategy_prob, wd)
+                target_warp = apply_warp_token_plan(
+                    target, self.get_image_tokens(mod_frame[:, None]), plan)
+            else:
+                target_warp = self.get_image_tokens(warp(
+                    generator, target_frames, vid_strategy_prob, wd))
+
+        # negvc: the negative control drops the visual segment;
+        # visual_neg is taken and unused, as in the reference
+        control_neg = text_neg if negvc and text_neg is not None else None
+        return bert_losses(
+            self.core, text=text, visual_tokens=visual_tokens,
+            target_tokens=target, target_tokens_warp=target_warp,
+            keep_gt_mask=keep, not_fully_masked=nfm, rel=rel, vid=vid,
+            rel_no_fully_masked=rel_no_fully_masked,
+            control_neg=control_neg)
 
     # -- generation ----------------------------------------------------
 

@@ -16,9 +16,20 @@ the caller passes an :class:`AttentionMask` (the models build theirs so).
 
 Dispatch rule of :func:`fused_attention_blhd`: a CPU tensor goes to
 :func:`attention_reference`; a CUDA tensor launches the kernel or raises.
-The kernels have no backward: on the card a call with grad enabled and an
-input that requires grad raises (serving only), and the CPU's plain
-version keeps autograd.
+
+Gradients: with grad enabled and an input that requires grad, the call
+goes through :class:`FusedAttention`, the counterpart of JAX's
+``custom_vjp`` (``_fused_attention_fwd`` / ``_fused_attention_bwd``): its
+forward is the same dispatch (the kernel on the card), it saves only q,
+k, v and the mask, and its backward, :func:`attention_backward`,
+recomputes the fp32 logits and softmax from them with torch ops, as JAX's
+backward is the XLA VJP of ``_attention_xla``.  The mask takes no
+gradient.  The quantized variants refuse grad: the int8 one is serving
+only (C1), and ``MMVID_ATTN_BF16=1`` rounds the probabilities that the
+fp32 recompute does not, so its gradients would not be the forward's.
+JAX refuses both flags in training only under ``MMVID_PALLAS_ATTN=1``,
+the only place it reads them; the port's card path always runs the
+kernel, so it refuses them whenever grad is on, on either device.
 """
 
 from __future__ import annotations
@@ -34,6 +45,9 @@ from mmvid_tpu_torch.ops import _build, attention_int8
 # Kernel launches since the last reset (chip_smoke.py reads it to show the
 # main path ran through the kernel).
 launches = 0
+# FusedAttention backward calls since the last reset, on either device
+# (breakdown.measure_train reads them a training step)
+backward_calls = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -138,14 +152,55 @@ def _check_cuda_args(q, k, v, mask, int8=False):
 
 def refuse_grad(what: str, *tensors) -> None:
     """C1: a kernel that writes through ctypes gives its output no
-    autograd graph, so on the card a call with grad enabled and an input
-    that requires grad raises instead of dropping the gradient."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
+    autograd graph, so a call with grad enabled and an input that
+    requires grad raises instead of dropping the gradient."""
+    if needs_grad(*tensors):
         raise RuntimeError(
             f'{what}: the kernel path is for serving only (it has no '
-            'backward); call it under torch.no_grad(), or on CPU tensors '
-            'for autograd')
+            'backward); call it under torch.no_grad()')
+
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def attention_backward(q, k, v, mask, scale, g):
+    """(dq, dk, dv) in q's dtype: the VJP of :func:`attention_reference`
+    (``_attention_xla``) at the cotangent ``g`` [B, L, H, D], with the fp32
+    logits and softmax recomputed from q, k, v and the mask (JAX's
+    ``_fused_attention_bwd``).  The [B, H, L, L] probabilities live only
+    inside this call."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    logits = torch.einsum('blhd,bmhd->bhlm', qf * scale, kf)
+    p = torch.softmax(logits + mask[None, None], dim=-1)
+    dv = torch.einsum('bhlm,blhd->bmhd', p, gf)
+    dp = torch.einsum('blhd,bmhd->bhlm', gf, vf)
+    # softmax's VJP: p * (dp - sum_m p * dp)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum('bhlm,bmhd->blhd', ds, kf) * scale
+    dk = torch.einsum('bhlm,blhd->bmhd', ds, qf * scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FusedAttention(torch.autograd.Function):
+    """:func:`fused_attention_blhd` with a backward: the forward is the
+    dispatch (the kernel for CUDA tensors, the plain version on the CPU),
+    the backward :func:`attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.scale = scale
+        return _dispatch(q, k, v, mask, scale, None, False, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        global backward_calls
+        backward_calls += 1
+        q, k, v, mask = ctx.saved_tensors
+        return (*attention_backward(q, k, v, mask, ctx.scale, g), None,
+                None)
 
 
 def fused_attention_blhd(q, k, v, mask=None):
@@ -153,19 +208,33 @@ def fused_attention_blhd(q, k, v, mask=None):
     additive mask [L, L], an :class:`AttentionMask` or None -> [B, L, H,
     D] contiguous, q's dtype.
     Logits are scaled by D ** -0.5; ``MMVID_ATTN_INT8=1`` takes the int8
-    variant, else ``MMVID_ATTN_BF16=1`` the bf16-probability variant."""
-    global launches
+    variant, else ``MMVID_ATTN_BF16=1`` the bf16-probability variant.
+    With grad enabled and an input that requires grad, the result carries
+    :class:`FusedAttention`'s backward (the variants raise there)."""
     b, l, h, d = q.shape
     scale = d ** -0.5
     compact = None
     if isinstance(mask, AttentionMask):
         mask, compact = mask
-    if q.device.type == 'cuda':
-        refuse_grad('attention', q, k, v, mask)
     if mask is None:
         mask = torch.zeros((l, l), dtype=torch.float32, device=q.device)
     int8 = attention_int8.enabled()
     bf16_p = bf16_probs()
+    if needs_grad(q, k, v, mask):
+        if int8:
+            refuse_grad('int8 attention', q, k, v, mask)
+        if bf16_p:
+            raise RuntimeError(
+                'MMVID_ATTN_BF16=1 is serving only: its forward rounds the '
+                'probabilities, which the fp32 recompute of the backward '
+                'does not; unset it to train')
+        return FusedAttention.apply(q, k, v, mask, scale)
+    return _dispatch(q, k, v, mask, scale, compact, int8, bf16_p)
+
+
+def _dispatch(q, k, v, mask, scale, compact, int8, bf16_p):
+    global launches
+    b, l, h, d = q.shape
     if q.device.type == 'cpu':
         if int8:
             return attention_int8.attention_int8_reference(q, k, v, mask,

@@ -62,3 +62,60 @@ def read_dalle_checkpoint(path: str) -> Dict:
     obj = torch.load(path, map_location='cpu', weights_only=False)
     return {'iter': obj.get('iter', 0), 'hparams': obj.get('hparams') or {},
             'vae_params': obj.get('vae_params'), 'weights': obj['weights']}
+
+
+def _find_state(node, field: str):
+    """The first namedtuple with ``field`` in an optax state tree."""
+    if hasattr(node, '_fields'):
+        if field in node._fields:
+            return node
+        children = [getattr(node, f) for f in node._fields]
+    elif isinstance(node, (list, tuple)):
+        children = node
+    else:
+        return None
+    for child in children:
+        found = _find_state(child, field)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(model: torch.nn.Module, tc, params: Dict,
+                         opt_state, step: int):
+    """The JAX package's train state (core params, optax state with numpy
+    or array leaves, step) as the port's :class:`training.TrainState`:
+    the params are copied into ``model``'s core; Adam's moments have the
+    params' tree, so they take the same layout conversion
+    (``bert_params_to_torch``); the counts and the plateau's scalars carry
+    over as they are.  The VQGAN weights are left as the model has
+    them."""
+    from mmvid_tpu_torch import training
+
+    state = training.create_train_state(model, tc)
+    names = list(state.params)
+    core_sd = bert_params_to_torch(params)
+    if sorted(core_sd) != sorted(names):
+        raise KeyError(f'params do not match the trained parameters: '
+                       f'{sorted(set(core_sd) ^ set(names))}')
+    with torch.no_grad():
+        for n in names:
+            state.params[n].copy_(torch.as_tensor(np.array(core_sd[n])))
+    adam = _find_state(opt_state, 'nu')
+    dev = next(iter(state.params.values())).device
+
+    def tensors(tree):
+        sd = bert_params_to_torch(tree)
+        return {n: torch.as_tensor(np.array(sd[n])).to(dev) for n in names}
+
+    count = int(np.asarray(adam.count))
+    opt = {'count': count, 'mu': tensors(adam.mu),
+           'nu': tensors(adam.nu)}
+    if 'plateau' in state.opt_state:
+        plateau = _find_state(opt_state, 'plateau_count')
+        opt['plateau'] = {
+            k: torch.as_tensor(np.array(getattr(plateau, k))).to(
+                device=dev, dtype=state.opt_state['plateau'][k].dtype)
+            for k in training.PLATEAU_FIELDS}
+    return training.TrainState(step=int(step), params=state.params,
+                               opt_state=opt)

@@ -136,13 +136,17 @@ def test_generate_images_visual_slice_matches_jax(visual_pair, monkeypatch):
 
 def test_generate_images_visual_not_ported(visual_pair):
     """What the visual path still lacks raises, pointing at the roadmap:
-    the motion-color augmentation (needs models/warp.py) and erasers with
-    insert_sep (unsupported in the JAX package too)."""
+    erasers with insert_sep (unsupported in the JAX package too).  The
+    motion-color augmentation is ported (models/warp.py, held to JAX in
+    tests/test_torch_warp.py): it shifts the control frames after the
+    first, as JAX's does, so this model's one control frame is kept."""
     _, _, _, pmodel = visual_pair
-    frames = torch.zeros((1, 1, 16, 16, 3))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    frames = torch.rand((2, 1, 16, 16, 3),
+                        generator=torch.Generator().manual_seed(0))
+    assert torch.equal(
         pmodel.prepare_visual_tokens(torch.Generator(), frames,
-                                     visual_aug_mode='motion_color')
+                                     visual_aug_mode='motion_color'),
+        pmodel.prepare_visual_tokens(torch.Generator(), frames))
     sep_model, _ = factories.flagship(tiny=True, device='cpu',
                                       use_cvae=True)
     sep_model.cfg = dataclasses.replace(sep_model.cfg, insert_sep=True)

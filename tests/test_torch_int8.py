@@ -554,8 +554,9 @@ def test_fused_lnqkv_gate_skipped_by_int8_and_calibration(pair,
 
 
 def test_cpu_attention_keeps_autograd():
-    """C1: on the CPU the plain versions keep autograd (the card's kernels
-    refuse grad instead; tests/test_torch_kernels.py)."""
+    """C1: on the CPU the plain versions keep autograd (on the card the
+    LN+QKV kernel refuses grad, and attention's kernel forward carries
+    FusedAttention's backward; tests/test_torch_kernels.py)."""
     from mmvid_tpu_torch.ops.fused_ln_qkv import fused_ln_qkv
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 9, 2, 32, generator=g, requires_grad=True)

@@ -12,7 +12,15 @@ runs on a machine without it, from the repository root:
 import pytest
 import torch
 
-from chip_smoke import CODE_GAP_TOL, disagreement, int8_agrees
+from chip_smoke import (
+    ATTN_BWD_TOL,
+    CODE_GAP_TOL,
+    TRAIN_BACKWARD_CALLS,
+    TRAIN_LAUNCHES,
+    _packed_grads,
+    disagreement,
+    int8_agrees,
+)
 from mmvid_tpu_torch.models.clip import attention_mask, build_attention_mask
 from mmvid_tpu_torch.ops import artv_decode as AD
 from mmvid_tpu_torch.ops import attention as A
@@ -183,9 +191,12 @@ def test_attention_int8_kernel_rejects_bad_inputs(cuda_device, monkeypatch):
 @pytest.mark.parametrize('int8_flag', [False, True],
                          ids=['bf16_kernel', 'int8_kernel'])
 def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
-    """C1: the kernels write through ctypes and have no backward, so on the
-    card a call with grad enabled and an input that requires grad raises
-    (serving only) and launches nothing; under no_grad it runs."""
+    """C1: the LN+QKV kernel and the int8 attention kernel have no
+    backward, so on the card a call with grad enabled and an input that
+    requires grad raises (serving only) and launches nothing; under
+    no_grad they run.  The attention kernel has one since training came
+    (ops.attention.FusedAttention): with grad it launches its forward and
+    gives autograd's gradients through the plain version."""
     if int8_flag:
         monkeypatch.setenv('MMVID_ATTN_INT8', '1')
     else:
@@ -195,8 +206,21 @@ def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
                            ).bfloat16() for _ in range(3))
     q.requires_grad_(True)
     counts = (A.launches, A8.launches, Q.launches)
-    with pytest.raises(RuntimeError, match='serving only'):
-        A.fused_attention_blhd(q, k, v)
+    if int8_flag:
+        with pytest.raises(RuntimeError, match='serving only'):
+            A.fused_attention_blhd(q, k, v)
+    else:
+        cot = torch.randn((2, 37, 2, 64), generator=g, device=cuda_device
+                          ).bfloat16()
+        got = torch.autograd.grad(A.fused_attention_blhd(q, k, v), q, cot)[0]
+        want = torch.autograd.grad(A.attention_reference(
+            q, k, v, torch.zeros((37, 37), device=cuda_device), 0.125),
+            q, cot)[0]
+        assert got.dtype == torch.bfloat16
+        err = ((got.float() - want.float()).abs()
+               / (1 + want.float().abs())).max().item()
+        assert err <= ATTN_BWD_TOL['bfloat16'], err
+        counts = (counts[0] + 1,) + counts[1:]
     x, ln_w, ln_b, w, bias = _ln_qkv_inputs(cuda_device, 2, 37, 128,
                                             torch.bfloat16)
     w.requires_grad_(True)
@@ -210,6 +234,68 @@ def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
     assert (A.launches, A8.launches, Q.launches) == (
         counts[0] + (not int8_flag), counts[1] + 2 * int8_flag,
         counts[2] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('l,kind,idx', [(565, 'mask_prev', (51, 52)),
+                                        (629, 'mask_prev', (115, 116)),
+                                        (565, 'causal', None),
+                                        (629, 'causal', None)])
+def test_attention_backward_matches_plain(cuda_device, dtype, l, kind, idx):
+    """Attention's backward (FusedAttention: the kernel's forward, the
+    fp32 recompute) against autograd through attention_reference, on the
+    packed strided views, B16 H12 D64 (chip_smoke.phase_attention_backward's
+    shapes): d qkv within ATTN_BWD_TOL * (1 + |plain|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, d = 16, 12, 64
+    mask = build_attention_mask(l, kind, index=idx, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(l)
+    qkv = torch.randn((b, l, 3 * h * d), generator=g,
+                      device=cuda_device).to(dtype)
+    cot = torch.randn((b, l, h, d), generator=g, device=cuda_device).to(dtype)
+    before = A.launches
+    got = _packed_grads(A.fused_attention_blhd, qkv, cot, mask)
+    assert A.launches == before + 1
+    want = _packed_grads(lambda q, k, v, m: A.attention_reference(
+        q, k, v, m, d ** -0.5), qkv, cot, mask)
+    err = ((got.float() - want.float()).abs()
+           / (1 + want.float().abs())).max().item()
+    assert err <= ATTN_BWD_TOL[str(dtype).split('.')[-1]], err
+
+
+@pytest.mark.cuda
+def test_train_step_launch_counts(cuda_device):
+    """A training step of the tiny flagship build (remat on) launches the
+    attention kernel 3 forwards x its layers x 2 (remat runs each block's
+    forward again) and the nearest-code kernel twice (the targets, the
+    warped frame); ART-V's tiny build its layers and once: the per-block
+    counts of chip_smoke.TRAIN_LAUNCHES; attention's backward once a block
+    a forward (chip_smoke.TRAIN_BACKWARD_CALLS)."""
+    from mmvid_tpu_torch import breakdown, factories, training
+    from mmvid_tpu_torch.breakdown import KERNELS
+
+    for path, build in (('train', factories.flagship_train),
+                        ('train_artv', factories.artv_train)):
+        model, _ = build(tiny=True, dtype=torch.float32, device=cuda_device)
+        tc = breakdown.train_config(path)
+        state = training.create_train_state(model, tc)
+        step = training.make_train_step(model, tc)
+        data = breakdown.train_batch(model, 2, cuda_device)
+        for mod in KERNELS.values():
+            mod.launches = 0
+        KERNELS['attention'].backward_calls = 0
+        state, m = step(state, data,
+                        torch.Generator(device=cuda_device).manual_seed(0))
+        assert torch.isfinite(m['loss'])
+        per_block = TRAIN_LAUNCHES[path]['attention'] // 12
+        want = {name: 0 for name in KERNELS}
+        want.update(attention=per_block * model.cfg.clip.layers,
+                    codebook=TRAIN_LAUNCHES[path]['codebook'])
+        assert {n: mod.launches for n, mod in KERNELS.items()} == want
+        assert KERNELS['attention'].backward_calls == (
+            TRAIN_BACKWARD_CALLS[path] // 12 * model.cfg.clip.layers)
 
 
 @pytest.mark.cuda
