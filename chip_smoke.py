@@ -22,7 +22,9 @@ control frame through the cvae; then int8 serving: the flagship calibrated by
 text-to-video recipe's MSM / REL / VID step at full width (fp32
 parameters, bf16 compute, each block rematerialised, the frozen VQGAN
 tokenizing targets and the warped frame inside the step) and one ART-V
-step.
+step; then the recipes' drivers, ``python -m mmvid_tpu_torch.train`` and
+``.test`` through ``main_worker`` on the released scripts' flags, over
+synthetic PNG clips.
 The paths' models, inputs and batch-16 timings come from
 ``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``, ``measure``,
 ``build_train``, ``train_batch``, ``measure_train``).
@@ -122,6 +124,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
     backward; the VQGAN unchanged), then 8 steps on a fixed batch with
     fixed draws at a constant lr (the loss falls); then one ART-V step
     (attention 12, nearest code 1, backward 12).
+17. the training driver (``mmvid_tpu_torch.train.main_worker``) on
+    ``text_to_video/train.sh``'s flags (``--bf16``, batch 48, 6
+    iterations, checkpoints and grids every 3) over a synthetic tree of
+    128 px PNG clips written by the port's writer through every filter
+    type, a random VQGAN checkpoint as ``--vae_path``; ``--auto_resume``
+    to 8 under the profiler; 3 steps of ``text_and_mask/train.sh``'s
+    flags (vox, a cvae): finite losses, the resumed start, the VQGAN
+    unchanged, the files written, attention's backward calls exact, the
+    kernels launched; step ms, loader wait, idle share, save seconds and
+    bytes, peak memory.
+18. the test driver (``mmvid_tpu_torch.test.main_worker``) on
+    ``text_to_video/test.sh``'s flags, sampling the training run's latest
+    checkpoint: videos finite in [0, 1], the grid written, the kernels
+    launched; frames/s.
 
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
 then as its last line ``{"ok": true, "device": {...}}``.  Run from the
@@ -2282,6 +2298,395 @@ def phase_train():
     return res, res_artv
 
 
+def recipe_argv(recipe: str, script: str, paths: dict) -> list:
+    """The flags ``scripts/mmvoxceleb/<recipe>/<script>`` passes to its
+    driver, each flag in ``paths`` given that value instead (the data
+    folder, the VQGAN checkpoints, the run to sample)."""
+    import shlex
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'scripts', 'mmvoxceleb', recipe, script)
+    with open(path) as f:
+        text = f.read().replace('\\\n', ' ')
+    line = next(ln for ln in text.splitlines()
+                if ln.strip().startswith('python3'))
+    words = shlex.split(line)[2:]
+    return [paths.get(words[i - 1], w) if i else w
+            for i, w in enumerate(words)]
+
+
+def _smooth_frames(rng, n, size):
+    """n uint8 RGB frames [size, size, 3]: a moving gradient and noise
+    (PNG-compressible as camera frames are)."""
+    import numpy as np
+    y, x = np.mgrid[:size, :size]
+    base = rng.randint(0, 256, 3)
+    out = []
+    for t in range(n):
+        img = (x[..., None] * (1 + base % 3) + y[..., None] * 2 + 3 * t
+               + base + rng.randint(0, 24, (size, size, 3)))
+        out.append((img % 256).astype(np.uint8))
+    return out
+
+
+def write_driver_data(root: str, clips: int, frames: int, size: int = 128,
+                      vox: bool = False, distinct: int = 0) -> str:
+    """A synthetic dataset tree of ``clips`` clips under ``root`` written by
+    the port's PNG writer, the five filter types in turn:
+    ``video/<key>/*.png`` and ``txt/<key>.txt`` (the video_text layout),
+    with ``vox`` also ``label/<key>.txt`` (40 attributes) and
+    ``mask/<key>/*.png``.  Keys ``id<p>#v<p>#<n>``, two clips an
+    identity.  With ``distinct`` (< clips), clip i's frame files are hard
+    links to clip (i mod distinct)'s: each is read and decoded all the
+    same."""
+    import numpy as np
+    from mmvid_tpu_torch.data import png
+    rng = np.random.RandomState(0)
+    captions = ['A man with a beard is talking. He is young.',
+                'A woman with wavy hair is talking. She wears earrings.',
+                'A person with glasses is speaking.']
+    ft = 0
+    distinct = distinct or clips
+    keys = [f'id{i // 2}#v{i // 2}#{i % 2:03d}' for i in range(clips)]
+    for i, key in enumerate(keys):
+        subs = [('video', frames)] + ([('mask', 2)] if vox else [])
+        for sub, n in subs:
+            d = os.path.join(root, sub, key)
+            os.makedirs(d)
+            if i >= distinct:
+                src = os.path.join(root, sub, keys[i % distinct])
+                for name in os.listdir(src):
+                    os.link(os.path.join(src, name), os.path.join(d, name))
+                continue
+            for j, img in enumerate(_smooth_frames(rng, n, size)):
+                png.write_png(os.path.join(d, f'{j:04d}.png'), img, ft)
+                ft = (ft + 1) % 5
+        os.makedirs(os.path.join(root, 'txt'), exist_ok=True)
+        with open(os.path.join(root, 'txt', f'{key}.txt'), 'w') as f:
+            f.write(captions[i % 3] + '\n' + captions[(i + 1) % 3] + '\n')
+        if vox:
+            os.makedirs(os.path.join(root, 'label'), exist_ok=True)
+            with open(os.path.join(root, 'label', f'{key}.txt'), 'w') as f:
+                f.write(','.join('1' if (i + a) % 7 == 0 else '0'
+                                 for a in range(40)))
+    return root
+
+
+def write_vqgan_ckpt(path: str, seed: int, image_size: int = 128):
+    """A taming-format VQGAN checkpoint (``state_dict``) of the recipes'
+    vqgan1024 at ``image_size``, weights from ``factories.init_weights``
+    at ``seed``; returns the state dict."""
+    import torch
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch.models.vqgan import VQGanConfig, VQGanVAE
+    vae = VQGanVAE(image_size, VQGanConfig(resolution=image_size))
+    factories.init_weights(vae, torch.Generator().manual_seed(seed))
+    sd = vae.model.state_dict()
+    torch.save({'state_dict': sd}, path)
+    return sd
+
+
+# the training driver's runs: the text-to-video recipe at its batch 48
+# (iterations 0-5, then resumed to 8) and the text+mask recipe at its 20
+DRIVER_ITERS, DRIVER_RESUME_ITERS, DRIVER_SAVE_EVERY = 6, 8, 3
+DRIVER_MASK_ITERS = 3
+DRIVER_CLIP_FRAMES = 32   # the recipes' frame_num 8 at frame_step 4 need 29
+DRIVER_EPOCH_BATCHES = 8
+
+
+def _driver_losses(log_dir):
+    import math
+    with open(os.path.join(log_dir, 'log.txt')) as f:
+        lines = [ln.split() for ln in f if ln.startswith('iter ')]
+    losses = {int(w[1]): float(w[3]) for w in lines}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f'train driver: a loss is not finite: {losses}')
+    return losses
+
+
+def _backward_calls(args, iters: int) -> int:
+    """Attention's backward calls in ``iters`` training steps of ``args``:
+    one a layer for each forward of the step (MSM, and REL's and VID's
+    negatives where their betas are on), no remat."""
+    from mmvid_tpu_torch import factories
+    layers = factories.build_clip_config(args.which_transformer).layers
+    return iters * layers * (1 + (args.beta_rel > 0) + (args.beta_vid > 0))
+
+
+def _steady(record):
+    """(step ms, loader wait ms) a step: means over the iterations after
+    the first, each step ending in its loss read (--log_every 1)."""
+    its = record['iters'][1:]
+    return (1e3 * statistics.mean(r['step_s'] for r in its),
+            1e3 * statistics.mean(r['wait_s'] for r in its))
+
+
+def loader_alone(args, batches: int = DRIVER_EPOCH_BATCHES - 2) -> dict:
+    """The driver's loader by itself on ``args``' dataset: seconds a batch
+    (mean over ``batches`` after the first, within one epoch, taken back
+    to back: the rate the threads make batches at), and one
+    thread's ms a frame to read and resize (``png.read_rgb`` +
+    ``transforms.resize_exact``) over one clip's files."""
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch.data import png, transforms
+    from mmvid_tpu_torch.data.loader import DataLoader, infinite_batches
+    dataset = factories.get_dataset(args, factories.get_tokenizer(args))
+    key = dataset.keys[0]
+    paths = [os.path.join(dataset.root, f) for f in dataset.videos[key]]
+    png.read_rgb(paths[0])   # the frame core built (g++) at first use
+    t0 = time.perf_counter()
+    for p in paths:
+        transforms.resize_exact(png.read_rgb(p),
+                                (dataset.image_size, dataset.image_size))
+    per_frame = (time.perf_counter() - t0) / len(paths) * 1e3
+    it = infinite_batches(DataLoader(
+        dataset, batch_size=args.batch_size,
+        num_workers=min(args.num_workers, 16), seed=args.seed))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    per_batch = (time.perf_counter() - t0) / batches
+    it.close()
+    return {'batch_s': per_batch, 'frame_ms': per_frame,
+            'workers': min(args.num_workers, 16), 'cpus': os.cpu_count()}
+
+
+def phase_train_driver(batch: int = 48):
+    """``python -m mmvid_tpu_torch.train`` through ``main_worker`` on
+    ``text_to_video/train.sh``'s flags verbatim but the data and log
+    paths, ``--iters 6 --save_every_n_steps 3 --sample_every 3
+    --log_every 1 --bf16``, at the recipe's batch 48, on a synthetic
+    video_text tree of 128 px PNG clips and a random VQGAN checkpoint;
+    then ``--auto_resume`` to iter 8 under ``torch.profiler`` (the idle
+    share over its iterations); then 3 steps of ``text_and_mask/
+    train.sh``'s flags (vox, ``mask+text_dropout``, a cvae).  Gates:
+    finite losses, the resumed start iteration, the frozen VQGAN
+    unchanged in the checkpoints, checkpoint and grid files written,
+    attention's backward calls exact (36 a step: 12 layers x 3
+    forwards, no remat), the kernels launched."""
+    import shutil
+    import tempfile
+
+    import torch
+    from mmvid_tpu_torch import breakdown
+    from mmvid_tpu_torch import train as driver
+    from mmvid_tpu_torch.config import process_args
+
+    tmp = tempfile.mkdtemp(prefix='mmvid_driver_')
+    try:
+        t0 = time.perf_counter()
+        # DRIVER_EPOCH_BATCHES batches an epoch: the loader prefetches
+        # within an epoch only, as JAX's does
+        tree = write_driver_data(os.path.join(tmp, 'vox_text'),
+                                 batch * DRIVER_EPOCH_BATCHES,
+                                 DRIVER_CLIP_FRAMES, distinct=batch)
+        vox = write_driver_data(os.path.join(tmp, 'vox'),
+                                20 * DRIVER_EPOCH_BATCHES,
+                                DRIVER_CLIP_FRAMES, vox=True, distinct=20)
+        vae_sd = write_vqgan_ckpt(os.path.join(tmp, 'vae.ckpt'), 7)
+        shutil.copyfile(os.path.join(tmp, 'vae.ckpt'),
+                        os.path.join(tmp, 'cvae.ckpt'))
+        print(f'[train driver] data and VQGAN checkpoints written in '
+              f'{time.perf_counter() - t0:.2f} s', flush=True)
+        logs = os.path.join(tmp, 'logs')
+        argv = recipe_argv('text_to_video', 'train.sh', {
+            '--image_text_folder': tree,
+            '--vae_path': os.path.join(tmp, 'vae.ckpt')}) + [
+            '--log_root', logs, '--iters', str(DRIVER_ITERS),
+            '--save_every_n_steps', str(DRIVER_SAVE_EVERY),
+            '--sample_every', str(DRIVER_SAVE_EVERY), '--log_every', '1',
+            '--bf16', '--batch_size', str(batch)]
+        args = process_args(train=True, argv=argv)
+        run_dir = os.path.join(logs, args.name)
+        alone = loader_alone(args)
+        print(f'[train driver] the loader alone: {alone["batch_s"]:.4f} s '
+              f'a batch of {batch} with {alone["workers"]} threads on '
+              f'{alone["cpus"]} CPUs; {alone["frame_ms"]:.3f} ms a 128 px '
+              f'frame read and resized on one thread', flush=True)
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        record = driver.main_worker(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        calls = breakdown.KERNELS['attention'].backward_calls
+        losses = _driver_losses(run_dir)
+        step_ms, wait_ms = _steady(record)
+        save = next(r for r in record['iters'] if 'save_s' in r)
+        viz_s = next(r['viz_s'] for r in record['iters'] if 'viz_s' in r)
+        print(f'[train driver] batch {batch}: {DRIVER_ITERS} iterations in '
+              f'{wall:.2f} s (model build included); step {step_ms:.2f} ms '
+              f'(mean of iterations 1-{DRIVER_ITERS - 1}, to the loss '
+              f'read), {batch / ((step_ms + wait_ms) / 1e3):.2f} videos/s '
+              f'with the loader; loader wait {wait_ms:.3f} ms a step; '
+              f'save {save["save_s"]:.3f} s, {save["save_bytes"]} B '
+              f'(and weights/last); final save '
+              f'{record["final_save"]["s"]:.3f} s; sample grids '
+              f'{viz_s:.2f} s; peak memory {peak} B; losses {losses}; '
+              f'launches {counts}, attention backward calls {calls}; '
+              f'each iteration\'s wait and step '
+              f'{[(r["wait_s"], r["step_s"]) for r in record["iters"]]}',
+              flush=True)
+        want_calls = _backward_calls(args, DRIVER_ITERS)
+        if calls != want_calls:
+            fail(f'train driver: attention backward calls {calls} != '
+                 f'{want_calls}')
+        for name in ('attention', 'codebook', 'sample_head'):
+            if counts[name] <= 0:
+                fail(f'train driver: {name} launched no time')
+        for rel in (f'weights/{DRIVER_SAVE_EVERY}/dalle.pt',
+                    f'weights/{DRIVER_ITERS}/dalle.pt',
+                    'weights/last/dalle.pt', 'web/index.html',
+                    f'samples/{DRIVER_SAVE_EVERY:07d}_0.png'):
+            if not os.path.isfile(os.path.join(run_dir, rel)):
+                fail(f'train driver: {rel} not written')
+        ck = torch.load(os.path.join(run_dir, 'weights', 'last', 'dalle.pt'),
+                        map_location='cpu', weights_only=False)
+        # each weight as loaded: bf16 (the codebook stays fp32)
+        same = all(torch.equal(ck['weights'][f'vae.model.{k}'], v) or
+                   torch.equal(ck['weights'][f'vae.model.{k}'],
+                               v.to(torch.bfloat16).float())
+                   for k, v in vae_sd.items())
+        print(f'[train driver] VQGAN unchanged (the checkpoint against '
+              f'vae.ckpt as loaded): {same}', flush=True)
+        if not same:
+            fail('train driver: the frozen VQGAN changed')
+        del ck
+
+        resume = process_args(train=True, argv=argv + ['--auto_resume'])
+        resume.iters = DRIVER_RESUME_ITERS
+        from torch.profiler import ProfilerActivity, profile
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rec2 = driver.main_worker(resume)
+            torch.cuda.synchronize()
+        # the iterations after the first (which waits for the loader's
+        # first batch), each from its batch fetch to its loss read
+        idle = breakdown.idle_share(prof, 'mmvid_train_iter', skip=1)
+        resumed = _driver_losses(run_dir)
+        its = rec2['iters']
+        print(f'[train driver] --auto_resume started at iter '
+              f'{rec2["start_iter"]}, losses {resumed}; device idle '
+              f'{idle["idle_share"]:.4f} over {idle["windows"]} '
+              f'iteration(s) after its first (busy {idle["busy_ms"]:.3f} '
+              f'of {idle["span_ms"]:.3f} ms, under the profiler; '
+              f'iterations {[r["step_s"] + r["wait_s"] for r in its]} s)',
+              flush=True)
+        if rec2['start_iter'] != DRIVER_ITERS:
+            fail(f'train driver: resumed at {rec2["start_iter"]}, not '
+                 f'{DRIVER_ITERS}')
+        if sorted(resumed) != list(range(DRIVER_RESUME_ITERS)):
+            fail(f'train driver: iterations logged {sorted(resumed)}')
+        for it in (DRIVER_SAVE_EVERY, DRIVER_ITERS):   # disk: keep 8, last
+            shutil.rmtree(os.path.join(run_dir, 'weights', str(it)))
+
+        margv = recipe_argv('text_and_mask', 'train.sh', {
+            '--image_text_folder': vox,
+            '--vae_path': os.path.join(tmp, 'vae.ckpt'),
+            '--cvae_path': os.path.join(tmp, 'cvae.ckpt')}) + [
+            '--log_root', logs, '--iters', str(DRIVER_MASK_ITERS),
+            '--log_every', '1', '--bf16']
+        margs = process_args(train=True, argv=margv)
+        reset_counts()
+        rec3 = driver.main_worker(margs)
+        torch.cuda.synchronize()
+        mcounts = read_counts()
+        mcalls = breakdown.KERNELS['attention'].backward_calls
+        mlosses = _driver_losses(os.path.join(logs, margs.name))
+        mstep, mwait = _steady(rec3)
+        print(f'[train driver] text+mask (vox, {margs.attr_mode}, cvae) '
+              f'batch {margs.batch_size}: step {mstep:.2f} ms, loader wait '
+              f'{mwait:.3f} ms (iterations 1-{DRIVER_MASK_ITERS - 1}); '
+              f'losses {mlosses}; launches {mcounts}, attention backward '
+              f'calls {mcalls}', flush=True)
+        if mcalls != _backward_calls(margs, DRIVER_MASK_ITERS):
+            fail(f'train driver text+mask: attention backward calls '
+                 f'{mcalls} != {_backward_calls(margs, DRIVER_MASK_ITERS)}')
+        for name in ('attention', 'codebook'):
+            if mcounts[name] <= 0:
+                fail(f'train driver text+mask: {name} launched no time')
+        res = {'batch': batch, 'step_ms': step_ms,
+               'loader_wait_ms': wait_ms,
+               'videos_s': batch / ((step_ms + wait_ms) / 1e3),
+               'idle_share': idle['idle_share'],
+               'save_s': save['save_s'], 'save_bytes': save['save_bytes'],
+               'peak_memory_bytes': peak, 'launches': counts,
+               'attention_backward_calls': calls, 'loader_alone': alone,
+               'text_mask': {'batch': margs.batch_size, 'step_ms': mstep,
+                             'loader_wait_ms': mwait, 'launches': mcounts}}
+        print(f'[train driver] {json.dumps(res)}', flush=True)
+        return res, run_dir, tmp
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def phase_test_driver(run_dir: str, tmp: str):
+    """``python -m mmvid_tpu_torch.test`` through ``main_worker`` on
+    ``text_to_video/test.sh``'s flags verbatim but the data and log paths
+    and ``--dalle_path``, which names the training driver's run directory
+    (its latest checkpoint): the first batch of 16, one sample, 4 rows of
+    20 mask-predict rounds (fp32, as the script runs it), the grid and
+    the page.  Gates: videos finite and in [0, 1], the grid written, the
+    attention, sample-head and nearest-code kernels launched."""
+    import shutil
+
+    import torch
+    from mmvid_tpu_torch import test as driver
+    from mmvid_tpu_torch.config import process_args
+    from mmvid_tpu_torch.models.mmvid import MMVIDBert
+
+    try:
+        argv = recipe_argv('text_to_video', 'test.sh', {
+            '--image_text_folder': os.path.join(tmp, 'vox_text'),
+            '--dalle_path': run_dir}) + [
+            '--log_root', os.path.join(tmp, 'logs')]
+        args = process_args(train=False, argv=argv)
+        seen = []
+        orig = MMVIDBert.generate_images
+
+        def recorded(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            v = out[0].float()
+            seen.append((tuple(v.shape), bool(torch.isfinite(v).all()),
+                         float(v.min()), float(v.max())))
+            return out
+
+        reset_counts()
+        MMVIDBert.generate_images = recorded
+        try:
+            t0 = time.perf_counter()
+            out = driver.main_worker(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            MMVIDBert.generate_images = orig
+        counts = read_counts()
+        frames = sum(s[0][0] * s[0][1] for s in seen)
+        print(f'[test driver] {len(seen)} sampling calls {seen}; '
+              f'visualize_train {out["sample_s"]:.2f} s '
+              f'({frames / out["sample_s"]:.2f} frames/s, the '
+              f'reconstruction and the grid included); {wall:.2f} s with '
+              f'the load; launches {counts}', flush=True)
+        if not seen or not all(ok and lo >= 0 and hi <= 1
+                               for _, ok, lo, hi in seen):
+            fail('test driver: videos not finite or outside [0, 1]')
+        grid = os.path.join(out['sample_dir'], '0000000_0.png')
+        if not os.path.isfile(grid):
+            fail(f'test driver: {grid} not written')
+        for name in ('attention', 'sample_head', 'codebook'):
+            if counts[name] <= 0:
+                fail(f'test driver: {name} launched no time')
+        return {'launches': counts, 'sample_s': out['sample_s'],
+                'frames_s': frames / out['sample_s'], 'calls': len(seen)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -2328,6 +2733,8 @@ def main():
     int8_serving = timed(phase_int8_serving)
     _, artv_int8_counts = timed(phase_artv_int8)
     train, train_artv = timed(phase_train)
+    train_driver, run_dir, driver_tmp = timed(phase_train_driver)
+    test_driver = timed(phase_test_driver, run_dir, driver_tmp)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
                'attention_int8': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
@@ -2361,7 +2768,12 @@ def main():
                                       'train': train['launches_per_step'][
                                           name],
                                       'train_artv': train_artv[
-                                          'launches_per_step'][name]}}
+                                          'launches_per_step'][name],
+                                      # the drivers' whole runs
+                                      'train_driver': train_driver[
+                                          'launches'][name],
+                                      'test_driver': test_driver[
+                                          'launches'][name]}}
         if name == 'attention':
             # the bf16 route (the main paths'), the tensor-core kernel,
             # on packed views; the fp32 route's CUDA-core kernel beside it

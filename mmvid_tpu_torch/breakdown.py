@@ -281,22 +281,11 @@ def profile_run(fn) -> dict:
     events = prof.profiler.kineto_results.events()
     window = [e for e in events if e.name() == 'mmvid_batch'
               and e.device_type() == DeviceType.CPU][0]
-    # device activity: kernels, copies, sets (not the annotation's own
-    # device-side span)
-    dev = sorted(((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
-                  for e in events if e.device_type() == DeviceType.CUDA
-                  and e.name() != 'mmvid_batch'), key=lambda x: x[0])
-    by_kind, busy, cur_s, cur_e = {}, 0.0, None, None
+    dev = device_events(events, 'mmvid_batch')
+    by_kind = {}
     for s, e, name in dev:
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + (e - s)
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = busy_ns(dev)
     span = window.duration_ns()
     return {'launches': launches,
             'attention_backward_calls': backward_calls,
@@ -305,6 +294,54 @@ def profile_run(fn) -> dict:
                 by_kind.items(), key=lambda kv: -kv[1])},
             'device_busy_ms': busy / 1e6, 'batch_span_ms': span / 1e6,
             'idle_share': 1 - busy / span if span > 0 else None}
+
+
+def device_events(events, annotation: str):
+    """(start ns, end ns, name) of the device activity among a profile's
+    raw events: kernels, copies, sets (not ``annotation``'s own
+    device-side span), by start."""
+    from torch.autograd import DeviceType
+    return sorted(((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                   for e in events if e.device_type() == DeviceType.CUDA
+                   and e.name() != annotation), key=lambda x: x[0])
+
+
+def busy_ns(dev, lo=None, hi=None) -> float:
+    """The time covered by at least one of the (start, end, name) device
+    events, clipped to [lo, hi] where given."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e, _ in dev:
+        if lo is not None:
+            s, e = max(s, lo), min(e, hi)
+            if e <= s:
+                continue
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def idle_share(prof, annotation: str, skip: int = 0) -> dict:
+    """The device's idle share over the host-side spans of the CPU events
+    named ``annotation`` (e.g. the training driver's ``mmvid_train_iter``,
+    one an iteration) in a finished ``torch.profiler`` run, the first
+    ``skip`` of them left out: {'idle_share', 'busy_ms', 'span_ms',
+    'windows'}."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    wins = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in events if e.name() == annotation
+                  and e.device_type() == DeviceType.CPU)[skip:]
+    dev = device_events(events, annotation)
+    busy = sum(busy_ns(dev, lo, hi) for lo, hi in wins)
+    span = sum(hi - lo for lo, hi in wins)
+    return {'idle_share': 1 - busy / span, 'busy_ms': busy / 1e6,
+            'span_ms': span / 1e6, 'windows': len(wins)}
 
 
 TRAIN_STEPS = 5   # timed training steps, after one warm-up step

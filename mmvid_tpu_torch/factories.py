@@ -1,22 +1,27 @@
-"""Model factories: the flagship and ART-V configurations, and models made
-from CLI args.
+"""Model factories: the flagship and ART-V configurations, and models,
+tokenizers and datasets made from CLI args.
 
-Counterpart of ``__graft_entry__._flagship`` and of ``get_vae_model`` /
-``get_dalle`` in ``mmvid_tpu/factories.py`` (mask-predict models with the
-cvae of the visual-control recipes, and ART-V with ``--ar``; the
-pretrained-CLIP graft and the fixed language model come later), and the
-training builds of the flagship and ART-V (:func:`flagship_train`,
-:func:`artv_train`: fp32 parameters, the compute dtype at use, each block
-rematerialised, as ``scripts/bench_train.py`` builds JAX's).  Every
-factory puts the model on ``device``, the card unless the caller asks for
-the CPU.
+Counterpart of ``__graft_entry__._flagship`` and of ``get_tokenizer`` /
+``get_vae_model`` / ``get_dalle`` / ``get_dataset`` in
+``mmvid_tpu/factories.py`` (mask-predict models with the cvae of the
+visual-control recipes, and ART-V with ``--ar``; the pretrained-CLIP
+graft and the fixed language model come later), the drivers' build
+(:func:`get_driver_model`: JAX's ``get_dalle`` dtypes, weights from a
+seed and taming VQGAN checkpoints), and the training builds of the
+flagship and ART-V (:func:`flagship_train`, :func:`artv_train`: fp32
+parameters, the compute dtype at use, each block rematerialised, as
+``scripts/bench_train.py`` builds JAX's).  Every factory puts the model
+on ``device``, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import warnings
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -26,6 +31,8 @@ from mmvid_tpu_torch.models.bert import BertConfig
 from mmvid_tpu_torch.models.clip import ClipStackConfig
 from mmvid_tpu_torch.models.mmvid import MMVIDBert
 from mmvid_tpu_torch.models.vqgan import VQGanConfig, VQGanVAE
+from mmvid_tpu_torch.tokenizer import SimpleTokenizer
+from mmvid_tpu_torch.weights import load_weights
 
 
 @torch.no_grad()
@@ -230,3 +237,141 @@ def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
         text_emb_bottleneck=args.text_emb_bottleneck, clip=clip_cfg)
     return MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype,
                      param_dtype=param_dtype).to(device)
+
+
+def get_tokenizer(args):
+    """reference utils_train.py:185-191 ('simple' | 'hug')."""
+    which = getattr(args, 'which_tokenizer', 'simple')
+    if which == 'simple':
+        return SimpleTokenizer(args.bpe_path) if args.bpe_path \
+            else SimpleTokenizer()
+    if which == 'hug':
+        from transformers import AutoTokenizer
+        hf = AutoTokenizer.from_pretrained(args.bpe_path)
+
+        class HugWrap:
+            vocab_size = hf.vocab_size
+
+            def tokenize(self, texts, context_length, truncate_text=False):
+                if isinstance(texts, str):
+                    texts = [texts]
+                enc = hf(texts, padding='max_length', truncation=True,
+                         max_length=context_length)
+                return np.asarray(enc['input_ids'], np.int32)
+
+        return HugWrap()
+    raise NotImplementedError(which)
+
+
+def check_pretrained_stack(args) -> None:
+    """The JAX package grafts the pretrained CLIP resblocks from
+    ``--openai_clip_model_path`` into an openai_clip_* backbone, and
+    warns and initializes it randomly when the archive is missing.  The
+    port warns the same way; it cannot read the archive yet, so it raises
+    where one is given rather than train from random weights."""
+    if not args.which_transformer.startswith('openai_clip'):
+        return
+    path = getattr(args, 'openai_clip_model_path', None)
+    if path and os.path.exists(path):
+        raise NotImplementedError(
+            f'{path}: grafting the pretrained CLIP stack from a torch.jit '
+            'archive is not ported yet (ROADMAP.md queue A)')
+    warnings.warn(
+        f'openai_clip_model_path {path!r} not found: the '
+        f'{args.which_transformer} backbone will be RANDOMLY initialized. '
+        'The reference recipe finetunes the pretrained CLIP stack '
+        '(clip_model.py:535-543); results will not be comparable without '
+        'ViT-B-32.pt.', stacklevel=2)
+
+
+def taming_vqgan_state(path: str) -> dict:
+    """A taming-transformers VQGAN ``.ckpt``'s VQModel weights: its
+    ``state_dict`` without the loss and colorize entries."""
+    sd = torch.load(path, map_location='cpu', weights_only=False)
+    return {k: v for k, v in sd['state_dict'].items()
+            if not k.startswith(('loss.', 'colorize'))}
+
+
+def get_driver_model(args, device='cuda', use_cvae=None,
+                     training: bool = True):
+    """The drivers' model from CLI args, as ``mmvid_tpu/factories.py::
+    get_dalle`` builds it: with ``--bf16`` (or ``--fp16``) fp32 parameters
+    computing in bf16 (a serving build, ``training`` False, keeps its
+    weights in bf16, as ``generate.load_model`` does), else fp32
+    throughout; no remat.  Every weight is drawn by :func:`init_weights`
+    from ``--seed``; then ``--vae_path`` / ``--cvae_path`` load taming
+    VQGAN checkpoints.  ``use_cvae`` (default: a ``--cvae_path`` is given)
+    adds the visual-control VQGAN.  The VQGANs compute, and keep their
+    weights, in the compute dtype.  Returns the model, on ``device``."""
+    if getattr(args, 'fixed_language_model', None) is not None:
+        raise NotImplementedError(
+            'fixed_language_model text features are not ported yet '
+            '(ROADMAP.md queue A, item 9)')
+    check_pretrained_stack(args)
+    bf16 = getattr(args, 'bf16', False) or getattr(args, 'fp16', False)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if use_cvae is None:
+        use_cvae = bool(getattr(args, 'cvae_path', None))
+    vae = get_vae_model(args, dtype=dtype, device=device)
+    cvae = get_vae_model(args, dtype=dtype, device=device) if use_cvae \
+        else None
+    model = get_dalle(args, vae, cvae, dtype=dtype, device=device,
+                      param_dtype=torch.float32 if training else dtype)
+    init_weights(model, torch.Generator().manual_seed(args.seed))
+    if getattr(args, 'vae_path', None):
+        load_weights(vae.model, taming_vqgan_state(args.vae_path))
+    if cvae is not None and getattr(args, 'cvae_path', None):
+        load_weights(cvae.model, taming_vqgan_state(args.cvae_path))
+    return model
+
+
+def get_dataset(args, tokenizer):
+    """reference utils_train.py get_dataset: route by args.dataset, as
+    ``mmvid_tpu/factories.py`` routes it."""
+    from mmvid_tpu_torch.data import (
+        TextImageDataset,
+        TextImageStackDataset,
+        TextVideoDataset,
+        VoxDataset,
+    )
+    keys = None
+    if args.dataset_keys:
+        with open(args.dataset_keys) as f:
+            keys = [line.strip() for line in f if line.strip()]
+    common = dict(
+        text_len=args.text_seq_len, image_size=args.image_size or 128,
+        truncate_captions=args.truncate_captions,
+        resize_ratio=args.resize_ratio, tokenizer=tokenizer,
+        cache=args.dataset_cache, deterministic=args.deterministic,
+        frame_step=args.frame_step, frame_num=args.frame_num, keys=keys,
+        video_only=args.video_only)
+    if args.dataset == 'video_text':
+        return TextVideoDataset(args.image_text_folder,
+                                return_neg=args.negvc,
+                                drop_sentence=args.drop_sentence, **common)
+    if args.dataset == 'imagestack_text':
+        # reference utils_train.py:64-80: TextImageStackDataset in video
+        # mode with return_vc=True (first frame as the visual control)
+        return TextImageStackDataset(
+            args.image_text_folder, text_len=args.text_seq_len,
+            image_size=args.image_size or 128,
+            truncate_captions=args.truncate_captions,
+            resize_ratio=args.resize_ratio, tokenizer=tokenizer,
+            deterministic=args.deterministic, frame_step=args.frame_step,
+            frame_num=args.frame_num, keys=keys,
+            video_only=args.video_only, cache=args.dataset_cache)
+    if args.dataset == 'image_text':
+        return TextImageDataset(
+            args.image_text_folder, text_len=args.text_seq_len,
+            image_size=args.image_size or 128,
+            truncate_captions=args.truncate_captions,
+            resize_ratio=args.resize_ratio, tokenizer=tokenizer,
+            cache=args.dataset_cache, deterministic=args.deterministic)
+    if args.dataset in ('vox', 'mmvoxceleb'):
+        return VoxDataset(args.image_text_folder, attr_mode=args.attr_mode,
+                          return_neg=args.negvc, **common)
+    if args.dataset in ('mp4_text', 'iper', 'shape', 'shape_attr'):
+        raise NotImplementedError(
+            f'--dataset {args.dataset} is not ported yet (ROADMAP.md '
+            'queue A, item 4)')
+    raise NotImplementedError(args.dataset)

@@ -24,8 +24,10 @@ Usage:
         --prompts "a man is smiling"
 
 ``load_model`` and ``generate_videos`` need only torch and numpy;
-``main`` also writes files through ``mmvid_tpu_torch.utils.html``, whose
-writers import PIL or imageio when they write.
+``main`` also writes files through ``mmvid_tpu_torch.utils.html``: PNG
+strips with numpy alone (``data/png.py``), GIF and MP4 through imageio
+(or OpenCV for MP4), whose import ``main`` checks before it loads the
+model.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from mmvid_tpu_torch.models.mmvid import DEFAULT_MP_CONFIG
 from mmvid_tpu_torch.ops.int8 import quantize_for_serving
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
 from mmvid_tpu_torch.utils.html import (
+    check_writer,
     save_gif,
     save_image_array,
     save_mp4,
@@ -50,7 +53,7 @@ from mmvid_tpu_torch.utils.html import (
 )
 from mmvid_tpu_torch.weights import load_weights, read_dalle_checkpoint
 
-_HPARAM_KEYS = ('dim', 'text_seq_len', 'num_targets', 'num_visuals',
+HPARAM_KEYS = ('dim', 'text_seq_len', 'num_targets', 'num_visuals',
                 'which_transformer', 'image_size', 'insert_sep',
                 'use_separate_visual_emb', 'fixed_language_model',
                 'text_emb_bottleneck', 'loss_img_weight', 'ar')
@@ -116,7 +119,7 @@ def load_model(args):
     ``args.dalle_path``; the checkpoint's hparams override the shape
     flags, and ``ar`` among them builds ART-V."""
     ckpt = read_dalle_checkpoint(args.dalle_path)
-    for k in _HPARAM_KEYS:
+    for k in HPARAM_KEYS:
         if ckpt['hparams'].get(k) is not None:
             setattr(args, k, ckpt['hparams'][k])
     dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -129,10 +132,8 @@ def load_model(args):
     model = factories.get_dalle(args, vae, cvae, dtype=dtype,
                                 device=args.device)
     if args.vae_path:
-        sd = torch.load(args.vae_path, map_location='cpu',
-                        weights_only=False)['state_dict']
-        weights.update({f'vae.model.{k}': v for k, v in sd.items()
-                        if not k.startswith(('loss.', 'colorize'))})
+        weights.update({f'vae.model.{k}': v for k, v in
+                        factories.taming_vqgan_state(args.vae_path).items()})
     load_weights(model, weights)
     model = model.eval()
     if getattr(args, 'int8', False) and not getattr(args, 'ar', False):
@@ -177,7 +178,14 @@ def generate_videos(model, tokenizer, prompts, batch_size: int,
 
 
 def main(args=None):
-    args = args or parse_args()
+    """Run the CLI on ``args`` (parsed flags, or the argument list to
+    parse; the command line when None)."""
+    if args is None or isinstance(args, (list, tuple)):
+        args = parse_args(args)
+    try:
+        check_writer(args.format)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
     # forced acceptance is a benchmark's ceiling, garbage by design: refused
     # in serving, as the JAX CLI refuses it
     if (os.environ.get('MMVID_ARTV_SPEC_FORCE') == '1'

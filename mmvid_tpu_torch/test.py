@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Test driver of the port in sample mode (reference test.py:27-292).
+
+The twin of the repository's ``test.py``, with the same CLI: the released
+``scripts/mmvoxceleb/*/test.sh`` flags run unchanged as
+
+    python -m mmvid_tpu_torch.test <the test.sh flags> [--device cpu]
+
+Loads ``--dalle_path`` (a ``dalle.pt``, a checkpoint directory or a run
+directory) or the latest checkpoint under ``<log_root>/<name>``; the
+checkpoint's hparams override the model flags; seeds ``random`` and
+``np.random`` from ``--seed``, loads deterministically, takes the first
+batch (with ``--description`` as every caption, if given) and writes
+``visualize_train`` grids into ``<log_root>/<name><suffix>/samples`` and,
+with ``--use_html``, the page.  The sampler: mask-predict, ART-V for an
+``ar`` checkpoint or ``--ar``, ``--ar --spec K`` (the exact speculative
+decode, with JAX's refusals), ``--int8`` (``quantize_for_serving``, or
+ART-V's int8 decode).  ``--eval_mode eval`` (FVD / PRD / CLIP) and
+``--eval_mode long`` are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from pathlib import Path
+
+import numpy as np
+
+def main(argv=None):
+    from mmvid_tpu_torch.config import process_args
+    return main_worker(process_args(train=False, argv=argv))
+
+
+def main_worker(args):
+    """Sample as ``args`` say; returns the samples directory and the
+    seconds ``visualize_train`` took (``{'sample_dir', 'sample_s'}``)."""
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch.data.loader import DataLoader, infinite_batches
+    from mmvid_tpu_torch.generate import HPARAM_KEYS
+    from mmvid_tpu_torch.train import (
+        VIZ_SALT,
+        load_dalle_weights,
+        refuse_multi_device,
+        resolve_device,
+        step_generator,
+    )
+    from mmvid_tpu_torch.utils.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+    )
+
+    # MMVID_ARTV_SPEC_FORCE accepts every speculative draft — a bench-only
+    # ceiling knob whose output is garbage by design (artv_spec.py)
+    if (os.environ.get('MMVID_ARTV_SPEC_FORCE') == '1'
+            and not args.bench_unsafe):
+        raise SystemExit(
+            'MMVID_ARTV_SPEC_FORCE=1 is a bench-only ceiling knob that '
+            'accepts all speculative drafts — outputs would be garbage. '
+            'Unset it, or pass --bench_unsafe if you really are '
+            'benchmarking through this CLI.')
+    if args.eval_mode in ('eval', 'long'):
+        raise NotImplementedError(
+            f'--eval_mode {args.eval_mode} is not ported yet (ROADMAP.md '
+            'queue A, items 3 and 7)')
+    refuse_multi_device(args)
+    device = resolve_device(args.device)
+
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    args.deterministic = True
+    log_dir = Path(args.log_root) / (args.name + args.name_suffix)
+
+    # ---- checkpoint discovery (reference test.py:51-57) ----
+    ckpt_path = args.dalle_path
+    if ckpt_path is None:
+        train_dir = Path(args.log_root) / args.name
+        ckpt_path = latest_checkpoint(str(train_dir))
+        if ckpt_path is None:
+            raise FileNotFoundError(f'no checkpoint under {train_dir}')
+    print(f'loading checkpoint {ckpt_path}')
+    ckpt, hparams = load_checkpoint(str(ckpt_path))
+    # hparams frozen into the checkpoint override CLI (train.py:160-174)
+    for k in HPARAM_KEYS:
+        if hparams.get(k) is not None:
+            setattr(args, k, hparams[k])
+    if args.spec:
+        if not args.ar:
+            raise SystemExit('--spec requires --ar (speculative decode '
+                             'accelerates the autoregressive sampler)')
+        if args.int8:
+            raise SystemExit('--spec is a bf16 decode path; drop --int8')
+
+    tokenizer = factories.get_tokenizer(args)
+    weights = ckpt['weights']
+    use_cvae = args.use_cvae or any(k.startswith('cvae.') for k in weights)
+    model = factories.get_driver_model(args, device, use_cvae=use_cvae,
+                                       training=False).eval()
+    load_dalle_weights(model, weights)
+    generate_kw = {}
+    if args.int8:
+        if args.ar:
+            # ART-V int8 serving lives inside ar_sample (int8 weights +
+            # int8 KV caches)
+            generate_kw['int8'] = True
+            print('int8: ART-V decode (int8 weights + int8 KV caches)')
+        else:
+            from mmvid_tpu_torch.ops.int8 import quantize_for_serving
+            model = quantize_for_serving(model)
+            print('int8: backbone quantized (w8a8, calibrated static '
+                  'scales)')
+
+    dataset = factories.get_dataset(args, tokenizer)
+    print(f'{len(dataset)} samples found')
+    if len(dataset) == 0:
+        raise SystemExit(
+            'dataset is empty after filtering (e.g. every clip shorter '
+            'than the min_len=8 frame requirement)')
+    loader = DataLoader(dataset, batch_size=args.batch_size,
+                        shuffle=not args.deterministic,
+                        num_workers=min(args.num_workers, 16),
+                        seed=args.seed, drop_last=True)
+    batch = next(infinite_batches(loader))
+    if args.description is not None:
+        batch['text'] = tokenizer.tokenize(
+            [args.description] * args.batch_size, args.text_seq_len,
+            truncate_text=True)
+        batch['description'] = [args.description] * args.batch_size
+
+    # default: sampling visualization (reference visualize_test)
+    from mmvid_tpu_torch.utils.viz import visualize_train
+    webpage = None
+    if args.use_html:
+        from mmvid_tpu_torch.utils.html import initialize_webpage
+        webpage = initialize_webpage(str(log_dir / 'web'),
+                                     'MMVID-TPU test: ' + args.name, False)
+    if generate_kw:
+        model.generate_images = _with_defaults(model.generate_images,
+                                               generate_kw)
+    flag = os.environ.get('MMVID_ARTV_SPEC')
+    if args.spec:   # ar_sample reads it at every call
+        os.environ['MMVID_ARTV_SPEC'] = str(args.spec)
+        print(f'speculative AR decode: chunks of {args.spec} '
+              f'copy-previous-frame drafts, exact verification')
+    sample_dir = log_dir / 'samples'
+    t = time.perf_counter()
+    try:
+        visualize_train(model, batch,
+                        step_generator(args.seed, 0, VIZ_SALT, device),
+                        str(sample_dir), 0, n_sample=args.n_sample,
+                        n_per_sample=args.n_per_sample,
+                        mask_predict_steps=args.mask_predict_steps,
+                        mask_predict_steps1=args.mask_predict_steps1,
+                        vc_mode=args.vc_mode, rand_visual=args.rand_visual,
+                        counterfactual=(args.num_visuals > 0),
+                        debug=args.debug, test_mode=args.test_mode,
+                        webpage=webpage, mp_config=args.mp_config)
+    finally:
+        if args.spec and flag is None:
+            os.environ.pop('MMVID_ARTV_SPEC', None)
+        elif args.spec:
+            os.environ['MMVID_ARTV_SPEC'] = flag
+    print(f'wrote samples to {sample_dir}')
+    return {'sample_dir': str(sample_dir),
+            'sample_s': time.perf_counter() - t}
+
+
+def _with_defaults(fn, defaults):
+    def call(*a, **kw):
+        return fn(*a, **{**defaults, **kw})
+    return call
+
+
+if __name__ == '__main__':
+    main()
