@@ -22,9 +22,13 @@ control frame through the cvae; then int8 serving: the flagship calibrated by
 text-to-video recipe's MSM / REL / VID step at full width (fp32
 parameters, bf16 compute, each block rematerialised, the frozen VQGAN
 tokenizing targets and the warped frame inside the step) and one ART-V
-step; then the recipes' drivers, ``python -m mmvid_tpu_torch.train`` and
-``.test`` through ``main_worker`` on the released scripts' flags, over
-synthetic PNG clips.
+step; then evaluation (FVD / PRD through ``eval.evaluate.evaluate`` at
+batch 16 with a random I3D); then the recipes' drivers, ``python -m
+mmvid_tpu_torch.train`` and ``.test`` through ``main_worker`` on the
+released scripts' flags, over synthetic PNG clips: training, sampling,
+``evaluation.sh``'s FVD / PRD, and a full-size ViT-B/32-shaped CLIP
+archive grafted into a training run and scoring through ``--eval_metric
+clip``.
 The paths' models, inputs and batch-16 timings come from
 ``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``, ``measure``,
 ``build_train``, ``train_batch``, ``measure_train``).
@@ -40,7 +44,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    views with mask_prev and causal masks, D 64 and 32, and the share of
    outputs that differ from plain; times beside
    ``F.scaled_dot_product_attention`` with the same float mask on the
-   packed views at L 629 and L 565.
+   packed views at L 629 and L 565; the fp32 route at the CLIP scorer's
+   shapes (B16 D64: L 50 H12 without a mask, L 77 H8 causal) against its
+   plain version, timed beside SDPA in fp32.
    Then the int8 attention kernel (``MMVID_ATTN_INT8=1``) vs its plain
    version at L 565 and 629, B16 H12 D64 bf16 on the packed views, given
    the mask with its compact form as the models give it (the compact
@@ -124,7 +130,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
     backward; the VQGAN unchanged), then 8 steps on a fixed batch with
     fixed draws at a constant lr (the loss falls); then one ART-V step
     (attention 12, nearest code 1, backward 12).
-17. the training driver (``mmvid_tpu_torch.train.main_worker``) on
+17. evaluation at full width: the flagship (bf16, 20 rounds) at batch
+    16 through ``eval.evaluate.evaluate`` over 64 samples, random I3D
+    (MMVID_ALLOW_RANDOM_I3D=1): launch counts exact, embeddings finite,
+    FVD of a set against itself about 0, I3D on the card against the CPU
+    on one clip (TF32 off; with TF32 reported); then
+    ``bench_eval.measure_eval``: samples/s, the 2048-sample
+    extrapolation, generation and ping-pong + I3D ms a batch, peak
+    memory, I3D's ms a batch with and without TF32.
+18. the training driver (``mmvid_tpu_torch.train.main_worker``) on
     ``text_to_video/train.sh``'s flags (``--bf16``, batch 48, 6
     iterations, checkpoints and grids every 3) over a synthetic tree of
     128 px PNG clips written by the port's writer through every filter
@@ -134,10 +148,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
     unchanged, the files written, attention's backward calls exact, the
     kernels launched; step ms, loader wait, idle share, save seconds and
     bytes, peak memory.
-18. the test driver (``mmvid_tpu_torch.test.main_worker``) on
+19. the test driver (``mmvid_tpu_torch.test.main_worker``) on
     ``text_to_video/test.sh``'s flags, sampling the training run's latest
     checkpoint: videos finite in [0, 1], the grid written, the kernels
-    launched; frames/s.
+    launched; frames/s.  Then on ``text_to_video/evaluation.sh``'s flags
+    (``--eval_num 64``, random I3D): every artifact written, FVD finite,
+    the embeddings [64, 400], the kernels launched.
+20. CLIP: a ViT-B/32-shaped torch.jit archive traced from the port's
+    ``models/clip_full.py`` on random weights; the training driver on
+    ``train.sh``'s flags with ``--openai_clip_model_path`` at it, one
+    step (the backbone grafted equal to the archive's resblocks, a finite
+    loss); the test driver with ``--eval_metric clip`` over 32 samples
+    (``clip_score.txt``, the score in [-1, 1], attention launched).
 
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
 then as its last line ``{"ok": true, "device": {...}}``.  Run from the
@@ -150,6 +172,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -250,6 +273,22 @@ TRAIN_BACKWARD_CALLS = {'train': 3 * 12, 'train_artv': 12}
 # steps on one fixed batch with fixed draws at a constant lr, over which
 # the full-width loss must fall
 FALL_STEPS = 8
+# the CLIP scorer's attention (models/clip_full.py, fp32): ViT-B/32's
+# visual tower (L 50, 12 heads, no mask) and text tower (L 77, 8 heads,
+# causal), D 64, at the eval's 16 frames or captions a call
+CLIP_ATTN_SHAPES = ((16, 50, 12, False), (16, 77, 8, True))
+# eval at the evaluation script's batch 16: 4 batches (the driver's
+# --eval_num 64); a batch of the flagship at 20 rounds launches attention
+# 12 x 20 times and the sample head 20 times
+EVAL_BATCH, EVAL_SAMPLES = 16, 64
+EVAL_LAUNCHES = {'attention': 12 * 20, 'sample_head': 20}
+# I3D on the card (fp32, TF32 off) vs the CPU on one clip: max abs error
+# over the largest |activation|; fp32 convolutions summed in other orders
+# through 57 layers
+I3D_CARD_TOL = 1e-3
+# FVD of a set against itself, over the trace of its covariance (the
+# eigendecomposition's fp64 rounding)
+FVD_SELF_TOL = 1e-6
 # int8 attention kernel vs plain (disagreement below): the integers are
 # the same, and only expf's last bit can move p * 127 across a rounding
 # tie (one quantization step of one output over its row sum) or the row
@@ -516,7 +555,52 @@ def phase_attention():
     print(f'[attention] fp32 CUDA-core kernel: L629 '
           f'{fp32_rows[629]["ms"]:.4f} ms, L565 {fp32_rows[565]["ms"]:.4f} '
           f'ms', flush=True)
-    return rows, fp32_rows
+    return rows, fp32_rows, _attention_clip_shapes()
+
+
+def _attention_clip_shapes():
+    """The fp32 route at the CLIP scorer's shapes (CLIP_ATTN_SHAPES), on
+    packed views with the masks the towers pass (none for the visual
+    tower, the causal ``AttentionMask`` for the text tower): max abs
+    error against the plain version (ATTN_TOL fp32), kernel, plain and
+    SDPA fp32 ms on the same float mask, and the fp32 bound."""
+    import torch
+    from mmvid_tpu_torch.models.clip import attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+
+    out_rows = {}
+    for b, l, h, causal in CLIP_ATTN_SHAPES:
+        d = 64
+        q, k, v = _attention_inputs(b, l, h, d, torch.float32, True, l + 3)
+        mask = attention_mask(l, 'causal', device='cuda') if causal else None
+        dense = (mask.dense if causal
+                 else torch.zeros((l, l), device='cuda'))
+        out = A.fused_attention_blhd(q, k, v, mask)
+        ref = A.attention_reference(q, k, v, dense, d ** -0.5)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = ATTN_TOL[('float32', False)]
+        tag = (f'B={b} L={l} H={h} D={d} fp32 '
+               f'{"causal" if causal else "no mask"}')
+        if not err <= tol:
+            fail(f'attention (CLIP) {tag}: max abs err {err} > {tol}')
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=dense))
+        ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, mask))
+        plain_ms = cuda_time_ms(lambda: A.attention_reference(
+            q, k, v, dense, d ** -0.5))
+        bms, by = bound(4 * b * l * h * d * 4 + l * l * 4,
+                        4 * b * h * l * l * d, 'fp32')
+        out_rows[f'L{l}_H{h}'] = {
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'library_ms': lib_ms, 'bound_ms': bms, 'bound_by': by,
+            'mask': 'causal' if causal else 'none'}
+        print(f'[attention] CLIP {tag}: max abs err {err:.3e} (tol {tol}); '
+              f'kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa fp32 '
+              f'{lib_ms:.4f} ms bound {bms:.4f} ms ({by})', flush=True)
+    return out_rows
 
 
 def _packed_grads(fn, qkv, cot, mask):
@@ -2464,7 +2548,6 @@ def phase_train_driver(batch: int = 48):
     unchanged in the checkpoints, checkpoint and grid files written,
     attention's backward calls exact (36 a step: 12 layers x 3
     forwards, no remat), the kernels launched."""
-    import shutil
     import tempfile
 
     import torch
@@ -2633,58 +2716,319 @@ def phase_test_driver(run_dir: str, tmp: str):
     20 mask-predict rounds (fp32, as the script runs it), the grid and
     the page.  Gates: videos finite and in [0, 1], the grid written, the
     attention, sample-head and nearest-code kernels launched."""
-    import shutil
-
     import torch
     from mmvid_tpu_torch import test as driver
     from mmvid_tpu_torch.config import process_args
     from mmvid_tpu_torch.models.mmvid import MMVIDBert
 
+    argv = recipe_argv('text_to_video', 'test.sh', {
+        '--image_text_folder': os.path.join(tmp, 'vox_text'),
+        '--dalle_path': run_dir}) + [
+        '--log_root', os.path.join(tmp, 'logs')]
+    args = process_args(train=False, argv=argv)
+    seen = []
+    orig = MMVIDBert.generate_images
+
+    def recorded(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        v = out[0].float()
+        seen.append((tuple(v.shape), bool(torch.isfinite(v).all()),
+                     float(v.min()), float(v.max())))
+        return out
+
+    reset_counts()
+    MMVIDBert.generate_images = recorded
     try:
-        argv = recipe_argv('text_to_video', 'test.sh', {
-            '--image_text_folder': os.path.join(tmp, 'vox_text'),
-            '--dalle_path': run_dir}) + [
-            '--log_root', os.path.join(tmp, 'logs')]
-        args = process_args(train=False, argv=argv)
-        seen = []
-        orig = MMVIDBert.generate_images
-
-        def recorded(self, *a, **kw):
-            out = orig(self, *a, **kw)
-            v = out[0].float()
-            seen.append((tuple(v.shape), bool(torch.isfinite(v).all()),
-                         float(v.min()), float(v.max())))
-            return out
-
-        reset_counts()
-        MMVIDBert.generate_images = recorded
-        try:
-            t0 = time.perf_counter()
-            out = driver.main_worker(args)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            MMVIDBert.generate_images = orig
-        counts = read_counts()
-        frames = sum(s[0][0] * s[0][1] for s in seen)
-        print(f'[test driver] {len(seen)} sampling calls {seen}; '
-              f'visualize_train {out["sample_s"]:.2f} s '
-              f'({frames / out["sample_s"]:.2f} frames/s, the '
-              f'reconstruction and the grid included); {wall:.2f} s with '
-              f'the load; launches {counts}', flush=True)
-        if not seen or not all(ok and lo >= 0 and hi <= 1
-                               for _, ok, lo, hi in seen):
-            fail('test driver: videos not finite or outside [0, 1]')
-        grid = os.path.join(out['sample_dir'], '0000000_0.png')
-        if not os.path.isfile(grid):
-            fail(f'test driver: {grid} not written')
-        for name in ('attention', 'sample_head', 'codebook'):
-            if counts[name] <= 0:
-                fail(f'test driver: {name} launched no time')
-        return {'launches': counts, 'sample_s': out['sample_s'],
-                'frames_s': frames / out['sample_s'], 'calls': len(seen)}
+        t0 = time.perf_counter()
+        out = driver.main_worker(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        MMVIDBert.generate_images = orig
+    counts = read_counts()
+    frames = sum(s[0][0] * s[0][1] for s in seen)
+    print(f'[test driver] {len(seen)} sampling calls {seen}; '
+          f'visualize_train {out["sample_s"]:.2f} s '
+          f'({frames / out["sample_s"]:.2f} frames/s, the '
+          f'reconstruction and the grid included); {wall:.2f} s with '
+          f'the load; launches {counts}', flush=True)
+    if not seen or not all(ok and lo >= 0 and hi <= 1
+                           for _, ok, lo, hi in seen):
+        fail('test driver: videos not finite or outside [0, 1]')
+    grid = os.path.join(out['sample_dir'], '0000000_0.png')
+    if not os.path.isfile(grid):
+        fail(f'test driver: {grid} not written')
+    for name in ('attention', 'sample_head', 'codebook'):
+        if counts[name] <= 0:
+            fail(f'test driver: {name} launched no time')
+    return {'launches': counts, 'sample_s': out['sample_s'],
+            'frames_s': frames / out['sample_s'], 'calls': len(seen)}
+
+
+def _cpu_i3d_check(i3d):
+    """I3D on the card against the same weights on the CPU, one clip of 15
+    frames: (max abs error over max |CPU|, TF32 off as eval runs it; the
+    same with cuDNN's default TF32)."""
+    import copy
+
+    import torch
+    from mmvid_tpu_torch.eval.evaluate import fp32_exact
+    g = torch.Generator().manual_seed(3)
+    clip = torch.rand((1, 15, 224, 224, 3), generator=g) * 2 - 1
+    cpu = copy.deepcopy(i3d).cpu()
+    with torch.no_grad():
+        ref = cpu.embed(clip)
+        with fp32_exact():
+            got = i3d.embed(clip.cuda()).cpu()
+        conv = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = i3d.embed(clip.cuda()).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = conv
+    scale = ref.abs().max().item()
+    return ((got - ref).abs().max().item() / scale,
+            (tf32 - ref).abs().max().item() / scale)
+
+
+def phase_eval():
+    """FVD / PRD evaluation at full width: the flagship (bf16, 20 rounds)
+    at the evaluation script's batch 16 through ``eval.evaluate.evaluate``
+    over EVAL_SAMPLES samples with a random I3D
+    (MMVID_ALLOW_RANDOM_I3D=1): launch counts exact (EVAL_LAUNCHES a
+    batch), embeddings finite [EVAL_SAMPLES, 400], FVD of the generated
+    set against itself about 0 (FVD_SELF_TOL), I3D on the card within
+    I3D_CARD_TOL of the CPU on one clip (TF32 off; the TF32 reading
+    reported); then ``bench_eval.measure_eval``: samples/s, the 2048-sample
+    extrapolation, generation and ping-pong + I3D ms a batch, peak
+    memory, and I3D's ms a batch with TF32 for comparison."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mmvid_tpu_torch import bench_eval, breakdown
+    from mmvid_tpu_torch.eval import evaluate as E
+    from mmvid_tpu_torch.eval.fvd import frechet_distance, preprocess_videos
+
+    os.environ['MMVID_ALLOW_RANDOM_I3D'] = '1'
+    os.environ.pop('I3D_CHECKPOINT', None)
+    model = breakdown.build('flagship')
+    n_batches = EVAL_SAMPLES // EVAL_BATCH
+    with tempfile.TemporaryDirectory(prefix='mmvid_eval_') as tmp:
+        args = bench_eval.eval_args(model, EVAL_BATCH, EVAL_SAMPLES, tmp)
+        batches = bench_eval.synthetic_batches(model, EVAL_BATCH, n_batches)
+        reset_counts()
+        res = E.evaluate(args, model, batches, metrics=('fvd', 'prd'))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        real = np.load(os.path.join(tmp, 'real_embs.npy'))
+        fake = np.load(os.path.join(tmp, 'fake_embs.npy'))
+    want = expected(**{k: v * n_batches for k, v in EVAL_LAUNCHES.items()})
+    print(f'[eval] {EVAL_SAMPLES} samples at batch {EVAL_BATCH}: FVD '
+          f'{res["fvd"]:.4f}, PRD {res["prd"]}; launches {counts}',
+          flush=True)
+    if counts != want:
+        fail(f'eval: launches {counts} != {want}')
+    for name, e in (('real', real), ('fake', fake)):
+        if e.shape != (EVAL_SAMPLES, 400) or not np.isfinite(e).all():
+            fail(f'eval: {name} embeddings {e.shape}, finite '
+                 f'{np.isfinite(e).all()}')
+    if not np.isfinite(res['fvd']):
+        fail(f'eval: FVD {res["fvd"]}')
+    self_fvd = frechet_distance(fake, fake)
+    trace = float(np.trace(np.cov(fake, rowvar=False)))
+    print(f'[eval] FVD of the generated set against itself {self_fvd:.3e} '
+          f'(trace of its covariance {trace:.4f})', flush=True)
+    if not abs(self_fvd) <= FVD_SELF_TOL * trace:
+        fail(f'eval: FVD(x, x) = {self_fvd}')
+
+    i3d = E.build_i3d(args, None, torch.device('cuda'))
+    err, err_tf32 = _cpu_i3d_check(i3d)
+    print(f'[eval] I3D card vs CPU, one clip: max abs err / max |CPU| '
+          f'{err:.3e} in fp32 (tol {I3D_CARD_TOL}), {err_tf32:.3e} with '
+          f'TF32', flush=True)
+    if not err <= I3D_CARD_TOL:
+        fail(f'eval: I3D on the card {err} from the CPU')
+
+    timing = bench_eval.measure_eval(model, EVAL_BATCH, EVAL_SAMPLES)
+    clips = preprocess_videos(torch.rand(
+        (EVAL_BATCH, 15, 128, 128, 3), device='cuda'))
+    conv = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            tf32_ms = breakdown.steady(lambda: i3d.embed(clips))[0] * 1e3
+            with E.fp32_exact():
+                fp32_ms = breakdown.steady(lambda: i3d.embed(clips))[0] * 1e3
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.allow_tf32 = conv
+    out = {**timing, 'launches': counts, 'fvd_self': self_fvd,
+           'i3d_card_vs_cpu': err, 'i3d_tf32_vs_cpu': err_tf32,
+           'i3d_batch_ms_fp32': fp32_ms, 'i3d_batch_ms_tf32': tf32_ms}
+    print(f'[eval] {json.dumps(out)}', flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_metrics(tag, metric_dir, n):
+    import numpy as np
+    for name in ('real_embs.npy', 'fake_embs.npy', 'fvd_score.txt',
+                 'prd_data.pkl', 'prd_score.txt'):
+        if not os.path.isfile(os.path.join(metric_dir, name)):
+            fail(f'{tag}: {name} not written')
+    for name in ('real_embs.npy', 'fake_embs.npy'):
+        e = np.load(os.path.join(metric_dir, name))
+        if e.shape != (n, 400) or not np.isfinite(e).all():
+            fail(f'{tag}: {name} {e.shape}')
+    with open(os.path.join(metric_dir, 'fvd_score.txt')) as f:
+        text = f.read()
+    if f'n_samples = {n}' not in text:
+        fail(f'{tag}: fvd_score.txt says {text!r}')
+
+
+def phase_test_driver_eval(run_dir: str, tmp: str):
+    """``python -m mmvid_tpu_torch.test`` through ``main_worker`` on
+    ``text_to_video/evaluation.sh``'s flags verbatim but the data and log
+    paths, ``--dalle_path`` (the training driver's run directory) and
+    ``--eval_num`` EVAL_SAMPLES (4 batches of 16), random I3D: every
+    artifact written, FVD finite, the embeddings [EVAL_SAMPLES, 400], the
+    attention and sample-head kernels launched."""
+    import math
+
+    import torch
+    from mmvid_tpu_torch import test as driver
+    from mmvid_tpu_torch.config import process_args
+
+    os.environ['MMVID_ALLOW_RANDOM_I3D'] = '1'
+    os.environ.pop('I3D_CHECKPOINT', None)
+    argv = recipe_argv('text_to_video', 'evaluation.sh', {
+        '--image_text_folder': os.path.join(tmp, 'vox_text'),
+        '--dalle_path': run_dir, '--eval_num': str(EVAL_SAMPLES)}) + [
+        '--log_root', os.path.join(tmp, 'logs')]
+    args = process_args(train=False, argv=argv)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = driver.main_worker(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f'[test driver eval] {args.eval_metric} over {args.eval_num} '
+          f'samples at batch {args.batch_size}: {results}; {wall:.2f} s '
+          f'with the load; launches {counts}', flush=True)
+    if not math.isfinite(results.get('fvd', math.nan)):
+        fail(f'test driver eval: FVD {results.get("fvd")}')
+    _check_metrics('test driver eval', args.log_metric_dir, EVAL_SAMPLES)
+    for name in ('attention', 'sample_head'):
+        if counts[name] <= 0:
+            fail(f'test driver eval: {name} launched no time')
+    return {'launches': counts, 's': wall, 'fvd': results['fvd'],
+            'prd': results['prd']}
+
+
+def write_clip_archive(path: str, seed: int = 0) -> float:
+    """A ``ViT-B-32.pt``-format torch.jit archive at ViT-B/32's full size
+    (``models/clip_full.py::ClipConfig()``), weights from ``seed``, traced
+    on the CPU (the card's kernels are ctypes calls, which a trace does
+    not record); returns the seconds it took."""
+    import warnings
+
+    import torch
+    from mmvid_tpu_torch.models import clip_full
+    t0 = time.perf_counter()
+    cfg = clip_full.ClipConfig()
+    model = clip_full.CLIP(cfg).eval()
+    clip_full.init_random(model, torch.Generator().manual_seed(seed))
+    img = torch.zeros(1, 3, cfg.image_resolution, cfg.image_resolution)
+    txt = torch.zeros(1, cfg.context_length, dtype=torch.long)
+    txt[0, -1] = cfg.vocab_size - 1
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        traced = torch.jit.trace(model, (img, txt), check_trace=False)
+        torch.jit.save(traced, path)
+    return time.perf_counter() - t0
+
+
+def phase_clip(run_dir: str, tmp: str):
+    """The CLIP archive at full size: the graft (``python -m
+    mmvid_tpu_torch.train`` on ``text_to_video/train.sh``'s flags with
+    ``--openai_clip_model_path`` at the archive, ``--bf16``, one step:
+    the backbone equal to the archive's visual resblocks when grafted,
+    a finite loss), then the CLIP score (``.test`` on
+    ``evaluation.sh``'s flags with ``--eval_metric clip``, 32 samples, the
+    training driver's run): ``clip_score.txt`` written, the score in
+    [-1, 1], attention launched (generation, and the scorer's towers on
+    the fp32 route)."""
+    import torch
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch import test as test_driver
+    from mmvid_tpu_torch import train as train_driver
+    from mmvid_tpu_torch.config import process_args
+
+    archive = os.path.join(tmp, 'ViT-B-32.pt')
+    archive_s = write_clip_archive(archive)
+    print(f'[clip] ViT-B/32-shaped archive written in {archive_s:.2f} s, '
+          f'{os.path.getsize(archive)} B', flush=True)
+
+    graft = factories.graft_transformer_params
+    grafted = []
+
+    def checked(model, stack_sd):
+        graft(model, stack_sd)
+        got = model.transformer['transformer'].state_dict()
+        grafted.append(all(torch.equal(got[k].cpu(), v.to(got[k].dtype))
+                           for k, v in stack_sd.items()))
+
+    logs = os.path.join(tmp, 'clip_logs')
+    argv = recipe_argv('text_to_video', 'train.sh', {
+        '--image_text_folder': os.path.join(tmp, 'vox_text'),
+        '--vae_path': os.path.join(tmp, 'vae.ckpt')}) + [
+        '--openai_clip_model_path', archive, '--log_root', logs,
+        '--iters', '1', '--log_every', '1', '--bf16']
+    args = process_args(train=True, argv=argv)
+    factories.graft_transformer_params = checked
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        train_driver.main_worker(args)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        factories.graft_transformer_params = graft
+    losses = _driver_losses(os.path.join(logs, args.name))
+    print(f'[clip] the training driver with the archive: grafted '
+          f'{grafted}, losses {losses}, {train_s:.2f} s', flush=True)
+    if grafted != [True]:
+        fail(f'clip: the graft ran {len(grafted)} times, equal {grafted}')
+    shutil.rmtree(logs, ignore_errors=True)
+
+    argv = recipe_argv('text_to_video', 'evaluation.sh', {
+        '--image_text_folder': os.path.join(tmp, 'vox_text'),
+        '--dalle_path': run_dir, '--eval_num': str(2 * EVAL_BATCH),
+        '--eval_metric': 'clip'}) + [
+        '--log_root', os.path.join(tmp, 'logs'),
+        '--openai_clip_model_path', archive, '--name_suffix', '_eval=clip']
+    args = process_args(train=False, argv=argv)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = test_driver.main_worker(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    mean, std = results['clip']
+    print(f'[clip] CLIP score over {args.eval_num} samples: {mean:.5f} +/- '
+          f'{std:.5f}; {wall:.2f} s with the load; launches {counts}',
+          flush=True)
+    if not (-1 <= mean <= 1 and std >= 0):
+        fail(f'clip: score {results["clip"]}')
+    if not os.path.isfile(os.path.join(args.log_metric_dir,
+                                       'clip_score.txt')):
+        fail('clip: clip_score.txt not written')
+    if counts['attention'] <= 0:
+        fail('clip: attention launched no time')
+    return {'launches': counts, 's': wall, 'clip': results['clip'],
+            'archive_s': archive_s, 'train_step_run_s': train_s}
 
 
 def timed(phase, *args):
@@ -2706,7 +3050,7 @@ def main():
     os.environ.pop('MMVID_ATTN_INT8', None)
     phase_device()
     timed(phase_build)
-    attention, attention_fp32 = timed(phase_attention)
+    attention, attention_fp32, attention_clip = timed(phase_attention)
     attention_bwd = timed(phase_attention_backward)
     attention_int8 = timed(phase_attention_int8)
     artv_decode, decode_by_pos = timed(phase_artv_decode)
@@ -2733,8 +3077,15 @@ def main():
     int8_serving = timed(phase_int8_serving)
     _, artv_int8_counts = timed(phase_artv_int8)
     train, train_artv = timed(phase_train)
+    eval_res = timed(phase_eval)
     train_driver, run_dir, driver_tmp = timed(phase_train_driver)
-    test_driver = timed(phase_test_driver, run_dir, driver_tmp)
+    try:
+        test_driver = timed(phase_test_driver, run_dir, driver_tmp)
+        test_driver_eval = timed(phase_test_driver_eval, run_dir,
+                                 driver_tmp)
+        clip_run = timed(phase_clip, run_dir, driver_tmp)
+    finally:
+        shutil.rmtree(driver_tmp, ignore_errors=True)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
                'attention_int8': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
@@ -2773,6 +3124,13 @@ def main():
                                       'train_driver': train_driver[
                                           'launches'][name],
                                       'test_driver': test_driver[
+                                          'launches'][name],
+                                      # eval: phase_eval's evaluate run
+                                      # and the test driver's runs
+                                      'eval': eval_res['launches'][name],
+                                      'test_driver_eval': test_driver_eval[
+                                          'launches'][name],
+                                      'test_driver_clip': clip_run[
                                           'launches'][name]}}
         if name == 'attention':
             # the bf16 route (the main paths'), the tensor-core kernel,
@@ -2784,7 +3142,10 @@ def main():
                                    'L565': attention[(565, True)]}
             entry['fp32_route'] = {
                 'source': 'mmvid_tpu_torch/csrc/attention.cu',
-                'L629': attention_fp32[629], 'L565': attention_fp32[565]}
+                'L629': attention_fp32[629], 'L565': attention_fp32[565],
+                # the CLIP scorer's towers (fp32): launches in the test
+                # driver's CLIP-score run, generation's included
+                'clip': attention_clip}
             # B1-bwd: JAX's XLA VJP of the kernel (no pallas_call), torch
             # ops here; its calls in the profiled training steps
             entry['backward'] = {

@@ -4,10 +4,11 @@ tokenizers and datasets made from CLI args.
 Counterpart of ``__graft_entry__._flagship`` and of ``get_tokenizer`` /
 ``get_vae_model`` / ``get_dalle`` / ``get_dataset`` in
 ``mmvid_tpu/factories.py`` (mask-predict models with the cvae of the
-visual-control recipes, and ART-V with ``--ar``; the pretrained-CLIP
-graft and the fixed language model come later), the drivers' build
-(:func:`get_driver_model`: JAX's ``get_dalle`` dtypes, weights from a
-seed and taming VQGAN checkpoints), and the training builds of the
+visual-control recipes, and ART-V with ``--ar``; the fixed language
+model comes later), the drivers' build (:func:`get_driver_model`: JAX's
+``get_dalle`` dtypes, weights from a seed, the pretrained CLIP stack
+grafted from ``--openai_clip_model_path`` where the archive exists, and
+taming VQGAN checkpoints), and the training builds of the
 flagship and ART-V (:func:`flagship_train`, :func:`artv_train`: fp32
 parameters, the compute dtype at use, each block rematerialised, as
 ``scripts/bench_train.py`` builds JAX's).  Every factory puts the model
@@ -28,7 +29,10 @@ from torch import nn
 from mmvid_tpu_torch.models.artv import ArtvConfig, ArtvModel
 from mmvid_tpu_torch.models.axial import AxialPositionalEmbedding
 from mmvid_tpu_torch.models.bert import BertConfig
-from mmvid_tpu_torch.models.clip import ClipStackConfig
+from mmvid_tpu_torch.models.clip import (
+    ClipStackConfig,
+    load_openai_clip_stack,
+)
 from mmvid_tpu_torch.models.mmvid import MMVIDBert
 from mmvid_tpu_torch.models.vqgan import VQGanConfig, VQGanVAE
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
@@ -207,12 +211,13 @@ def get_vae_model(args, dtype=torch.float32, device='cuda') -> VQGanVAE:
 
 def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
               dtype=torch.float32, device='cuda',
-              param_dtype=None) -> MMVIDBert | ArtvModel:
+              param_dtype=None, clip_cfg=None) -> MMVIDBert | ArtvModel:
     """MMVIDBert from CLI args, or ArtvModel with ``args.ar``, with
     ``cvae`` tokenizing the visual controls when given (weights left to
     the caller; ``param_dtype``: the dense parameters', ``dtype``
+    unless given; ``clip_cfg``: the backbone's, ``--which_transformer``'s
     unless given)."""
-    clip_cfg = build_clip_config(args.which_transformer)
+    clip_cfg = clip_cfg or build_clip_config(args.which_transformer)
     if args.dim != clip_cfg.width:
         raise ValueError(f'--dim {args.dim} must match the '
                          f'{args.which_transformer} width {clip_cfg.width}')
@@ -263,25 +268,45 @@ def get_tokenizer(args):
     raise NotImplementedError(which)
 
 
-def check_pretrained_stack(args) -> None:
-    """The JAX package grafts the pretrained CLIP resblocks from
-    ``--openai_clip_model_path`` into an openai_clip_* backbone, and
-    warns and initializes it randomly when the archive is missing.  The
-    port warns the same way; it cannot read the archive yet, so it raises
-    where one is given rather than train from random weights."""
+def load_pretrained_stack(args):
+    """(the backbone's ClipStackConfig, the pretrained resblocks'
+    state_dict or None), as ``mmvid_tpu/factories.py::
+    load_pretrained_stack`` resolves them: an openai_clip_* backbone takes
+    the width, layers and heads of ``--openai_clip_model_path``'s stack
+    where that torch.jit archive exists (the reference always finetunes
+    it, clip_model.py:535-543); without the archive, a loud warning and
+    the flag's config, randomly initialized."""
+    clip_cfg = build_clip_config(args.which_transformer)
     if not args.which_transformer.startswith('openai_clip'):
-        return
+        return clip_cfg, None
     path = getattr(args, 'openai_clip_model_path', None)
     if path and os.path.exists(path):
-        raise NotImplementedError(
-            f'{path}: grafting the pretrained CLIP stack from a torch.jit '
-            'archive is not ported yet (ROADMAP.md queue A)')
+        return load_openai_clip_stack(path, args.which_transformer)
     warnings.warn(
         f'openai_clip_model_path {path!r} not found: the '
         f'{args.which_transformer} backbone will be RANDOMLY initialized. '
         'The reference recipe finetunes the pretrained CLIP stack '
         '(clip_model.py:535-543); results will not be comparable without '
         'ViT-B-32.pt.', stacklevel=2)
+    return clip_cfg, None
+
+
+def graft_transformer_params(model, stack_sd) -> None:
+    """Load the pretrained resblocks ``stack_sd`` into ``model``'s
+    backbone (``transformer.transformer``), each key and shape checked,
+    cast to the parameters' dtype."""
+    stack = model.transformer['transformer']
+    fresh = stack.state_dict()
+    missing = sorted(set(fresh) - set(stack_sd))
+    extra = sorted(set(stack_sd) - set(fresh))
+    if missing or extra:
+        raise KeyError(f'pretrained stack keys mismatch: missing={missing} '
+                       f'extra={extra}')
+    for k, v in stack_sd.items():
+        if tuple(v.shape) != tuple(fresh[k].shape):
+            raise ValueError(f'{k}: shape {tuple(v.shape)} != expected '
+                             f'{tuple(fresh[k].shape)}')
+    stack.load_state_dict(stack_sd)
 
 
 def taming_vqgan_state(path: str) -> dict:
@@ -299,15 +324,18 @@ def get_driver_model(args, device='cuda', use_cvae=None,
     computing in bf16 (a serving build, ``training`` False, keeps its
     weights in bf16, as ``generate.load_model`` does), else fp32
     throughout; no remat.  Every weight is drawn by :func:`init_weights`
-    from ``--seed``; then ``--vae_path`` / ``--cvae_path`` load taming
-    VQGAN checkpoints.  ``use_cvae`` (default: a ``--cvae_path`` is given)
-    adds the visual-control VQGAN.  The VQGANs compute, and keep their
-    weights, in the compute dtype.  Returns the model, on ``device``."""
+    from ``--seed``; then an openai_clip_* backbone takes the pretrained
+    resblocks of ``--openai_clip_model_path`` where that archive exists
+    (:func:`load_pretrained_stack`), and ``--vae_path`` / ``--cvae_path``
+    load taming VQGAN checkpoints.  ``use_cvae`` (default: a
+    ``--cvae_path`` is given) adds the visual-control VQGAN.  The VQGANs
+    compute, and keep their weights, in the compute dtype.  Returns the
+    model, on ``device``."""
     if getattr(args, 'fixed_language_model', None) is not None:
         raise NotImplementedError(
             'fixed_language_model text features are not ported yet '
             '(ROADMAP.md queue A, item 9)')
-    check_pretrained_stack(args)
+    clip_cfg, stack_sd = load_pretrained_stack(args)
     bf16 = getattr(args, 'bf16', False) or getattr(args, 'fp16', False)
     dtype = torch.bfloat16 if bf16 else torch.float32
     if use_cvae is None:
@@ -316,8 +344,11 @@ def get_driver_model(args, device='cuda', use_cvae=None,
     cvae = get_vae_model(args, dtype=dtype, device=device) if use_cvae \
         else None
     model = get_dalle(args, vae, cvae, dtype=dtype, device=device,
-                      param_dtype=torch.float32 if training else dtype)
+                      param_dtype=torch.float32 if training else dtype,
+                      clip_cfg=clip_cfg)
     init_weights(model, torch.Generator().manual_seed(args.seed))
+    if stack_sd is not None:
+        graft_transformer_params(model, stack_sd)
     if getattr(args, 'vae_path', None):
         load_weights(vae.model, taming_vqgan_state(args.vae_path))
     if cvae is not None and getattr(args, 'cvae_path', None):

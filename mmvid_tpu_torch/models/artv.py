@@ -282,10 +282,13 @@ def _ln(x, ln: nn.LayerNorm):
 
 
 def _block_params(block):
-    """One resblock's decode operands, cast once per call: fp32 copies of
-    the (compute-dtype) weights as [in, out], fp32 biases."""
+    """One resblock's decode operands, cast once per call: the weights
+    rounded to the compute dtype (JAX's ``cast_block``; a no-op on a
+    serving build's), then as fp32 copies [in, out]; fp32 biases."""
+    dt = block.dtype
+
     def lin(w, b):
-        return w.float().t(), b.float()
+        return w.to(dt).float().t(), b.float()
     return {'ln_1': block.ln_1, 'ln_2': block.ln_2,
             'qkv': lin(block.attn.in_proj_weight, block.attn.in_proj_bias),
             'out': lin(block.attn.out_proj.weight, block.attn.out_proj.bias),
@@ -511,7 +514,7 @@ def ar_sample(core: ArtvCore, text, visual_tokens, generator,
     # the sampler
     ln_head, fc = core.to_logits
     ln_w, ln_b = ln_head.weight.float(), ln_head.bias.float()
-    fc_w = fc.weight[cfg.num_control_tokens:].float().t()
+    fc_w = fc.weight[cfg.num_control_tokens:].to(dt).float().t()
     fc_b = fc.bias[cfg.num_control_tokens:].float()
 
     head8 = (_quant_weight(fc.weight[cfg.num_control_tokens:]) if int8

@@ -113,7 +113,7 @@ def ar_sample_spec(core: ArtvCore, text, visual_tokens, generator,
            .resblocks]
     ln_head, fc = core.to_logits
     ln_w, ln_b = ln_head.weight.float(), ln_head.bias.float()
-    fc_w = fc.weight[cfg.num_control_tokens:].float().t()
+    fc_w = fc.weight[cfg.num_control_tokens:].to(dt).float().t()
     fc_b = fc.bias[cfg.num_control_tokens:].float()
     k_img = min(max(int((1 - filter_thres) * cfg.total_tokens), 1),
                 cfg.num_image_tokens)

@@ -297,3 +297,22 @@ class TransformerStack(nn.Module):
             else:
                 x = block(x, mask, i8[i] if i8 else None, f'blocks_{i}')
         return x.float()
+
+
+def load_openai_clip_stack(model_path: str,
+                           which_model: str = 'openai_clip_visual'):
+    """(ClipStackConfig, the stack's state_dict) of ``ViT-B-32.pt``'s
+    visual or text resblocks (clip_model.py:535-543), read from the
+    torch.jit archive; the state_dict loads into a
+    :class:`TransformerStack` of that config as it is."""
+    from mmvid_tpu_torch.utils.torch_compat import (
+        clip_resblocks,
+        clip_stack_dims,
+        load_torchjit_state_dict,
+    )
+    sd = load_torchjit_state_dict(model_path)
+    prefix = ('visual.transformer' if which_model == 'openai_clip_visual'
+              else 'transformer')
+    width, layers, heads = clip_stack_dims(sd, prefix)
+    return (ClipStackConfig(width=width, layers=layers, heads=heads),
+            clip_resblocks(sd, prefix))

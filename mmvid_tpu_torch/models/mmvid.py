@@ -134,7 +134,7 @@ class MMVIDBert(nn.Module):
             if erase_visual or vc_mode is not None:
                 raise NotImplementedError(
                     'erase_visual/vc_mode with insert_sep: unsupported in '
-                    'the JAX package too (ROADMAP.md queue A, item 6b)')
+                    'the JAX package too (ROADMAP.md queue A, item A3)')
             return tokens
         if erase_visual:
             tokens = random_erase_codebook(generator, tokens, cfg,

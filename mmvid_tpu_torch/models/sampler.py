@@ -176,7 +176,10 @@ def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
         preserve_tokens = torch.full((b, n_total), cfg.mask_token,
                                      dtype=torch.long, device=dev)
     ln, fc = core.to_logits
-    w_head = fc.weight.t().contiguous() if not spec.deterministic else None
+    # W in the compute dtype (a training build holds it in fp32), the bias
+    # in fp32, as JAX's sampler passes them
+    w_head = (fc.weight.to(core.dtype).t().contiguous()
+              if not spec.deterministic else None)
     b_head = fc.bias.float() if not spec.deterministic else None
 
     def forward(tokens, remask):

@@ -88,10 +88,13 @@ class DecodeParams(NamedTuple):
 
 def stack_decode_params(blocks) -> DecodeParams:
     """Stack ``ResidualAttentionBlock``s (models/clip.py) into
-    :class:`DecodeParams`, once per sampling call."""
+    :class:`DecodeParams`, once per sampling call: the weights in the
+    blocks' compute dtype (JAX's ``cast_block``; a training build holds
+    them in fp32), LayerNorm parameters and biases in fp32."""
     def stk(fn, f32=False):
-        t = torch.stack([fn(b).detach() for b in blocks])
-        return (t.float() if f32 else t).contiguous()
+        t = torch.stack([fn(b).detach().to(torch.float32 if f32 else b.dtype)
+                         for b in blocks])
+        return t.contiguous()
     return DecodeParams(
         stk(lambda b: b.ln_1.weight, True), stk(lambda b: b.ln_1.bias, True),
         stk(lambda b: b.ln_2.weight, True), stk(lambda b: b.ln_2.bias, True),

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Test driver of the port in sample mode (reference test.py:27-292).
+"""Test driver of the port: sampling grids and quantitative evaluation
+(reference test.py:27-292).
 
 The twin of the repository's ``test.py``, with the same CLI: the released
 ``scripts/mmvoxceleb/*/test.sh`` flags run unchanged as
@@ -15,8 +16,17 @@ batch (with ``--description`` as every caption, if given) and writes
 with ``--use_html``, the page.  The sampler: mask-predict, ART-V for an
 ``ar`` checkpoint or ``--ar``, ``--ar --spec K`` (the exact speculative
 decode, with JAX's refusals), ``--int8`` (``quantize_for_serving``, or
-ART-V's int8 decode).  ``--eval_mode eval`` (FVD / PRD / CLIP) and
-``--eval_mode long`` are not ported yet (ROADMAP.md).
+ART-V's int8 decode).
+
+``--eval_mode eval`` (``scripts/mmvoxceleb/text_to_video/evaluation.sh``)
+runs the quantitative evaluation at batch 16, as the root ``test.py``
+does: ``--eval_metric fvd``, ``prd`` or ``fvd_prd`` through
+``eval.evaluate.evaluate`` (I3D from ``I3D_CHECKPOINT``, an ``.npz`` of
+the TF-Hub variables; random weights only with
+``MMVID_ALLOW_RANDOM_I3D=1``), ``clip`` through ``evaluate_clip`` with the
+scorer of ``--openai_clip_model_path``; the artifacts go to
+``<log_root>/<name><suffix>/metrics``.  ``--eval_mode long`` is not ported
+yet (ROADMAP.md queue A, item A3).
 """
 
 from __future__ import annotations
@@ -35,16 +45,15 @@ def main(argv=None):
 
 def main_worker(args):
     """Sample as ``args`` say; returns the samples directory and the
-    seconds ``visualize_train`` took (``{'sample_dir', 'sample_s'}``)."""
+    seconds ``visualize_train`` took (``{'sample_dir', 'sample_s'}``), or
+    with ``--eval_mode eval`` the metrics (:func:`run_eval`)."""
     from mmvid_tpu_torch import factories
     from mmvid_tpu_torch.data.loader import DataLoader, infinite_batches
     from mmvid_tpu_torch.generate import HPARAM_KEYS
     from mmvid_tpu_torch.train import (
-        VIZ_SALT,
         load_dalle_weights,
         refuse_multi_device,
         resolve_device,
-        step_generator,
     )
     from mmvid_tpu_torch.utils.checkpoint import (
         latest_checkpoint,
@@ -60,17 +69,19 @@ def main_worker(args):
             'accepts all speculative drafts — outputs would be garbage. '
             'Unset it, or pass --bench_unsafe if you really are '
             'benchmarking through this CLI.')
-    if args.eval_mode in ('eval', 'long'):
+    if args.eval_mode == 'long':
         raise NotImplementedError(
-            f'--eval_mode {args.eval_mode} is not ported yet (ROADMAP.md '
-            'queue A, items 3 and 7)')
+            '--eval_mode long is not ported yet (ROADMAP.md queue A, item '
+            'A3)')
     refuse_multi_device(args)
     device = resolve_device(args.device)
 
     random.seed(args.seed)
     np.random.seed(args.seed)
     args.deterministic = True
+    args.batch_size = 16 if args.eval_mode == 'eval' else args.batch_size
     log_dir = Path(args.log_root) / (args.name + args.name_suffix)
+    args.log_metric_dir = str(log_dir / 'metrics')
 
     # ---- checkpoint discovery (reference test.py:51-57) ----
     ckpt_path = args.dalle_path
@@ -121,20 +132,6 @@ def main_worker(args):
                         shuffle=not args.deterministic,
                         num_workers=min(args.num_workers, 16),
                         seed=args.seed, drop_last=True)
-    batch = next(infinite_batches(loader))
-    if args.description is not None:
-        batch['text'] = tokenizer.tokenize(
-            [args.description] * args.batch_size, args.text_seq_len,
-            truncate_text=True)
-        batch['description'] = [args.description] * args.batch_size
-
-    # default: sampling visualization (reference visualize_test)
-    from mmvid_tpu_torch.utils.viz import visualize_train
-    webpage = None
-    if args.use_html:
-        from mmvid_tpu_torch.utils.html import initialize_webpage
-        webpage = initialize_webpage(str(log_dir / 'web'),
-                                     'MMVID-TPU test: ' + args.name, False)
     if generate_kw:
         model.generate_images = _with_defaults(model.generate_images,
                                                generate_kw)
@@ -143,27 +140,85 @@ def main_worker(args):
         os.environ['MMVID_ARTV_SPEC'] = str(args.spec)
         print(f'speculative AR decode: chunks of {args.spec} '
               f'copy-previous-frame drafts, exact verification')
-    sample_dir = log_dir / 'samples'
-    t = time.perf_counter()
     try:
-        visualize_train(model, batch,
-                        step_generator(args.seed, 0, VIZ_SALT, device),
-                        str(sample_dir), 0, n_sample=args.n_sample,
-                        n_per_sample=args.n_per_sample,
-                        mask_predict_steps=args.mask_predict_steps,
-                        mask_predict_steps1=args.mask_predict_steps1,
-                        vc_mode=args.vc_mode, rand_visual=args.rand_visual,
-                        counterfactual=(args.num_visuals > 0),
-                        debug=args.debug, test_mode=args.test_mode,
-                        webpage=webpage, mp_config=args.mp_config)
+        if args.eval_mode == 'eval':
+            return run_eval(args, model, tokenizer,
+                            infinite_batches(loader), device)
+        return _visualize(args, model, tokenizer, loader, device, log_dir)
     finally:
         if args.spec and flag is None:
             os.environ.pop('MMVID_ARTV_SPEC', None)
         elif args.spec:
             os.environ['MMVID_ARTV_SPEC'] = flag
+
+
+def _visualize(args, model, tokenizer, loader, device, log_dir):
+    """The sampling grids of the first batch (reference visualize_test)."""
+    from mmvid_tpu_torch.data.loader import infinite_batches
+    from mmvid_tpu_torch.train import VIZ_SALT, step_generator
+    from mmvid_tpu_torch.utils.viz import visualize_train
+
+    batch = next(infinite_batches(loader))
+    if args.description is not None:
+        batch['text'] = tokenizer.tokenize(
+            [args.description] * args.batch_size, args.text_seq_len,
+            truncate_text=True)
+        batch['description'] = [args.description] * args.batch_size
+    webpage = None
+    if args.use_html:
+        from mmvid_tpu_torch.utils.html import initialize_webpage
+        webpage = initialize_webpage(str(log_dir / 'web'),
+                                     'MMVID-TPU test: ' + args.name, False)
+    sample_dir = log_dir / 'samples'
+    t = time.perf_counter()
+    visualize_train(model, batch,
+                    step_generator(args.seed, 0, VIZ_SALT, device),
+                    str(sample_dir), 0, n_sample=args.n_sample,
+                    n_per_sample=args.n_per_sample,
+                    mask_predict_steps=args.mask_predict_steps,
+                    mask_predict_steps1=args.mask_predict_steps1,
+                    vc_mode=args.vc_mode, rand_visual=args.rand_visual,
+                    counterfactual=(args.num_visuals > 0),
+                    debug=args.debug, test_mode=args.test_mode,
+                    webpage=webpage, mp_config=args.mp_config)
     print(f'wrote samples to {sample_dir}')
     return {'sample_dir': str(sample_dir),
             'sample_s': time.perf_counter() - t}
+
+
+def run_eval(args, model, tokenizer, dl_iter, device):
+    """``--eval_mode eval`` as the root ``test.py`` runs it (:156-187):
+    FVD and / or PRD through ``evaluate``, the CLIP score through
+    ``evaluate_clip``; returns the results ({'fvd', 'prd', 'clip'})."""
+    from mmvid_tpu_torch.eval.evaluate import evaluate, evaluate_clip
+    i3d_vars = None
+    i3d_path = os.environ.get('I3D_CHECKPOINT')
+    if i3d_path:
+        from mmvid_tpu_torch.eval.i3d import load_i3d_checkpoint
+        i3d_vars = load_i3d_checkpoint(i3d_path)
+    metrics = []
+    if any('fvd' in m for m in args.eval_metric):
+        metrics.append('fvd')
+    if any('prd' in m for m in args.eval_metric):
+        metrics.append('prd')
+    clip = any('clip' in m for m in args.eval_metric)
+    results = {}
+    if metrics or not clip:
+        results = evaluate(args, model, dl_iter, i3d_variables=i3d_vars,
+                           metrics=metrics or ('fvd', 'prd'))
+    if clip:
+        from mmvid_tpu_torch.models.clip_full import load_clip_scorer
+        scorer = load_clip_scorer(args.openai_clip_model_path, device=device)
+
+        def encode_text(descriptions):
+            toks = tokenizer.tokenize(list(descriptions), 77,
+                                      truncate_text=True)
+            return scorer.encode_text(toks).cpu().numpy()
+
+        results['clip'] = evaluate_clip(
+            args, model, dl_iter, (encode_text, scorer.encode_image))
+    print(results)
+    return results
 
 
 def _with_defaults(fn, defaults):

@@ -1,10 +1,14 @@
-"""JAX (flax) params -> reference ``dalle.pt`` state_dict names, numpy only.
+"""JAX (flax) params -> reference ``dalle.pt`` state_dict names, numpy
+only; and OpenAI's CLIP torch.jit archive (``ViT-B-32.pt``) read.
 
 The port's own copy of the converters it needs from
 ``mmvid_tpu/utils/torch_compat.py`` (``_flatten``, ``bert_params_to_torch``,
-``vqgan_params_to_torch``), so that carrying JAX params over imports nothing
-of the JAX package.  The params are nested dicts of arrays; nothing here
-imports jax or flax.
+``vqgan_params_to_torch``, ``load_torchjit_state_dict``,
+``clip_stack_dims``), so that carrying JAX params over imports nothing of
+the JAX package.  The params are nested dicts of arrays; nothing here
+imports jax or flax.  The port's resblocks carry the archive's names, so
+the archive's stacks need no conversion (:func:`clip_resblocks`), where
+JAX's ``convert_clip_resblocks`` splits ``in_proj`` into q/k/v.
 
 Layout conversions (flax -> torch):
 * Conv kernel HWIO (kh, kw, I, O) -> OIHW (O, I, kh, kw)
@@ -44,6 +48,34 @@ _VQ_INV_SUBS = [
 ]
 
 
+def load_torchjit_state_dict(path: str) -> Dict[str, Any]:
+    """A torch.jit archive's (e.g. ViT-B-32.pt's) state_dict: fp32 CPU
+    tensors under the archive's names."""
+    import torch
+    model = torch.jit.load(path, map_location='cpu')
+    return {k: v.detach().float() for k, v in model.state_dict().items()}
+
+
+def clip_stack_dims(sd: Dict[str, Any], prefix: str):
+    """(width, n_layers, n_heads) of a CLIP resblock stack under
+    ``prefix`` (``visual.transformer`` or ``transformer``)."""
+    head = f'{prefix}.' if prefix else ''
+    layers = {int(m.group(1)) for m in
+              (re.match(re.escape(head) + r'resblocks\.(\d+)\.', k)
+               for k in sd) if m}
+    width = sd[f'{head}resblocks.0.ln_1.weight'].shape[0]
+    return width, len(layers), width // 64
+
+
+def clip_resblocks(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """The ``{prefix}.resblocks.*`` entries of a CLIP state_dict, as a
+    :class:`~mmvid_tpu_torch.models.clip.TransformerStack` state_dict
+    (``resblocks.{i}.attn.in_proj_weight`` ...)."""
+    head = f'{prefix}.' if prefix else ''
+    return {k[len(head):]: v for k, v in sd.items()
+            if k.startswith(head + 'resblocks.')}
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -76,24 +108,11 @@ def bert_params_to_torch(params: Dict[str, Any],
                  for name in names}
     inv_tfm = {v: k for k, v in _TFM_BOTTLENECK.items()}
     sd: Dict[str, np.ndarray] = {}
-    qkv: Dict[str, Dict[str, np.ndarray]] = {}
 
     for path, w in _flatten(params):
         if path[0] == 'transformer':
-            i = path[1].split('_')[1]          # blocks_<i>
-            base = f'transformer.transformer.resblocks.{i}'
-            if path[2] == 'attn':
-                proj, leaf = path[3], path[4]
-                if proj in ('query', 'key', 'value'):
-                    qkv.setdefault(f'{base}|{leaf}', {})[proj] = w
-                else:  # out
-                    _linear(sd, f'{base}.attn.out_proj', leaf, w)
-            elif path[2] in ('ln_1', 'ln_2'):
-                _norm(sd, f'{base}.{path[2]}', path[3], w)
-            elif path[2] == 'mlp':
-                tname = {'fc': 'c_fc', 'proj': 'c_proj'}[path[3]]
-                _linear(sd, f'{base}.mlp.{tname}', path[4], w)
-        elif path[-1] == 'embedding':
+            continue
+        if path[-1] == 'embedding':
             sd[f'{path[0]}.weight'] = w
         elif path[0] in ('target_pos_emb', 'image_pos_emb'):
             sd[f'{path[0]}.{path[1]}'] = w
@@ -115,20 +134,45 @@ def bert_params_to_torch(params: Dict[str, Any],
         elif path[0] == 'tfm_fc':
             _linear(sd, 'text_feature_mapping', path[1], w)
 
-    # repack q/k/v into torch's in_proj
-    for key, parts in qkv.items():
-        base, leaf = key.split('|')
-        q, k, v = parts['query'], parts['key'], parts['value']
-        if leaf == 'kernel':
-            sd[f'{base}.attn.in_proj_weight'] = np.concatenate(
-                [q.T, k.T, v.T], axis=0)
-        else:
-            sd[f'{base}.attn.in_proj_bias'] = np.concatenate([q, k, v])
-
+    if 'transformer' in params:
+        sd.update(stack_params_to_torch(params['transformer'],
+                                        'transformer.transformer.resblocks'))
     for tree, prefix in ((vae_params, 'vae.model.'),
                          (cvae_params, 'cvae.model.')):
         if tree is not None:
             sd.update(vqgan_params_to_torch(tree, prefix))
+    return sd
+
+
+def stack_params_to_torch(params: Dict[str, Any], base: str
+                          ) -> Dict[str, np.ndarray]:
+    """flax TransformerStack params (``blocks_<i>``) -> the reference
+    resblock names under ``base`` (``{base}.{i}.attn.in_proj_weight`` ...):
+    q/k/v packed into torch's ``in_proj``."""
+    sd: Dict[str, np.ndarray] = {}
+    qkv: Dict[str, Dict[str, np.ndarray]] = {}
+    for path, w in _flatten(params):
+        i = path[0].split('_')[1]              # blocks_<i>
+        blk = f'{base}.{i}'
+        if path[1] == 'attn':
+            proj, leaf = path[2], path[3]
+            if proj in ('query', 'key', 'value'):
+                qkv.setdefault(f'{blk}|{leaf}', {})[proj] = w
+            else:  # out
+                _linear(sd, f'{blk}.attn.out_proj', leaf, w)
+        elif path[1] in ('ln_1', 'ln_2'):
+            _norm(sd, f'{blk}.{path[1]}', path[2], w)
+        elif path[1] == 'mlp':
+            tname = {'fc': 'c_fc', 'proj': 'c_proj'}[path[2]]
+            _linear(sd, f'{blk}.mlp.{tname}', path[3], w)
+    for key, parts in qkv.items():
+        blk, leaf = key.split('|')
+        q, k, v = parts['query'], parts['key'], parts['value']
+        if leaf == 'kernel':
+            sd[f'{blk}.attn.in_proj_weight'] = np.concatenate(
+                [q.T, k.T, v.T], axis=0)
+        else:
+            sd[f'{blk}.attn.in_proj_bias'] = np.concatenate([q, k, v])
     return sd
 
 

@@ -15,7 +15,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from mmvid_tpu_torch.utils.torch_compat import bert_params_to_torch
+from mmvid_tpu_torch.utils.torch_compat import (
+    _flatten,
+    bert_params_to_torch,
+    stack_params_to_torch,
+)
 
 
 def load_weights(model: torch.nn.Module, weights: Mapping) -> None:
@@ -40,6 +44,64 @@ def load_jax_params(model: torch.nn.Module, params: Dict,
     VQModel params) into the port."""
     load_weights(model, bert_params_to_torch(params, vae_params,
                                              cvae_params))
+
+
+def flax_conv_bn_to_torch(variables: Dict) -> Dict[str, np.ndarray]:
+    """A flax tree of Conv + center-only BatchNorm units ({'params',
+    'batch_stats'}, as ``mmvid_tpu/eval/i3d.py`` and ``eval/inception.py``
+    make and ``convert_tfhub_i3d`` / ``convert_slim_inception`` read) ->
+    the state_dict of the port's :class:`~mmvid_tpu_torch.eval.i3d.I3D`
+    or :class:`~mmvid_tpu_torch.eval.inception.InceptionV3`, whose
+    modules carry the flax names: kernels [*k, in, out] -> [out, in, *k],
+    biases and the running ``mean`` / ``var`` as they are."""
+    sd = {}
+    for path, w in _flatten(variables['params']):
+        name = '.'.join(path[:-1])
+        if path[-1] == 'kernel':
+            n = w.ndim
+            sd[f'{name}.weight'] = np.transpose(
+                w, (n - 1, n - 2) + tuple(range(n - 2)))
+        else:
+            sd[f'{name}.{path[-1]}'] = w
+    for path, w in _flatten(variables.get('batch_stats', {})):
+        sd['.'.join(path)] = w
+    return sd
+
+
+def load_conv_bn_variables(model: torch.nn.Module, variables: Dict) -> None:
+    """Load JAX's I3D or InceptionV3 variables into the port's module
+    (every key must match)."""
+    load_weights(model, {k: np.asarray(v, np.float32) for k, v in
+                         flax_conv_bn_to_torch(variables).items()})
+
+
+def clip_full_params_to_torch(visual: Dict, text: Dict
+                              ) -> Dict[str, np.ndarray]:
+    """JAX's full-CLIP params (``mmvid_tpu/models/clip_full.py``:
+    ClipVisual's and ClipText's) -> the port's
+    :class:`~mmvid_tpu_torch.models.clip_full.CLIP` state_dict under
+    OpenAI's names, ``logit_scale`` left out."""
+    sd = {
+        'visual.conv1.weight': np.transpose(np.asarray(
+            visual['conv1']['kernel']), (3, 2, 0, 1)),
+        'visual.class_embedding': visual['class_embedding'],
+        'visual.positional_embedding': visual['positional_embedding'],
+        'visual.proj': visual['proj'],
+        'token_embedding.weight': text['token_embedding']['embedding'],
+        'positional_embedding': text['positional_embedding'],
+        'text_projection': text['text_projection'],
+    }
+    for tree, names in ((visual, ('ln_pre', 'ln_post')),
+                        (text, ('ln_final',))):
+        prefix = 'visual.' if tree is visual else ''
+        for n in names:
+            sd[f'{prefix}{n}.weight'] = tree[n]['scale']
+            sd[f'{prefix}{n}.bias'] = tree[n]['bias']
+    sd.update(stack_params_to_torch(visual['transformer'],
+                                    'visual.transformer.resblocks'))
+    sd.update(stack_params_to_torch(text['transformer'],
+                                    'transformer.resblocks'))
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
 
 
 def int8_scales_from_jax(clip_scales=None, vae_scales=None):

@@ -12,6 +12,8 @@ those checkpoints crossing to and from the JAX package
 * ``latest_checkpoint`` and ``prune_checkpoints`` as JAX's;
 * the test driver from the run's latest checkpoint: mask-predict, ``--ar``
   on an ``--ar`` run, ``--int8``, and the ``--spec`` refusals;
+  ``--eval_mode eval`` with ``fvd_prd`` (every artifact, random I3D) and
+  with ``clip`` (a tiny ViT-B-32.pt-format archive);
 * the repair of the writers (R1): without Pillow and imageio a PNG is
   written (and Pillow reads it back equal), and ``generate --format gif``
   exits before it loads a model.
@@ -312,8 +314,76 @@ def test_test_driver_refusals(run, data_tree):
                                      ['--spec', '4']))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ptest.main_worker(_test_args(data_tree, logs, 'tiny',
-                                     ['--eval_mode', 'eval']))
+                                     ['--eval_mode', 'long']))
     assert 'MMVID_ARTV_SPEC' not in os.environ
+
+
+@pytest.fixture(scope='module')
+def eval_tree(tmp_path_factory):
+    """16 clips of 10 frames at 32 px: one batch of the eval mode's 16."""
+    root = tmp_path_factory.mktemp('eval') / 'mmvox'
+    rng = np.random.RandomState(1)
+    for i in range(16):
+        key = f'id{i:05d}#e{i}#000'
+        d = root / 'video' / key
+        d.mkdir(parents=True)
+        for j in range(10):
+            png.write_png(d / f'{j:03d}.png',
+                          rng.randint(0, 255, (32, 32, 3)).astype(np.uint8),
+                          (i + j) % 5)
+        (root / 'txt').mkdir(exist_ok=True)
+        (root / 'txt' / f'{key}.txt').write_text(
+            f'a person number {i} is talking\n')
+    return root
+
+
+def test_test_driver_eval_writes_every_artifact(run, eval_tree,
+                                                monkeypatch):
+    """``--eval_mode eval --eval_metric fvd_prd`` (evaluation.sh's) at
+    the tiny flags: the batch forced to 16, random I3D under
+    MMVID_ALLOW_RANDOM_I3D, every artifact of the JAX package's
+    ``evaluate`` written."""
+    logs, _ = run
+    monkeypatch.setenv('MMVID_ALLOW_RANDOM_I3D', '1')
+    monkeypatch.delenv('I3D_CHECKPOINT', raising=False)
+    args = _test_args(eval_tree, logs, 'tiny', [
+        '--eval_mode', 'eval', '--eval_metric', 'fvd_prd', '--eval_num',
+        '16', '--name_suffix', '_eval=fvd'])
+    results = ptest.main_worker(args)
+    assert args.batch_size == 16
+    assert np.isfinite(results['fvd'])
+    assert all(0 <= v <= 1 for v in results['prd'])
+    metrics = logs / 'tiny_eval=fvd' / 'metrics'
+    for name in ('real_embs.npy', 'fake_embs.npy'):
+        assert np.load(metrics / name).shape == (16, 400)
+    text = (metrics / 'fvd_score.txt').read_text()
+    assert text.startswith(str(results['fvd'])) and 'n_samples = 16' in text
+    assert (metrics / 'prd_score.txt').read_text() == (
+        f'F_8 = {results["prd"][0]}, F_1/8 = {results["prd"][1]}\n')
+    assert (metrics / 'prd_data.pkl').exists()
+
+
+def test_test_driver_clip_score(run, eval_tree, tmp_path):
+    """``--eval_metric clip`` with a ViT-B-32.pt-format archive (the
+    BPE's 49408 ids and 77 positions, tiny widths) made by the port's
+    CLIP: ``clip_score.txt`` and the (mean, std) pair."""
+    from test_torch_clip_full import make_archive
+    from mmvid_tpu_torch.models.clip_full import ClipConfig
+    logs, _ = run
+    archive = tmp_path / 'ViT-B-32.pt'
+    make_archive(ClipConfig(embed_dim=32, image_resolution=32,
+                            vision_width=64, vision_layers=1,
+                            vision_patch_size=16, context_length=77,
+                            vocab_size=49408, transformer_width=64,
+                            transformer_layers=1), archive, 4)
+    args = _test_args(eval_tree, logs, 'tiny', [
+        '--eval_mode', 'eval', '--eval_metric', 'clip', '--eval_num', '16',
+        '--openai_clip_model_path', str(archive), '--name_suffix', '_clip'])
+    results = ptest.main_worker(args)
+    mean, std = results['clip']
+    assert -1 <= mean <= 1 and std >= 0 and 'fvd' not in results
+    text = (logs / 'tiny_clip' / 'metrics' / 'clip_score.txt').read_text()
+    assert text == f'{mean} +/- {std}\n'
 
 
 def test_ar_run_and_samples(data_tree, tmp_path):

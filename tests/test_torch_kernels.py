@@ -665,3 +665,55 @@ def test_gridstep_kernel_matches_plain(cuda_device, launches_per_call):
         want = G.probe_call_reference(want, wt)
     assert (got - want).abs().max().item() <= 1e-4
     assert torch.equal(got, G.probe(x, wt, 1, calls=4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,l,h,causal', [(16, 50, 12, False),
+                                          (16, 77, 8, True)],
+                         ids=['clip_visual_L50', 'clip_text_L77'])
+def test_attention_fp32_route_at_clip_shapes(cuda_device, b, l, h, causal):
+    """The CLIP scorer's towers (models/clip_full.py) in fp32: the
+    CUDA-core route at ViT-B/32's visual sequence (no mask) and its
+    text sequence under the causal mask, D 64, within the fp32
+    tolerance of the path shapes above."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = _packed_qkv(g, cuda_device, b, l, h, 64, torch.float32)
+    mask = (attention_mask(l, 'causal', device=cuda_device) if causal
+            else None)
+    before = A.launches
+    out = A.fused_attention_blhd(q, k, v, mask)
+    assert A.launches == before + 1
+    dense = (mask.dense if causal
+             else torch.zeros((l, l), device=cuda_device))
+    want = A.attention_reference(q, k, v, dense, 64 ** -0.5)
+    assert (out - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('path', ['mask_predict', 'artv'])
+def test_training_build_samples_through_the_kernels(cuda_device, path):
+    """C5 on the card: the tiny training build (fp32 parameters, bf16
+    compute) samples as the training driver's grids do, through the
+    sample head (its W cast to bf16) or ART-V's decode kernel (the
+    stacked weights in the caches' bf16, which the workspace checks):
+    no dtype refusal, the kernel launched, ids in range."""
+    from mmvid_tpu_torch import factories
+    if path == 'mask_predict':
+        model, _ = factories.flagship_train(tiny=True, device=cuda_device,
+                                            remat=False)
+        counter, kw = S, dict(mask_predict_steps=4, dynamic=False)
+    else:
+        model, _ = factories.artv_train(tiny=True, device=cuda_device)
+        counter, kw = AD, {}
+    assert all(p.dtype == torch.float32 for p in model.core.parameters())
+    cfg = model.cfg
+    text = torch.randint(1, cfg.num_text_tokens - 1,
+                         (4, cfg.text_seq_len), device=cuda_device)
+    before = counter.launches
+    with torch.no_grad():
+        _, seq = model.eval().generate_images(
+            torch.Generator(device=cuda_device).manual_seed(0), text,
+            decode=False, **kw)
+    assert counter.launches > before
+    assert 0 <= int(seq.min()) and int(seq.max()) < cfg.num_image_tokens

@@ -38,6 +38,7 @@ from mmvid_tpu_torch.models.clip import (
     build_attention_mask,
 )
 from mmvid_tpu_torch.utils.torch_compat import bert_params_to_torch
+from test_torch_eval import one_thread  # noqa: F401 (a fixture)
 from test_torch_warp import jax_warp_draws
 
 LOSS_TOL = 1e-5
@@ -511,3 +512,63 @@ def test_training_build_holds_fp32_parameters():
         want = serve.core(b['text'], None, tgt)
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
+
+
+def _train_and_serve(path):
+    """(training build with bf16-exact nonzero biases, the serving build
+    loaded from its state_dict), both computing in bf16 on the CPU."""
+    if path == 'mask_predict':
+        train, _ = factories.flagship_train(tiny=True, dtype=torch.bfloat16,
+                                            device='cpu', seed=5)
+        serve, _ = factories.flagship(tiny=True, dtype=torch.bfloat16,
+                                      device='cpu', seed=6)
+    else:
+        train, _ = factories.artv_train(tiny=True, dtype=torch.bfloat16,
+                                        device='cpu', seed=5)
+        serve, _ = factories.artv_tiny(dtype=torch.bfloat16, device='cpu',
+                                       seed=6)
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for name, p in train.core.named_parameters():
+            if name.endswith('bias'):
+                # a serving build holds its biases in bf16: keep them
+                # exact there, so only the weights' rounding is tested
+                p.copy_((torch.randn(p.shape, generator=g) * 0.1)
+                        .bfloat16().float())
+    weights.load_weights(serve, train.state_dict())
+    assert all(p.dtype == torch.float32 for p in train.core.parameters())
+    return train.eval(), serve.eval()
+
+
+@pytest.mark.parametrize('path,env', [
+    ('mask_predict', {}),
+    ('artv', {'MMVID_ARTV_FUSED': '0'}),
+    ('artv', {'MMVID_ARTV_FUSED': '1'}),
+    ('artv', {'MMVID_ARTV_SPEC': '4'}),
+])
+def test_training_build_samples_as_its_serving_build(monkeypatch, path,
+                                                     env, one_thread):
+    """C5: sampling from a training build (fp32 parameters computing in
+    bf16) rounds the head and decode weights to the compute dtype, as
+    JAX's sampler and ``cast_block`` do, so it draws the tokens of the
+    serving build loaded from its weights, from the same generator:
+    mask-predict's head, ART-V's per-layer step and its stacked step
+    (``stack_decode_params``), and the speculative decode."""
+    for k in ('MMVID_ARTV_FUSED', 'MMVID_ARTV_SPEC'):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    train, serve = _train_and_serve(path)
+    cfg = train.cfg
+    # 16 lanes: the rounding moves a mask-predict token in about one
+    # draw of a hundred at this size
+    text = torch.randint(1, cfg.num_text_tokens - 1, (16, cfg.text_seq_len),
+                         generator=torch.Generator().manual_seed(1))
+    kw = (dict(mask_predict_steps=8, dynamic=False)
+          if path == 'mask_predict' else {})
+    with torch.no_grad():
+        _, got = train.generate_images(torch.Generator().manual_seed(2),
+                                       text, decode=False, **kw)
+        _, want = serve.generate_images(torch.Generator().manual_seed(2),
+                                        text, decode=False, **kw)
+    assert torch.equal(got, want)
