@@ -38,15 +38,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. build: compiles ``mmvid_tpu_torch/csrc`` with nvcc (sm_90a), one nvcc
    per source in parallel.
 3. attention kernels vs their plain version, ``MMVID_ATTN_BF16`` off and
-   on: fp32 (the CUDA-core kernel, TF32 off) and bf16 (the tensor-core
-   kernel) at each path's sequence and mask_prev rows: text+mask (L 629),
-   flagship (L 565), tiny (L 139); bf16 on q, k, v as packed strided
-   views with mask_prev and causal masks, D 64 and 32, and the share of
-   outputs that differ from plain; times beside
-   ``F.scaled_dot_product_attention`` with the same float mask on the
-   packed views at L 629 and L 565; the fp32 route at the CLIP scorer's
-   shapes (B16 D64: L 50 H12 without a mask, L 77 H8 causal) against its
-   plain version, timed beside SDPA in fp32.
+   on: fp32 (``csrc/attention_fp32_sm90.cu`` on the CUDA cores, TF32
+   off) and bf16 (the tensor-core kernel) at each path's sequence and
+   mask_prev rows: text+mask (L 629), flagship (L 565), tiny (L 139); both
+   on q, k, v as packed strided views with mask_prev and causal masks, D
+   64 and 32, and the share of bf16 outputs that differ from plain; times
+   beside ``F.scaled_dot_product_attention`` with the same float mask on
+   the packed views at L 629 and L 565, bf16 and fp32 (the released
+   recipes' precision) each with its bound; the fp32 route at the CLIP
+   scorer's shapes (B16 D64: L 50 H12 without a mask, L 77 H8 causal)
+   against its plain version, timed beside SDPA in fp32.
    Then the int8 attention kernel (``MMVID_ATTN_INT8=1``) vs its plain
    version at L 565 and 629, B16 H12 D64 bf16 on the packed views, given
    the mask with its compact form as the models give it (the compact
@@ -64,7 +65,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    given the chosen token, token histograms in distribution (TV bounds);
    at temp 1 both bf16 routes (tensor cores, CUDA cores) against the
    plain version fed the kernels' own noise (``philox_gumbel`` at one
-   seed) and against each other, timed in turns.
+   seed) and against each other, timed in turns; the fp32-W route (every
+   fp32 batch's) timed beside its plain version and bound.
 5. nearest-code kernel vs its plain version at M 1024, 4096 and 8192
    (D 256, K 1024): ids equal on a randn codebook; within 1e-5 of the
    best score on the random-init codebook; kernel, plain and bound times
@@ -94,7 +96,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    from the same weights, batch and draws, TF32 off: ids, losses and
    parameters agree, launch counts a step exact.
 10. flagship path: 6 prompts at batch 4, launch counts, output checks,
-    determinism by seed; then ``breakdown.measure`` of a batch of 16.
+    determinism by seed; then ``breakdown.measure`` of a batch of 16;
+    then the flagship in fp32, the released recipes' precision: one batch
+    of 16 after a warm-up (launch counts exact: the fp32 attention route
+    240, the sample head's fp32-W route 20), frames/s, and the attention
+    kernel's share of the device time of a profiled batch.
 11. text+mask path: one batch of 16, launch counts, output checks,
     determinism by seed, then ``breakdown.measure``; then again with
     MMVID_FUSED_LNQKV=1 (launch counts, tokens against the gate-off run,
@@ -192,6 +198,10 @@ TV_TWO_SAMPLE_BOUND = 0.07
 # itself
 ATTN_TOL = {('float32', False): 1e-4, ('float32', True): 4e-3,
             ('bfloat16', False): 2e-2, ('bfloat16', True): 2e-2}
+# the fp32 kernel's query tiles, in rows a thread (the tile is 16 x that):
+# csrc/attention_fp32_sm90.cu's kTileRows, of which the route takes one by
+# shape (ops/attention.py::fp32_tile_rows)
+FP32_TILE_ROWS = (8, 6, 4)
 # share of bf16 outputs of the default route (P_hi + P_lo) that may differ
 # from the plain version's (about 0.2% expected; bf16 probabilities move
 # about 40%)
@@ -458,12 +468,13 @@ def phase_attention():
     MMVID_ATTN_BF16 off and on: fp32 (the CUDA-core kernel, TF32 off) and
     bf16 (the tensor-core kernel) on contiguous q, k, v at each path's
     sequence and mask_prev rows (text+mask L 629, flagship L 565, tiny L
-    139); bf16 on packed strided views with mask_prev and causal masks, D
+    139), and on packed strided views with mask_prev and causal masks, D
     64 and 32.  Fails beyond ATTN_TOL, or where the default bf16 route
     differs from the plain version in more than ATTN_DIFFER_MAX of its
     outputs.  Times the bf16 kernel (both variants), the plain version and
     ``F.scaled_dot_product_attention`` with the same float mask on the
-    main path's packed views at L 629 and L 565, and the fp32 kernel."""
+    main path's packed views at L 629 and L 565; then the fp32 route there
+    (``_attention_fp32_route``) and at the CLIP shapes."""
     import torch
     from mmvid_tpu_torch.models.clip import build_attention_mask
     from mmvid_tpu_torch.ops import attention as A
@@ -492,7 +503,6 @@ def phase_attention():
                  f'plain (> {ATTN_DIFFER_MAX})')
         return err, differ
 
-    fp32_rows = {}
     for b, l, h, d, idx in ((16, 629, 12, 64, (115, 116)),
                             (16, 565, 12, 64, (51, 52)),
                             (16, 139, 2, 32, (9, 10))):
@@ -500,23 +510,19 @@ def phase_attention():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _attention_inputs(b, l, h, d, dtype, False, l)
             for bf16p in (False, True):
-                err, _ = check(f'B={b} L={l} H={h} D={d} contiguous', q, k,
-                               v, mask, bf16p)
-                if dtype == torch.float32 and not bf16p and l != 139:
-                    _set_attn_bf16(False)
-                    ms = cuda_time_ms(lambda: A.fused_attention_blhd(
-                        q, k, v, mask))
-                    fp32_rows[l] = {'max_abs_err': err, 'ms': ms}
+                check(f'B={b} L={l} H={h} D={d} contiguous', q, k, v, mask,
+                      bf16p)
     for b, l, h, d, kind, idx in ((16, 629, 12, 64, 'mask_prev', (115, 116)),
                                   (16, 565, 12, 64, 'mask_prev', (51, 52)),
                                   (16, 626, 12, 64, 'causal', None),
                                   (16, 139, 2, 32, 'mask_prev', (9, 10)),
                                   (16, 139, 2, 32, 'causal', None)):
         mask = build_attention_mask(l, kind, index=idx, device='cuda')
-        q, k, v = _attention_inputs(b, l, h, d, torch.bfloat16, True, l + 1)
-        for bf16p in (False, True):
-            check(f'B={b} L={l} H={h} D={d} packed {kind}', q, k, v, mask,
-                  bf16p)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _attention_inputs(b, l, h, d, dtype, True, l + 1)
+            for bf16p in (False, True):
+                check(f'B={b} L={l} H={h} D={d} packed {kind}', q, k, v,
+                      mask, bf16p)
 
     # times on the main path's inputs: packed bf16 views, mask_prev
     rows = {}
@@ -552,10 +558,52 @@ def phase_attention():
                 print(f'[attention] note: the kernel is not faster than '
                       f'sdpa at L={l}', flush=True)
     _set_attn_bf16(False)
-    print(f'[attention] fp32 CUDA-core kernel: L629 '
-          f'{fp32_rows[629]["ms"]:.4f} ms, L565 {fp32_rows[565]["ms"]:.4f} '
-          f'ms', flush=True)
-    return rows, fp32_rows, _attention_clip_shapes()
+    return rows, _attention_fp32_route(check), _attention_clip_shapes()
+
+
+def _attention_fp32_route(check):
+    """The fp32 route (csrc/attention_fp32_sm90.cu, the CUDA cores) on the
+    main paths' layout in fp32, the released recipes' precision: packed
+    views, B16 H12 D64, mask_prev rows, L 629 and 565, MMVID_ATTN_BF16 off
+    and on (``check``: ATTN_TOL); timed beside the plain version,
+    ``F.scaled_dot_product_attention`` in fp32 on the same float mask and
+    the fp32 bound, with the query tile the route takes."""
+    import torch
+    from mmvid_tpu_torch.models.clip import build_attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+
+    out_rows = {}
+    for b, l, h, d, idx in ((16, 629, 12, 64, (115, 116)),
+                            (16, 565, 12, 64, (51, 52))):
+        mask = build_attention_mask(l, 'mask_prev', index=idx, device='cuda')
+        q, k, v = _attention_inputs(b, l, h, d, torch.float32, True, l + 4)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        bms, by = bound(4 * b * l * h * d * 4 + l * l * 4,
+                        4 * b * h * l * l * d, 'fp32')
+        row = {'tile_rows': A.fp32_tile_rows(b, l, h), 'library_ms': lib_ms,
+               'bound_ms': bms, 'bound_by': by}
+        for bf16p in (False, True):
+            err, _ = check(f'B={b} L={l} H={h} D={d} packed mask_prev '
+                           f'(timed)', q, k, v, mask, bf16p)
+            _set_attn_bf16(bf16p)
+            ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, mask))
+            if bf16p:
+                row['bf16_probs'] = {'max_abs_err': err, 'ms': ms}
+                continue
+            row.update(max_abs_err=err, ms=ms, plain_ms=cuda_time_ms(
+                lambda: A.attention_reference(q, k, v, mask, d ** -0.5)))
+        _set_attn_bf16(False)
+        out_rows[l] = row
+        print(f'[attention] B={b} L={l} H={h} D={d} float32 packed '
+              f'mask_prev, {16 * row["tile_rows"]}-row tiles: kernel '
+              f'{row["ms"]:.4f} ms (bf16 probabilities '
+              f'{row["bf16_probs"]["ms"]:.4f}) plain {row["plain_ms"]:.4f} '
+              f'ms sdpa fp32 {lib_ms:.4f} ms bound {bms:.4f} ms ({by})',
+              flush=True)
+    return out_rows
 
 
 def _attention_clip_shapes():
@@ -834,6 +882,7 @@ def phase_sample_head():
     b = 0.1 * torch.randn((v,), generator=g, device=dev)
 
     # temp 0: Y must be the plain softmax probability of the chosen token
+    y_errs = {}
     for wd in (w.float(), w):
         y, tok = S.fused_sample_head(x, ln_w, ln_b, wd, b, 0.0, g)
         probs = torch.softmax(S.head_logits(x, ln_w, ln_b, wd, b), -1)
@@ -847,6 +896,7 @@ def phase_sample_head():
               f'|Y - p(tok)| {y_err:.3e} (tol {tol})', flush=True)
         if not y_err <= tol:
             fail(f'sample head Y error {y_err} > {tol}')
+        y_errs[wd.dtype] = y_err
 
     # distribution over 65536 rows that share one logits row
     n = 65536
@@ -926,17 +976,38 @@ def phase_sample_head():
           f'({t["wgmma"]}), CUDA-core kernel {ms_cores:.4f} ms '
           f'({t["cuda_cores"]}), plain (Philox noise included) '
           f'{plain_ms:.4f} ms', flush=True)
+    # the fp32-W route (csrc/sample_head.cu), which every fp32 batch takes
+    # (the released recipes' precision): 20 launches a batch of 16
+    w32 = w.float()
+    ms32 = cuda_time_ms(lambda: S.sample_head_kernel(
+        x, ln_w, ln_b, w32, b, 1.0, seed))
+
+    def plain32():
+        g1, g2 = S.philox_gumbel(int(seed), m, v, dev)
+        return S.sample_head_reference(x, ln_w, ln_b, w32, b, 1.0, g1, g2)
+
+    plain32_ms = cuda_time_ms(plain32, calls=5, reps=3)
+    b32_ms, b32_by = bound(m * d * 4 + d * v * 4 + (2 * d + v) * 4
+                           + m * (4 + 8), 2 * m * d * v, 'fp32')
+    print(f'[sample_head] M={m} fp32 W (the CUDA-core route of every fp32 '
+          f'batch): kernel {ms32:.4f} ms, plain {plain32_ms:.4f} ms, bound '
+          f'{b32_ms:.4f} ms ({b32_by})', flush=True)
     # x fp32 read once, W bf16 read once, Y and tok written once
     nbytes = m * d * 4 + d * v * 2 + (2 * d + v) * 4 + m * (4 + 8)
     extra = {'philox': philox, 'bf16_logits_control_y_rel_err': ctrl,
+             'fp32_w_route': {'source': 'mmvid_tpu_torch/csrc/sample_head.cu',
+                              'max_abs_err': y_errs[torch.float32],
+                              'ms': ms32, 'plain_ms': plain32_ms,
+                              'library_ms': None, 'bound_ms': b32_ms,
+                              'bound_by': b32_by},
              'kernels_tokens_equal_share': cross,
              'cuda_cores_route': {'source':
                                   'mmvid_tpu_torch/csrc/sample_head.cu',
                                   'ms': ms_cores,
                                   'ms_all': t['cuda_cores']},
              'ms_all': t['wgmma']}
-    return (y_err, ms, plain_ms, None) + bound(nbytes, 2 * m * d * v,
-                                               'bf16'), extra
+    return (y_errs[torch.bfloat16], ms, plain_ms, None) + bound(
+        nbytes, 2 * m * d * v, 'bf16'), extra
 
 
 def phase_codebook():
@@ -1751,7 +1822,62 @@ def phase_main_path():
     if not same:
         fail('the same seed gave different tokens')
     report('main', breakdown.measure(model, 'flagship'))
-    return counts
+    del model
+    torch.cuda.empty_cache()
+    return counts, _flagship_fp32(steps)
+
+
+def _flagship_fp32(steps: int) -> dict:
+    """The flagship in fp32, the released recipes' precision (no script
+    passes --bf16): one batch of 16 after a warm-up, through the fp32
+    attention route (12 x 20 launches) and the sample head's fp32-W
+    route; frames/s on the host clock, launch counts exact, videos
+    finite in [0, 1]; then one profiled batch: device time by kind and
+    the attention kernel's share of the busy time."""
+    import torch
+    from mmvid_tpu_torch import breakdown
+
+    model = breakdown.build('flagship', dtype=torch.float32)
+    cfg = model.cfg
+    text, _ = breakdown.inputs(model, 'flagship')
+
+    def batch():
+        gen = torch.Generator(device='cuda').manual_seed(1)
+        out = model.generate_images(gen, text, mask_predict_steps=steps,
+                                    dynamic=False)
+        torch.cuda.synchronize()
+        return out
+
+    batch()
+    reset_counts()
+    t0 = time.perf_counter()
+    videos, seq = batch()[:2]
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = expected(attention=cfg.clip.layers * steps, sample_head=steps)
+    vid = videos.float()
+    if counts != want:
+        fail(f'fp32 flagship launch counts {counts} != {want}')
+    if not (torch.isfinite(vid).all() and vid.min() >= 0 and vid.max() <= 1
+            and seq.min() >= 0 and seq.max() < cfg.num_image_tokens):
+        fail('fp32 flagship: videos or tokens out of range')
+    prof = breakdown.profile_run(batch)
+    attn = prof['device_ms_by_kind'].get('attention kernel, CUDA cores', 0.0)
+    res = {'batch': text.shape[0], 'steps': steps, 's_per_batch': dt,
+           'frames_per_s': text.shape[0] * cfg.num_targets / dt,
+           'launches': counts,
+           'attention_share_of_busy': attn / prof['device_busy_ms'],
+           **prof}
+    print(f'[main fp32] batch {res["batch"]}, {steps} steps: {dt:.4f} s '
+          f'per batch, {res["frames_per_s"]:.2f} frames/s; launches '
+          f'{counts}; attention kernel {attn:.3f} of '
+          f'{prof["device_busy_ms"]:.3f} ms busy '
+          f'({res["attention_share_of_busy"]:.4f}), device idle '
+          f'{prof["idle_share"]:.4f}', flush=True)
+    print(f'[main fp32] breakdown {json.dumps(res)}', flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_text_mask():
@@ -3031,6 +3157,29 @@ def phase_clip(run_dir: str, tmp: str):
             'archive_s': archive_s, 'train_step_run_s': train_s}
 
 
+def _fp32_attention_entry(route, clip, flagship_fp32, driver_launches):
+    """The kernels line's entry of attention's fp32 route: its numbers at
+    the fp32 flagship's shape (B16 H12 D64 L565, packed views), its
+    launches in the fp32 flagship batch; the text+mask shape, the CLIP
+    scorer's shapes and the fp32 drivers' launches (the attention counter
+    of those runs, every call of which is fp32) beside them."""
+    keys = ('max_abs_err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'bound_by')
+    return {'name': 'attention_fp32', 'route': 'cuda',
+            'source': 'mmvid_tpu_torch/csrc/attention_fp32_sm90.cu',
+            'replaces': 'mmvid_tpu/ops/attention.py:211',
+            'launches': flagship_fp32['launches']['attention'],
+            **{k: route[565][k] for k in keys},
+            'tile_rows': route[565]['tile_rows'],
+            'bf16_probs': route[565]['bf16_probs'],
+            'at_text_mask_L629': route[629], 'clip': clip,
+            'launches_by_path': {'flagship_fp32': flagship_fp32[
+                'launches']['attention'], **driver_launches},
+            'flagship_fp32': {k: flagship_fp32[k] for k in (
+                's_per_batch', 'frames_per_s', 'attention_share_of_busy',
+                'device_busy_ms', 'idle_share')}}
+
+
 def timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3070,7 +3219,7 @@ def main():
     timed(phase_tiny_artv)
     timed(phase_tiny_artv_spec)
     timed(phase_tiny_train)
-    flagship = timed(phase_main_path)
+    flagship, flagship_fp32 = timed(phase_main_path)
     text_mask, fused = timed(phase_text_mask)
     artv, artv_per_layer = timed(phase_artv)
     artv_spec, _ = timed(phase_artv_spec)
@@ -3133,19 +3282,13 @@ def main():
                                       'test_driver_clip': clip_run[
                                           'launches'][name]}}
         if name == 'attention':
-            # the bf16 route (the main paths'), the tensor-core kernel,
-            # on packed views; the fp32 route's CUDA-core kernel beside it
+            # the bf16 route (the bf16 paths'), the tensor-core kernel, on
+            # packed views; the fp32 route is the next entry
             entry['source'] = 'mmvid_tpu_torch/csrc/attention_sm90.cu'
             entry['differ_share'] = attention[(629, False)]['differ_share']
             entry['at_flagship_L565'] = attention[(565, False)]
             entry['bf16_probs'] = {'L629': attention[(629, True)],
                                    'L565': attention[(565, True)]}
-            entry['fp32_route'] = {
-                'source': 'mmvid_tpu_torch/csrc/attention.cu',
-                'L629': attention_fp32[629], 'L565': attention_fp32[565],
-                # the CLIP scorer's towers (fp32): launches in the test
-                # driver's CLIP-score run, generation's included
-                'clip': attention_clip}
             # B1-bwd: JAX's XLA VJP of the kernel (no pallas_call), torch
             # ops here; its calls in the profiled training steps
             entry['backward'] = {
@@ -3192,6 +3335,12 @@ def main():
         if name == 'gridstep':
             entry.update(probe)
         kernels.append(entry)
+        if name == 'attention':
+            kernels.append(_fp32_attention_entry(
+                attention_fp32, attention_clip, flagship_fp32, {
+                    'test_driver': test_driver['launches'][name],
+                    'test_driver_eval': test_driver_eval['launches'][name],
+                    'test_driver_clip': clip_run['launches'][name]}))
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the int8 attention and fused LN+QKV kernels spend their time: the
-first kernels (``csrc/attention_int8.cu`` and ``csrc/fused_ln_qkv.cu`` of
+"""Where the int8 attention, fused LN+QKV, nearest-code and fp32 attention
+kernels spend their time: the first kernels (``csrc/attention_int8.cu``
+and ``csrc/fused_ln_qkv.cu`` of
 commit 3f73783) and the port's current ones (``csrc/attention_int8_sm90.cu``
 and ``csrc/fused_ln_qkv_sm90.cu``), each built as it is and as variants
 with one part of its work cut out, timed in turns on the card.  The
@@ -41,13 +42,30 @@ control frames, one video's 8 frames): the old kernel, the route
 is (``as_is``), without its products (``no_fma``) and without its
 cross-tile merge (``no_merge``).
 
+Attention's fp32 route (B16 D64 fp32 on the packed QKV views: H12
+``mask_prev`` at L 565 and 629, the CLIP scorer's L 50 H12 without a mask
+and L 77 H8 causal): the first fp32 kernel (``csrc/attention.cu`` of
+commit f37e588), the route (``ops/attention.py``), the plain version,
+``F.scaled_dot_product_attention`` in fp32 on the same float mask, the
+current kernel (``csrc/attention_fp32_sm90.cu``) at each of its query
+tiles (``rows_8``, ``rows_6``, ``rows_4``: rows a thread of 16 row
+groups), and at the route's tile as it is (``as_is``) and with one part
+cut out: the mask's loads (``no_mask_load``: zeros instead), K's and V's
+staging (``no_kv_stage``: the products read stale shared memory), the
+exps (``no_exp``), the products Q.K^T (``no_qk``) or P.V (``no_pv``), or
+all but the products (``products_only``: no mask loads, no row-max
+shuffles, no exps); and with a third stage in its K/V ring
+(``three_stages``).
+
 Usage (needs nvcc and a CUDA card; the old sources from git history, e.g.
 ``git show 3f73783:mmvid_tpu_torch/csrc/attention_int8.cu > OLD8.cu``,
-``git show 8e5084f:mmvid_tpu_torch/csrc/codebook.cu > OLDCB.cu``; each
+``git show 8e5084f:mmvid_tpu_torch/csrc/codebook.cu > OLDCB.cu``,
+``git show f37e588:mmvid_tpu_torch/csrc/attention.cu > OLDATT.cu``; each
 source is optional and names the families timed):
 
     python -m mmvid_tpu_torch.attribution --int8-source OLD8.cu \\
-        --lnqkv-source OLDLN.cu --codebook-source OLDCB.cu [--out FILE]
+        --lnqkv-source OLDLN.cu --codebook-source OLDCB.cu \\
+        --attention-fp32-source OLDATT.cu [--out FILE]
 
 Prints the card, one line per (shape, variant) and one JSON object.
 """
@@ -116,6 +134,43 @@ NEW_CODEBOOK = {
                 'for (int q = 0; q < 0; ++q) {\n      float4 av')],
     'no_merge': [(r'  if \(!is_last\) return;', '  return;')],
 }
+NEW_ATTN_FP32 = {
+    'as_is': [],
+    'no_mask_load': [(r'mk\[i\]\[c\] = ok \? __ldg\(mrow\[i\] '
+                      r'\+ kCols \* c\) : 0\.f;', 'mk[i][c] = 0.f;')],
+    'no_kv_stage': [(r'for \(int n = 0; n < kBK / kPass; \+\+n\)',
+                     'for (int n = 0; n < 0; ++n)')],
+    'no_exp': [(r'exp2_ftz\(fmaf\(sc\[i\]\[c\]', '(fmaf(sc[i][c]')],
+    'no_qk': [(r'for \(int d = 0; d < D; d \+= 4\)',
+               'for (int d = 0; d < 0; d += 4)')],
+    'no_pv': [(r'for \(int c = 0; c < kBK; c \+= 4\)',
+               'for (int c = 0; c < 0; c += 4)')],
+    'three_stages': [(r'constexpr int kStages = 2;',
+                      'constexpr int kStages = 3;')],
+}
+NEW_ATTN_FP32['products_only'] = (
+    NEW_ATTN_FP32['no_mask_load'] + NEW_ATTN_FP32['no_exp']
+    + [(r'mx = fmaxf\(mx, __shfl_xor_sync\(0xffffffffu, mx, off\)\);', ';')])
+# the first fp32 kernel's C entry also dispatches bf16 to attention_wgmma:
+# a stub that refuses it links it alone
+WGMMA_STUB = """#include "common.cuh"
+namespace mmvid {
+cudaError_t attention_wgmma(int, bool, const void*, const void*, const void*,
+                            const float*, void*, int, int, int,
+                            const long long*, float, cudaStream_t) {
+  return cudaErrorNotSupported;
+}
+}  // namespace mmvid
+"""
+ATTN_ARGS = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+# the current kernel's query tiles, in rows a thread (kTileRows)
+TILE_ROWS = (8, 6, 4)
+# (B, L, H, mask kind, mask_prev rows): the fp32 route's shapes
+ATTN_FP32_SHAPES = ((16, 565, 12, 'mask_prev', (51, 52)),
+                    (16, 629, 12, 'mask_prev', (115, 116)),
+                    (16, 50, 12, None, None),
+                    (16, 77, 8, 'causal', None))
 OLD_CODEBOOK_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p] * 2)
 NEW_CODEBOOK_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
@@ -138,11 +193,13 @@ def patch(src: str, subs) -> str:
     return src
 
 
-def build(int8_source, lnqkv_source, codebook_source, tmp: Path) -> dict:
+def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
+          attention_fp32_source=None) -> dict:
     """{(family, variant): C entry point}, one library each, all nvcc runs
     at once.  Families: old_int8, new_int8 (with ``int8_source``),
     old_lnqkv, new_lnqkv (``lnqkv_source``), old_codebook, new_codebook
-    (``codebook_source``)."""
+    (``codebook_source``), old_attn_fp32, new_attn_fp32
+    (``attention_fp32_source``)."""
     nvcc = _build.find_nvcc()
     for name in ('common.cuh', 'sm90.cuh'):
         (tmp / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
@@ -167,6 +224,15 @@ def build(int8_source, lnqkv_source, codebook_source, tmp: Path) -> dict:
         sources[('old_codebook', 'as_is')] = codebook_source.read_text()
         sources.update({('new_codebook', n): patch(newcb, v)
                         for n, v in NEW_CODEBOOK.items()})
+    extra = {}
+    if attention_fp32_source:
+        newfp = current('attention_fp32_sm90.cu')
+        sources[('old_attn_fp32', 'as_is')] = (
+            attention_fp32_source.read_text())
+        (tmp / 'wgmma_stub.cu').write_text(WGMMA_STUB)
+        extra[('old_attn_fp32', 'as_is')] = [str(tmp / 'wgmma_stub.cu')]
+        sources.update({('new_attn_fp32', n): patch(newfp, v)
+                        for n, v in NEW_ATTN_FP32.items()})
     cmds, libs = [], {}
     for key, src in sources.items():
         stem = '_'.join(key)
@@ -174,13 +240,17 @@ def build(int8_source, lnqkv_source, codebook_source, tmp: Path) -> dict:
         cu.write_text(src)
         libs[key] = tmp / f'lib_{stem}.so'
         cmds.append([nvcc, *_build.NVCC_FLAGS, f'-I{tmp}', '-shared', '-o',
-                     str(libs[key]), str(cu)])
+                     str(libs[key]), str(cu), *extra.get(key, [])])
     _build._run_all(cmds)
     fns = {}
     for key, path in libs.items():
         lib = ctypes.CDLL(str(path))
         if key[0].endswith('lnqkv'):
             fn, args = lib.mmvid_ln_qkv, LNQKV_ARGS
+        elif key[0] == 'old_attn_fp32':
+            fn, args = lib.mmvid_attention_fwd, ATTN_ARGS
+        elif key[0] == 'new_attn_fp32':
+            fn, args = lib.mmvid_attention_fp32_at, ATTN_ARGS
         elif key[0].endswith('codebook'):
             fn = lib.mmvid_nearest_code
             args = (OLD_CODEBOOK_ARGS if key[0] == 'old_codebook'
@@ -340,11 +410,59 @@ def nearest_code(fns, res):
                   flush=True)
 
 
+def attention_fp32(fns, res):
+    from mmvid_tpu_torch.models.clip import build_attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = 64
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, l, h, kind, idx in ATTN_FP32_SHAPES:
+        g = torch.Generator(device='cuda').manual_seed(l)
+        qkv = torch.randn((b, l, 3 * h * d), generator=g, device='cuda')
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+                   for i in range(3))
+        mask = (build_attention_mask(l, kind, index=idx, device='cuda')
+                if kind else torch.zeros((l, l), device='cuda'))
+        out = torch.empty((b, l, h, d), device='cuda')
+        st = (ctypes.c_longlong * 12)(
+            *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                out.data_ptr())
+        rows = A.fp32_tile_rows(b, l, h)
+        calls = {}
+        for (family, name), fn in fns.items():
+            if family == 'old_attn_fp32':
+                calls['old'] = checked(fn, 0, d, 0, *ptrs, b, l, h, st,
+                                       d ** -0.5, stream)
+            elif family == 'new_attn_fp32':
+                calls[f'new_{name}'] = checked(fn, rows, d, 0, *ptrs, b, l,
+                                               h, st, d ** -0.5, stream)
+        for r in TILE_ROWS:
+            calls[f'rows_{r}'] = (lambda r=r: A.fp32_kernel_at(
+                r, q, k, v, mask))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        calls['route'] = lambda: A.fused_attention_blhd(q, k, v, mask)
+        calls['sdpa_fp32'] = (
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask))
+        calls['plain'] = lambda: A.attention_reference(q, k, v, mask,
+                                                       d ** -0.5)
+        tag = f'L{l}_H{h}'
+        res['attention_fp32_ms'][tag] = in_turns(calls)
+        res['attention_fp32_route_rows'][tag] = rows
+        print(f'[attribution] fp32 attention B={b} L={l} H={h}: the route '
+              f'takes {rows} rows a thread', flush=True)
+        for n, t in res['attention_fp32_ms'][tag].items():
+            print(f'[attribution] fp32 attention B={b} L={l} H={h} {n}: '
+                  f'{t:.4f} ms', flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--int8-source', type=Path, default=None)
     ap.add_argument('--lnqkv-source', type=Path, default=None)
     ap.add_argument('--codebook-source', type=Path, default=None)
+    ap.add_argument('--attention-fp32-source', type=Path, default=None)
     ap.add_argument('--out', type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -354,11 +472,13 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     res = {'device': smi, 'int8_attention_ms': {}, 'ln_qkv_ms': {},
-           'codebook_ms': {}}
+           'codebook_ms': {}, 'attention_fp32_ms': {},
+           'attention_fp32_route_rows': {}}
     _build.library()
     with tempfile.TemporaryDirectory() as tmp:
         fns = build(args.int8_source, args.lnqkv_source,
-                    args.codebook_source, Path(tmp))
+                    args.codebook_source, Path(tmp),
+                    args.attention_fp32_source)
         with torch.no_grad():
             if args.int8_source:
                 int8_attention(fns, res)
@@ -366,6 +486,8 @@ def main(argv=None):
                 ln_qkv(fns, res)
             if args.codebook_source:
                 nearest_code(fns, res)
+            if args.attention_fp32_source:
+                attention_fp32(fns, res)
     print(json.dumps(res), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -2,7 +2,8 @@
 """Where one sampling batch, or one training step, of the port spends its
 time on the card.
 
-Builds a full-width bf16 model from a seed, for the flagship text-to-video
+Builds a full-width bf16 model (``--fp32``: fp32, the precision every
+released recipe runs) from a seed, for the flagship text-to-video
 path (``factories.flagship``), the text+mask visual-control path
 (``factories.text_and_mask_args`` through ``get_vae_model``/``get_dalle``)
 or the ART-V path (``factories.artv_args``, the same factories), or
@@ -48,6 +49,7 @@ the card unless ``MMVID_ARTV_FUSED=0``), ``MMVID_ATTN_BF16``):
     python -m mmvid_tpu_torch.breakdown --path artv_spec
     python -m mmvid_tpu_torch.breakdown --path train train_artv
     python -m mmvid_tpu_torch.breakdown --path train --batch 8
+    python -m mmvid_tpu_torch.breakdown --fp32 --path flagship text_mask
 
 ``--path artv_spec`` prints two lines: the floor (random weights accept
 almost no draft) and the ceiling under ``MMVID_ARTV_SPEC_FORCE=1`` (every
@@ -448,6 +450,10 @@ def main(argv=None):
                    choices=['text_mask', 'flagship', 'artv', 'artv_spec',
                             'train', 'train_artv'])
     p.add_argument('--batch', type=int, default=BATCH)
+    p.add_argument('--fp32', action='store_true',
+                   help='build the sampling paths in fp32, the released '
+                        'recipes\' precision (none passes --bf16); the '
+                        'default is bf16')
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
@@ -460,7 +466,7 @@ def main(argv=None):
             res['card'] = card
             print(json.dumps(res), flush=True)
             continue
-        model = build(path)
+        model = build(path, torch.float32 if args.fp32 else torch.bfloat16)
         # artv_spec: the floor, then the ceiling with every draft accepted
         for force in ((None, '1') if path == 'artv_spec' else (None,)):
             if force:
@@ -470,6 +476,7 @@ def main(argv=None):
             finally:
                 os.environ.pop('MMVID_ARTV_SPEC_FORCE', None)
             res['card'] = card
+            res['dtype'] = 'float32' if args.fp32 else 'bfloat16'
             print(json.dumps(res), flush=True)
 
 

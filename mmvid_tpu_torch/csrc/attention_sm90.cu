@@ -1,6 +1,6 @@
 // Full-sequence self-attention for the MMVID backbone, bf16, on Hopper's
 // tensor cores (wgmma), sm_90a.  The bf16 route of csrc/attention.cu's C
-// entry point; its fp32 route stays the CUDA-core kernel there.
+// entry point; its fp32 route is csrc/attention_fp32_sm90.cu.
 //
 // Replaces the TPU kernel mmvid_tpu/ops/attention.py::_make_packed_kernel
 // (driven by fused_attention_blhd / _pallas_attention) and computes the
@@ -70,7 +70,7 @@
 // A key >= L gets logit -inf and zero K/V rows; a query row >= L computes
 // on a valid mask row and is never stored.  A first tile that the mask
 // wholly masks (-1e9) is forgotten when a later tile raises the row max
-// (alpha = 0), as in the CUDA-core kernel.
+// (alpha = 0), as in the fp32 route.
 
 #include <atomic>
 

@@ -10,7 +10,8 @@ the projection at the argmax token).  Used by the CLIP-score metric
 
 Both towers run the port's :class:`~mmvid_tpu_torch.models.clip.
 TransformerStack` in fp32, as JAX's scorer runs: on the card attention
-takes the fp32 route of the attention kernel (``csrc/attention.cu``).
+takes the fp32 route of the attention kernel
+(``csrc/attention_fp32_sm90.cu``).
 Modules carry OpenAI's state_dict names: :class:`CLIP`'s ``state_dict()``
 has the archive's layout (the text tower at the top level, ``visual.*``,
 ``logit_scale``), so an archive's weights load unchanged and a traced

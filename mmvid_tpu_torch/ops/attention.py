@@ -1,6 +1,7 @@
 """Full-sequence self-attention: the plain PyTorch version and the wrapper
-of the hand-written CUDA kernels (``csrc/attention.cu``: bf16 on the tensor
-cores in ``csrc/attention_sm90.cu``, fp32 on the CUDA cores).
+of the hand-written CUDA kernels (``csrc/attention.cu``'s entry: bf16 on
+the tensor cores in ``csrc/attention_sm90.cu``, fp32 on the CUDA cores in
+``csrc/attention_fp32_sm90.cu``).
 
 Counterpart of ``mmvid_tpu/ops/attention.py``.  Both versions compute
 ``softmax(q * scale @ k^T + mask) @ v`` per (batch, head) with fp32 logits,
@@ -51,6 +52,11 @@ backward_calls = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+# mmvid_attention_fwd's argument types (csrc/attention.cu); the fp32
+# kernel's entry at a given tile takes the same, the tile's rows in the
+# dtype's place
+_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 _fn = None
 
 
@@ -103,12 +109,45 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.library().mmvid_attention_fwd
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def fp32_tile_rows(b: int, l: int, h: int) -> int:
+    """Rows a thread of the fp32 kernel's query tile (the tile is 16 x
+    that) that the route takes for ``b`` x ``h`` heads of ``l`` queries on
+    the current card."""
+    fn = _build.library().mmvid_attention_fp32_rows
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    rows = fn(b, l, h)
+    if rows < 0:
+        raise RuntimeError('fp32 attention: the card\'s SM count not read')
+    return rows
+
+
+def fp32_kernel_at(rows: int, q, k, v, mask, bf16_probs: bool = False):
+    """The fp32 kernel at the query tile of ``rows`` rows a thread (8, 6
+    or 4), with :func:`fused_attention_blhd`'s checks, for the card
+    tests and the attribution script: not the route, and no launch is
+    counted."""
+    _check_cuda_args(q, k, v, mask)
+    if q.dtype != torch.float32:
+        raise ValueError('fp32_kernel_at takes fp32 q, k, v')
+    b, l, h, d = q.shape
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn = _build.library().mmvid_attention_fp32_at
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    rc = fn(rows, d, int(bf16_probs), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), mask.data_ptr(), out.data_ptr(), b, l, h, strides,
+            float(d ** -0.5), _build.stream_handle(q.device))
+    _build.check(rc, f'fp32 attention kernel launch at {rows} rows')
+    return out
 
 
 def _check_cuda_args(q, k, v, mask, int8=False):
@@ -137,17 +176,18 @@ def _check_cuda_args(q, k, v, mask, int8=False):
     if int8 and l > attention_int8.MAX_L:
         raise ValueError(f'the int8 kernel holds a head in shared memory: '
                          f'L <= {attention_int8.MAX_L}, not {l}')
-    # the tensor-core kernel copies 16-byte chunks of rows and of the
-    # mask; the int8 kernel loads 8 elements at a time in either dtype
-    if q.dtype == torch.bfloat16 and not int8 and mask.data_ptr() % 16:
-        raise ValueError('mask: the bf16 kernel needs a 16-byte aligned '
-                         'base')
-    if q.dtype == torch.bfloat16 or int8:
-        for name, t in (('q', q), ('k', k), ('v', v)):
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                raise ValueError(f'{name}: the kernel needs a 16-byte '
-                                 'aligned base and batch, row and head '
-                                 'strides that are multiples of 8')
+    # the bf16 and fp32 kernels copy 16-byte chunks of rows and of the
+    # mask (8 bf16 or 4 fp32 elements); the int8 kernel loads 8 elements
+    # at a time in either dtype
+    if not int8 and mask.data_ptr() % 16:
+        raise ValueError('mask: the attention kernel needs a 16-byte '
+                         'aligned base')
+    chunk = 8 if q.dtype == torch.bfloat16 or int8 else 4
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        if t.data_ptr() % 16 or any(st % chunk for st in t.stride()[:3]):
+            raise ValueError(f'{name}: the kernel needs a 16-byte aligned '
+                             'base and batch, row and head strides that '
+                             f'are multiples of {chunk}')
 
 
 def refuse_grad(what: str, *tensors) -> None:

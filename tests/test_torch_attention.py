@@ -15,7 +15,12 @@ base 2, P split into bf16 P_hi + P_lo, or bf16 P) is held against
 design's numerics without the card; so is one of the int8 kernel's
 arithmetic (csrc/attention_int8_sm90.cu: the operand pass, 64-key tiles
 of s8 sums, the mask's compact form, the kernel's order of the row sums)
-against JAX's int8 kernel in interpret mode.  The compact form that
+against JAX's int8 kernel in interpret mode; and one of the fp32
+kernel's (csrc/attention_fp32_sm90.cu: 64-key tiles, one FFMA chain a
+logit, the online rescale per tile, per-lane partial row sums, bf16 P
+under MMVID_ATTN_BF16) against ``_attention_xla`` and the Pallas kernel in
+interpret mode at the paths' sequences.  The fp32 route's alignment
+checks are held on the views every caller passes.  The compact form that
 models/clip.py builds beside every mask is held equal to the dense mask.
 The CUDA kernels are held against the plain version on the card only, in
 tests/test_torch_kernels.py.
@@ -246,6 +251,118 @@ def test_kernel_emulation_matches_jax_xla(l, idx):
     assert (np.abs(bf16p - plain) <= bf16_ulp(plain)).all()
 
 
+def _fma(a, b, c):
+    """fp32 a * b + c with one rounding (FFMA): the product is exact in
+    fp64, the sum rounded there and then to fp32 (a double rounding that
+    can move the last bit in rare ties)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def fp32_kernel_emulation(q, k, v, mask):
+    """csrc/attention_fp32_sm90.cu's arithmetic on the CPU: q, k, v fp32
+    [B, L, H, D], mask fp32 [L, L] -> (out, out with bf16 P), fp32 [B, L,
+    H, D].  q * scale in fp32; each logit one FFMA chain over d in order,
+    plus the mask; 64-key tiles (keys >= L: logit -inf).  Per tile: m' =
+    max(m, the tile's row max), alpha = exp2(fma(m, log2e, -m' log2e)), p
+    = exp2(fma(x, log2e, -m' log2e)); each of the 16 lanes of a row sums
+    its keys of the tile (cg + 16 j, j in order) and keeps fma(l, alpha,
+    sum); O = alpha O, then one FFMA a key in order, P rounded to bf16 for
+    the second output (MMVID_ATTN_BF16=1).  At the end the lanes' sums meet
+    by the shuffles' pairwise tree, and O / l."""
+    b, l, h, d = q.shape
+    f32 = torch.float32
+    log2e = torch.tensor(LOG2E, dtype=f32)
+    n_tiles = -(-l // 64)
+    lp = 64 * n_tiles
+    # _fma's operands in fp64 once (exact: fp32 values)
+    qs = (q * torch.tensor(d ** -0.5, dtype=f32)).permute(0, 2, 1, 3).double()
+    kp, vp = (torch.nn.functional.pad(t.permute(0, 2, 1, 3),
+                                      (0, 0, 0, lp - l)).double()
+              for t in (k, v))
+    s = torch.zeros((b, h, l, lp), dtype=f32)
+    for i in range(d):
+        s = _fma(qs[..., i, None], kp[..., None, :, i], s)
+    x = s + torch.nn.functional.pad(mask, (0, lp - l))
+    x[..., l:] = -np.inf
+    m = torch.full((b, h, l), -np.inf, dtype=f32)
+    lsum = torch.zeros((b, h, l, 16), dtype=f32)
+    o = torch.zeros((2, b, h, l, d), dtype=f32)  # fp32 P, bf16 P
+    for j in range(n_tiles):
+        xt = x[..., 64 * j:64 * j + 64]
+        m_new = torch.maximum(m, xt.amax(-1))
+        m_log2 = m_new * log2e
+        alpha = torch.exp2(_fma(m, log2e, -m_log2))
+        p = torch.exp2(_fma(xt, log2e, -m_log2[..., None]))
+        lanes = p.view(b, h, l, 4, 16)
+        psum = lanes[..., 0, :]
+        for c in range(1, 4):
+            psum = psum + lanes[..., c, :]
+        lsum = _fma(lsum, alpha[..., None], psum)
+        vt = vp[..., 64 * j:64 * j + 64, :]
+        pn = torch.stack((p.double(), p.bfloat16().double()))
+        o = o * alpha[..., None]
+        for c in range(64):
+            o = _fma(pn[..., c, None], vt[..., c, None, :], o)
+        m = m_new
+    while lsum.shape[-1] > 1:
+        lsum = lsum[..., 0::2] + lsum[..., 1::2]
+    return tuple((on / lsum).permute(0, 2, 1, 3) for on in o)
+
+
+@pytest.fixture
+def one_thread():
+    """torch's pool at one thread: small ops run as fast in one, and do
+    not spin against the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize('b,l,h,d,kind,idx', [
+    (2, 565, 3, 64, 'mask_prev', (51, 52)),
+    (2, 629, 3, 64, 'mask_prev', (115, 116)),
+    (2, 139, 2, 32, 'mask_prev', (9, 10)),
+    (1, 626, 2, 64, 'causal', None)],
+    ids=['flagship_L565', 'text_mask_L629', 'tiny_L139_D32', 'causal_L626'])
+def test_fp32_kernel_emulation_matches_jax(monkeypatch, one_thread, b, l, h,
+                                           d, kind, idx):
+    """The fp32 kernel's tiled arithmetic (fp32_kernel_emulation) against
+    JAX's ``_attention_xla`` and its Pallas kernel in interpret mode, fp32,
+    on inputs from numpy: within 1e-5 abs (sums in another order; JAX's two
+    lie 5e-7 apart at L629), and the port's plain version likewise.  With
+    bf16 P (MMVID_ATTN_BF16=1): within one bf16 ulp of max(|out|, 1) of
+    JAX's Pallas kernel under the same flag, and of the plain version of
+    that variant (the kernel rounds exp(logit - running max), JAX exp(logit
+    - row max))."""
+    rng = np.random.RandomState(l + d)
+    q, k, v = (rng.randn(b, l, h, d).astype(np.float32) for _ in range(3))
+    m_jax = np.asarray(jax_mask(l, kind, index=idx))
+    m_port = build_attention_mask(l, kind, index=idx)
+    np.testing.assert_array_equal(m_port.numpy(), m_jax)
+    jq, jk, jv, jm = map(jnp.asarray, (q, k, v, m_jax))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got, got_bf16p = (o.numpy() for o in fp32_kernel_emulation(
+        tq, tk, tv, m_port))
+    monkeypatch.delenv('MMVID_ATTN_BF16', raising=False)
+    want_xla = np.asarray(_attention_xla(jq, jk, jv, jm, d ** -0.5))
+    want_pallas = np.asarray(jax_fused(jq, jk, jv, jm, interpret=True))
+    plain = A.attention_reference(tq, tk, tv, m_port, d ** -0.5).numpy()
+    for want in (want_xla, want_pallas, plain):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    monkeypatch.setenv('MMVID_ATTN_BF16', '1')
+    want = np.asarray(jax_fused(jq, jk, jv, jm, interpret=True))
+    plain = A.attention_reference(tq, tk, tv, m_port, d ** -0.5,
+                                  bf16_probs=True).numpy()
+    for want in (want, plain):
+        assert (np.abs(got_bf16p - want) <= bf16_ulp(want)).all()
+    # the variant is another function: bf16 P moves the outputs by more
+    # than the fp32 tolerance
+    assert np.abs(got_bf16p - got).max() > 1e-4
+
+
 # every mask a path builds, as (size, kind, index, length, pad_to):
 # mask_prev at the flagship's and text+mask's sequences, causal (ART-V's
 # forward, and its slice to 625), the padded layout of calibration (key
@@ -431,3 +548,94 @@ def test_int8_quantize_without_division_is_exact():
         r = _rn32(fx - Fr(float(q)) * fs)
         got = _rn32(Fr(float(q)) + Fr(float(r)) * fy)
         assert got == _rn32(fx / fs), (x, s)
+
+
+def _views(b, l, h, d, offset_floats=0):
+    """q, k, v as views of one packed [B, L, 3 * H * D] fp32 projection,
+    their bases moved by ``offset_floats`` elements; mask_prev rows."""
+    flat = torch.zeros(b * l * 3 * h * d + offset_floats)
+    qkv = flat[offset_floats:].view(b, l, 3 * h * d)
+    return ([qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+             for i in range(3)], build_attention_mask(l, 'mask_prev',
+                                                       index=(9, 10)))
+
+
+def test_fp32_route_refuses_misaligned_views():
+    """The fp32 kernel copies 16-byte chunks: the card path checks q, k,
+    v (16-byte aligned bases, batch / row / head strides that are
+    multiples of 4) and the mask's base before a launch.  The packed views
+    pass; a base moved by one float, a row stride not a multiple of 4, or
+    a mask whose base is moved by one float raise."""
+    (q, k, v), mask = _views(2, 139, 2, 32)
+    A._check_cuda_args(q, k, v, mask)
+    (q1, k1, v1), _ = _views(2, 139, 2, 32, offset_floats=1)
+    with pytest.raises(ValueError, match='16-byte aligned base'):
+        A._check_cuda_args(q1, k1, v1, mask)
+    odd = torch.zeros(2, 139, 2 * 32 * 3 + 2)[..., :64].view(2, 139, 2, 32)
+    with pytest.raises(ValueError, match='multiples of 4'):
+        A._check_cuda_args(odd, odd, odd, mask)
+    shifted = torch.zeros(139 * 139 + 1)[1:].view(139, 139)
+    shifted.copy_(mask)
+    with pytest.raises(ValueError, match='mask: .*16-byte aligned base'):
+        A._check_cuda_args(q, k, v, shifted)
+
+
+def test_every_fp32_caller_passes_the_alignment_check(monkeypatch,
+                                                     one_thread):
+    """No caller of the fp32 route starts to raise: the views and masks
+    that the models hand to fused_attention_blhd (models/clip.py's packed
+    in_proj; the flagship's and the text+mask model's sampling, ART-V's
+    prefill, the training forward with its backward, and both towers of
+    models/clip_full.py), here at the tiny sizes on the CPU, pass the card
+    path's checks."""
+    from mmvid_tpu_torch import factories, training
+    from mmvid_tpu_torch.models import clip_full
+
+    plain = A.attention_reference
+    seen = []
+
+    def checked(q, k, v, mask, scale, bf16_probs=False):
+        A._check_cuda_args(q, k, v, mask)
+        seen.append(q.shape)
+        return plain(q, k, v, mask, scale, bf16_probs)
+
+    monkeypatch.setattr(A, 'attention_reference', checked)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for cvae in (False, True):
+            model, _ = factories.flagship(tiny=True, device='cpu', seed=0,
+                                          use_cvae=cvae)
+            cfg = model.cfg
+            text = torch.randint(1, 100, (2, cfg.text_seq_len),
+                                 generator=gen)
+            kw = dict(mask_predict_steps=1, dynamic=False, decode=False)
+            if cvae:
+                kw.update(visual=torch.rand((2, 1, cfg.image_size,
+                                             cfg.image_size, 3),
+                                            generator=gen),
+                          vc_mode='mask_8x8', face_mode='mask')
+            model.generate_images(gen, text, **kw)
+        artv = factories.artv_tiny(device='cpu')[0]
+        artv.prefill(torch.randint(1, 50, (2, artv.cfg.text_seq_len),
+                                   generator=gen))
+        small = clip_full.ClipConfig(
+            embed_dim=32, image_resolution=32, vision_width=64,
+            vision_layers=1, vision_patch_size=16, context_length=12,
+            vocab_size=100, transformer_width=64, transformer_layers=1)
+        scorer = clip_full.CLIP(small).eval()
+        scorer.encode_image(torch.rand((2, 3, 32, 32), generator=gen))
+        scorer.encode_text(torch.randint(1, 99, (2, 12), generator=gen))
+    n_serving = len(seen)
+    model, _ = factories.flagship_train(tiny=True, dtype=torch.float32,
+                                        device='cpu', seed=3, remat=True)
+    tc = training.TrainConfig(rel_no_fully_masked=True, dropout_vc=0.0)
+    step = training.make_train_step(model, tc)
+    rng = np.random.RandomState(5)
+    batch = {'text': torch.from_numpy(
+                 rng.randint(1, 100, (2, model.cfg.text_seq_len))).long(),
+             'target': torch.from_numpy(rng.uniform(0, 1, (
+                 2, model.cfg.num_targets, model.cfg.image_size,
+                 model.cfg.image_size, 3)).astype(np.float32))}
+    step(training.create_train_state(model, tc), batch,
+         torch.Generator().manual_seed(0))
+    assert n_serving > 0 and len(seen) > n_serving

@@ -14,6 +14,8 @@ import torch
 
 from chip_smoke import (
     ATTN_BWD_TOL,
+    ATTN_TOL,
+    FP32_TILE_ROWS,
     CODE_GAP_TOL,
     TRAIN_BACKWARD_CALLS,
     TRAIN_LAUNCHES,
@@ -668,15 +670,22 @@ def test_gridstep_kernel_matches_plain(cuda_device, launches_per_call):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('bf16_probs', [False, True],
+                         ids=['fp32_probs', 'bf16_probs'])
 @pytest.mark.parametrize('b,l,h,causal', [(16, 50, 12, False),
                                           (16, 77, 8, True)],
                          ids=['clip_visual_L50', 'clip_text_L77'])
-def test_attention_fp32_route_at_clip_shapes(cuda_device, b, l, h, causal):
+def test_attention_fp32_route_at_clip_shapes(cuda_device, monkeypatch,
+                                             bf16_probs, b, l, h, causal):
     """The CLIP scorer's towers (models/clip_full.py) in fp32: the
     CUDA-core route at ViT-B/32's visual sequence (no mask) and its
-    text sequence under the causal mask, D 64, within the fp32
-    tolerance of the path shapes above."""
+    text sequence under the causal mask, D 64, with MMVID_ATTN_BF16 off
+    and on, within ATTN_TOL of the plain version of the same variant."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    if bf16_probs:
+        monkeypatch.setenv('MMVID_ATTN_BF16', '1')
+    else:
+        monkeypatch.delenv('MMVID_ATTN_BF16', raising=False)
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = _packed_qkv(g, cuda_device, b, l, h, 64, torch.float32)
     mask = (attention_mask(l, 'causal', device=cuda_device) if causal
@@ -686,8 +695,86 @@ def test_attention_fp32_route_at_clip_shapes(cuda_device, b, l, h, causal):
     assert A.launches == before + 1
     dense = (mask.dense if causal
              else torch.zeros((l, l), device=cuda_device))
-    want = A.attention_reference(q, k, v, dense, 64 ** -0.5)
-    assert (out - want).abs().max().item() <= 1e-4
+    want = A.attention_reference(q, k, v, dense, 64 ** -0.5, bf16_probs)
+    assert (out - want).abs().max().item() <= ATTN_TOL[('float32',
+                                                         bf16_probs)]
+
+
+def _fp32_mask(kind, l, device, g):
+    """An additive fp32 [L, L] mask: the causal or mask_prev mask (its
+    rows at L // 2 and one after), or random values (every key's own
+    mask value must reach its logit, at every row offset)."""
+    if kind == 'random':
+        return torch.randn((l, l), generator=g, device=device)
+    idx = tuple(i for i in (l // 2, l // 2 + 1) if i < l)
+    return build_attention_mask(l, kind, index=idx, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16_probs', [False, True],
+                         ids=['fp32_probs', 'bf16_probs'])
+@pytest.mark.parametrize('kind', ['mask_prev', 'causal', 'random'])
+@pytest.mark.parametrize('d', [64, 32])
+@pytest.mark.parametrize('l', [1, 63, 65, 127, 129, 565, 629])
+def test_attention_fp32_route_ragged_packed(cuda_device, monkeypatch,
+                                            bf16_probs, kind, d, l):
+    """The fp32 route (csrc/attention_fp32_sm90.cu) on the packed views,
+    around the 64-key and 16-row tile edges and at the paths' sequences,
+    D 64 and 32, with MMVID_ATTN_BF16 off and on: one launch, within
+    ATTN_TOL of the plain version; and every query tile of the kernel
+    (the route takes one by shape) within it on the same inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if bf16_probs:
+        monkeypatch.setenv('MMVID_ATTN_BF16', '1')
+    else:
+        monkeypatch.delenv('MMVID_ATTN_BF16', raising=False)
+    g = torch.Generator(device=cuda_device).manual_seed(l + d)
+    b, h = 2, 3
+    q, k, v = _packed_qkv(g, cuda_device, b, l, h, d, torch.float32)
+    mask = _fp32_mask(kind, l, cuda_device, g)
+    tol = ATTN_TOL[('float32', bf16_probs)]
+    before = A.launches
+    out = A.fused_attention_blhd(q, k, v, mask)
+    assert A.launches == before + 1
+    want = A.attention_reference(q, k, v, mask, d ** -0.5, bf16_probs)
+    assert (out - want).abs().max().item() <= tol
+    for rows in FP32_TILE_ROWS:
+        got = A.fp32_kernel_at(rows, q, k, v, mask, bf16_probs)
+        assert (got - want).abs().max().item() <= tol, rows
+    assert A.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_attention_fp32_route_tiles_by_shape(cuda_device):
+    """The route's query tile by shape: the 128-row tile at the text+mask
+    and ART-V sequences, batch 16; every tile it takes is one the kernel
+    has (FP32_TILE_ROWS)."""
+    assert A.fp32_tile_rows(16, 629, 12) == 8
+    assert A.fp32_tile_rows(16, 626, 12) == 8
+    for b, l, h in ((16, 565, 12), (16, 50, 12), (16, 77, 8), (3, 139, 2),
+                    (2, 1, 1), (16, 4096, 12)):
+        assert A.fp32_tile_rows(b, l, h) in FP32_TILE_ROWS
+
+
+@pytest.mark.cuda
+def test_attention_fp32_route_refuses_misaligned(cuda_device):
+    """The fp32 kernel copies 16-byte chunks: a view whose base is not
+    16-byte aligned, or whose row stride is not a multiple of 4 floats,
+    raises before a launch (no fallback to another path)."""
+    b, l, h, d = 2, 65, 2, 64
+    flat = torch.randn(b * l * 3 * h * d + 1, device=cuda_device)
+    qkv = flat[1:].view(b, l, 3 * h * d)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+               for i in range(3))
+    mask = build_attention_mask(l, 'causal', device=cuda_device)
+    odd = torch.randn((b, l, h * d + 2), device=cuda_device)[..., :h * d]
+    odd = odd.view(b, l, h, d)
+    before = A.launches
+    with pytest.raises(ValueError, match='16-byte aligned base'):
+        A.fused_attention_blhd(q, k, v, mask)
+    with pytest.raises(ValueError, match='multiples of 4'):
+        A.fused_attention_blhd(odd, odd, odd, mask)
+    assert A.launches == before
 
 
 @pytest.mark.cuda
