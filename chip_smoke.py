@@ -62,11 +62,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    causal, fp32 and bf16, on the packed views (ATTN_BWD_TOL); timed beside
    ``F.scaled_dot_product_attention``'s forward and backward.
 4. sample-head kernels vs their plain version: exact at temp 0 for Y
-   given the chosen token, token histograms in distribution (TV bounds);
-   at temp 1 both bf16 routes (tensor cores, CUDA cores) against the
-   plain version fed the kernels' own noise (``philox_gumbel`` at one
-   seed) and against each other, timed in turns; the fp32-W route (every
-   fp32 batch's) timed beside its plain version and bound.
+   given the chosen token (bf16 W and a genuinely fp32 W), token
+   histograms in distribution (TV bounds); at temp 1 every route against
+   the plain version fed the kernels' own noise (``philox_gumbel`` at
+   one seed): bf16 W on the tensor cores and the CUDA cores, fp32 W on
+   the split-TF32 route and the CUDA cores, each route against the other
+   at one W, each tolerance against a control it must refuse (bf16
+   logits; one TF32 pass); timed in turns per W, the fp32 route beside
+   ``F.layer_norm`` + ``F.linear`` in fp32, its plain version and bound.
 5. nearest-code kernel vs its plain version at M 1024, 4096 and 8192
    (D 256, K 1024): ids equal on a randn codebook; within 1e-5 of the
    best score on the random-init codebook; kernel, plain and bound times
@@ -99,8 +102,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
     determinism by seed; then ``breakdown.measure`` of a batch of 16;
     then the flagship in fp32, the released recipes' precision: one batch
     of 16 after a warm-up (launch counts exact: the fp32 attention route
-    240, the sample head's fp32-W route 20), frames/s, and the attention
-    kernel's share of the device time of a profiled batch.
+    240, the sample head's split-TF32 route 40, two a call), frames/s,
+    and the attention kernel's share of the device time of a profiled
+    batch.
 11. text+mask path: one batch of 16, launch counts, output checks,
     determinism by seed, then ``breakdown.measure``; then again with
     MMVID_FUSED_LNQKV=1 (launch counts, tokens against the gate-off run,
@@ -222,6 +226,16 @@ Y_TOL = {'float32': 1e-5, 'bfloat16': 2e-3}
 # to bf16, 4.420e-2; the bound lies between them
 HEAD_TOKEN_SHARE = 0.999
 HEAD_Y_REL_TOL = 4e-3
+# the same for fp32 W on the split-TF32 route: no bf16 rounding, so only
+# the fp32 sums in another order, the tensor cores' truncated sums and the
+# split's 2^-22 move a logit.  At M8192 on the H100 the route read 1.437e-5
+# (the CUDA-core kernel 6.716e-6), and the control, the plain version with
+# h and W each rounded once to TF32 (one TF32 pass), 3.843e-3; the bound
+# lies between them
+HEAD_Y_REL_TOL_FP32 = 1e-4
+# the sample head's launches a call on the split-TF32 route, the fp32
+# paths' (the logits, then the sampling); one on every other route
+TF32_HEAD_LAUNCHES = 2
 # fused LN+QKV kernel (bf16) vs plain: |kernel - plain| <= tol * (1 +
 # |plain|) elementwise (rtol = atol = tol, the CPU tests' form): h and the
 # output are rounded to bf16, and a last-bit difference of the LN
@@ -324,7 +338,8 @@ INT8_DECODE_MAX = 0.2
 
 # NVIDIA H100 SXM peaks (data sheet, dense): the bounds of the kernels line
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12, 'int8': 1979e12}
+PEAK_FLOPS = {'bf16': 989e12, 'fp32': 67e12, 'int8': 1979e12,
+              'tf32': 495e12}
 
 
 def bound(nbytes: float, flops: float, kind: str):
@@ -868,6 +883,7 @@ def _tv(p, q):
 
 def phase_sample_head():
     import torch
+    import torch.nn.functional as F
     from mmvid_tpu_torch.ops import sample_head as S
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain = fp32
@@ -880,11 +896,19 @@ def phase_sample_head():
     # logit std about 3: a peaked distribution with tens of likely tokens
     w = (0.108 * torch.randn((d, v), generator=g, device=dev)).bfloat16()
     b = 0.1 * torch.randn((v,), generator=g, device=dev)
+    # a genuinely fp32 W (all 23 mantissa bits), for the fp32-W routes: a
+    # W rounded from bf16 has its low 16 bits zero, and could not tell a
+    # kernel that drops W's low bits from one that keeps them
+    w32 = 0.108 * torch.randn((d, v), generator=g, device=dev)
+    w32t = S.prepare_head_weight(w32)   # W^T, once a sampling call
+    if S.kernel_route(w32) != 'tf32x3' or S.kernel_route(w) != 'wgmma':
+        fail('sample head: the full-width W does not take the tensor cores')
 
     # temp 0: Y must be the plain softmax probability of the chosen token
     y_errs = {}
-    for wd in (w.float(), w):
-        y, tok = S.fused_sample_head(x, ln_w, ln_b, wd, b, 0.0, g)
+    for wd in (w32, w):
+        y, tok = S.fused_sample_head(x, ln_w, ln_b, wd, b, 0.0, g,
+                                     w_prepared=S.prepare_head_weight(wd))
         probs = torch.softmax(S.head_logits(x, ln_w, ln_b, wd, b), -1)
         y_ref = probs.gather(1, tok[:, None])[:, 0]
         torch.cuda.synchronize()
@@ -892,8 +916,9 @@ def phase_sample_head():
             fail('sample head: token out of range')
         y_err = (y - y_ref).abs().max().item()
         tol = Y_TOL[str(wd.dtype).split('.')[-1]]
-        print(f'[sample_head] M={m} D={d} V={v} W {wd.dtype} temp=0: max '
-              f'|Y - p(tok)| {y_err:.3e} (tol {tol})', flush=True)
+        print(f'[sample_head] M={m} D={d} V={v} W {wd.dtype} '
+              f'({S.kernel_route(wd)}) temp=0: max |Y - p(tok)| '
+              f'{y_err:.3e} (tol {tol})', flush=True)
         if not y_err <= tol:
             fail(f'sample head Y error {y_err} > {tol}')
         y_errs[wd.dtype] = y_err
@@ -921,91 +946,130 @@ def phase_sample_head():
         fail('sample head token distribution out of bounds')
 
     # temp 1 against the plain version fed the kernels' own noise (the
-    # plain Philox at the same seed): both routes, and each other
+    # plain Philox at the same seed): every route at its W, the CUDA-core
+    # kernel at both, and the routes of one W against each other
     seed = torch.tensor([20260516], dtype=torch.int64, device=dev)
     g1, g2 = S.philox_gumbel(int(seed), m, v, dev)
-    y_ref, tok_ref = S.sample_head_reference(x, ln_w, ln_b, w, b, 1.0, g1,
-                                             g2)
     toks, philox = {}, {}
-    for route in S.ROUTES:
-        y, toks[route] = S.sample_head_kernel(x, ln_w, ln_b, w, b, 1.0, seed,
-                                              route)
-        same = toks[route] == tok_ref
+    for wd, route, tol in ((w, 'wgmma', HEAD_Y_REL_TOL),
+                           (w, 'cuda_cores', HEAD_Y_REL_TOL),
+                           (w32, 'tf32x3', HEAD_Y_REL_TOL_FP32),
+                           (w32, 'cuda_cores', HEAD_Y_REL_TOL_FP32)):
+        key = f'{route}_{str(wd.dtype).split(".")[-1]}'
+        y_ref, tok_ref = S.sample_head_reference(x, ln_w, ln_b, wd, b, 1.0,
+                                                 g1, g2)
+        y, toks[key] = S.sample_head_kernel(x, ln_w, ln_b, wd, b, 1.0, seed,
+                                            route, w_prepared=w32t)
+        same = toks[key] == tok_ref
         share = same.float().mean().item()
         y_rel = ((y - y_ref).abs() / y_ref)[same].max().item()
-        philox[route] = {'tokens_equal_share': share, 'y_rel_err': y_rel}
-        print(f'[sample_head] M={m} temp 1, {route} kernel vs plain fed '
-              f'philox_gumbel at one seed: tokens equal on {share:.6f} of '
-              f'rows (bound {HEAD_TOKEN_SHARE}), Y relative error '
-              f'{y_rel:.3e} on those (tol {HEAD_Y_REL_TOL})', flush=True)
-        if not (share >= HEAD_TOKEN_SHARE and y_rel <= HEAD_Y_REL_TOL):
+        philox[key] = {'tokens_equal_share': share, 'y_rel_err': y_rel}
+        print(f'[sample_head] M={m} temp 1, {route} kernel, W {wd.dtype}, '
+              f'vs plain fed philox_gumbel at one seed: tokens equal on '
+              f'{share:.6f} of rows (bound {HEAD_TOKEN_SHARE}), Y relative '
+              f'error {y_rel:.3e} on those (tol {tol})', flush=True)
+        if not (share >= HEAD_TOKEN_SHARE and y_rel <= tol):
             fail(f'sample head {route} kernel disagrees with plain Philox '
                  f'sampling')
-    # the control: the plain version with its logits rounded to bf16 (what
-    # a kernel that kept bf16 logits would give); HEAD_Y_REL_TOL must lie
-    # below its Y error, or the check could not tell such a kernel apart
-    noised = S.head_logits(x, ln_w, ln_b, w, b).bfloat16().float() + g1
-    y_ctrl = torch.exp(noised.gather(1, tok_ref[:, None])[:, 0]
-                       - torch.logsumexp(noised, -1))
-    ctrl = ((y_ctrl - y_ref).abs() / y_ref).max().item()
-    del noised
-    print(f'[sample_head] M={m} temp 1, control (plain with bf16 logits): Y '
-          f'relative error {ctrl:.3e} (must exceed {HEAD_Y_REL_TOL})',
-          flush=True)
-    if not ctrl > HEAD_Y_REL_TOL:
-        fail('the sample head\'s Y tolerance does not tell bf16 logits apart')
-    cross = (toks['wgmma'] == toks['cuda_cores']).float().mean().item()
+    # the controls, each tolerance's Y error must lie below: bf16 W, the
+    # plain version with its logits rounded to bf16 (what a kernel that
+    # kept bf16 logits would give); fp32 W, the plain version with h and
+    # W each rounded once to TF32 (what a kernel that skipped the split
+    # would give)
+    h = S.layer_norm_fp32(x, ln_w, ln_b)
+    controls = {}
+    for name, logits, wd, tol in (
+            ('bf16_logits', S.head_logits(x, ln_w, ln_b, w, b).bfloat16()
+             .float(), w, HEAD_Y_REL_TOL),
+            ('one_pass_tf32', S.round_tf32(h) @ S.round_tf32(w32) + b, w32,
+             HEAD_Y_REL_TOL_FP32)):
+        y_ref, tok_ref = S.sample_head_reference(x, ln_w, ln_b, wd, b, 1.0,
+                                                 g1, g2)
+        noised = logits + g1
+        y_ctrl = torch.exp(noised.gather(1, tok_ref[:, None])[:, 0]
+                           - torch.logsumexp(noised, -1))
+        controls[name] = ((y_ctrl - y_ref).abs() / y_ref).max().item()
+        del noised
+        print(f'[sample_head] M={m} temp 1, control ({name}): Y relative '
+              f'error {controls[name]:.3e} (must exceed {tol})', flush=True)
+        if not controls[name] > tol:
+            fail(f'the sample head\'s Y tolerance does not tell the '
+                 f'{name} control apart')
+    del h
+    cross = {'bf16': (toks['wgmma_bfloat16'] == toks['cuda_cores_bfloat16']
+                      ).float().mean().item(),
+             'fp32': (toks['tf32x3_float32'] == toks['cuda_cores_float32']
+                      ).float().mean().item()}
     print(f'[sample_head] tensor-core vs CUDA-core kernel at one seed: '
-          f'tokens equal on {cross:.6f} of rows', flush=True)
-    if not cross >= HEAD_TOKEN_SHARE:
-        fail('the two sample-head kernels disagree at one seed')
+          f'tokens equal on {cross["bf16"]:.6f} (bf16 W) and '
+          f'{cross["fp32"]:.6f} (fp32 W, split TF32) of rows', flush=True)
+    if not min(cross.values()) >= HEAD_TOKEN_SHARE:
+        fail('the sample-head kernels disagree at one seed')
 
-    # in turns: tensor cores, CUDA cores, CUDA cores, tensor cores
-    t = {route: [] for route in S.ROUTES}
-    for route in ('wgmma', 'cuda_cores', 'cuda_cores', 'wgmma'):
-        t[route].append(cuda_time_ms(lambda: S.sample_head_kernel(
-            x, ln_w, ln_b, w, b, 1.0, seed, route)))
-    ms, ms_cores = min(t['wgmma']), min(t['cuda_cores'])
+    # in turns: tensor cores, CUDA cores, CUDA cores, tensor cores, for
+    # each W
+    t = {}
+    for wd, route in ((w, 'wgmma'), (w, 'cuda_cores'), (w, 'cuda_cores'),
+                      (w, 'wgmma'), (w32, 'tf32x3'), (w32, 'cuda_cores'),
+                      (w32, 'cuda_cores'), (w32, 'tf32x3')):
+        key = f'{route}_{str(wd.dtype).split(".")[-1]}'
+        t.setdefault(key, []).append(cuda_time_ms(
+            lambda: S.sample_head_kernel(x, ln_w, ln_b, wd, b, 1.0, seed,
+                                         route, w_prepared=w32t)))
+    ms, ms_cores = min(t['wgmma_bfloat16']), min(t['cuda_cores_bfloat16'])
+    ms32, ms32_cores = min(t['tf32x3_float32']), min(t['cuda_cores_float32'])
 
-    def plain():
+    def plain(wd):
         g1, g2 = S.philox_gumbel(int(seed), m, v, dev)
-        return S.sample_head_reference(x, ln_w, ln_b, w, b, 1.0, g1, g2)
+        return S.sample_head_reference(x, ln_w, ln_b, wd, b, 1.0, g1, g2)
 
-    plain_ms = cuda_time_ms(plain, calls=5, reps=3)
+    plain_ms = cuda_time_ms(lambda: plain(w), calls=5, reps=3)
+    plain32_ms = cuda_time_ms(lambda: plain(w32), calls=5, reps=3)
+    # the product alone in fp32 (TF32 off), another function: the fp32
+    # pair a model without the fused head would run
+    w32t = w32.t().contiguous()
+    ln_linear_ms = cuda_time_ms(lambda: F.linear(
+        F.layer_norm(x, (d,), ln_w, ln_b), w32t, b))
+    prepare_ms = cuda_time_ms(lambda: S.prepare_head_weight(w32))
     print(f'[sample_head] M={m} bf16 W: tensor-core kernel {ms:.4f} ms '
-          f'({t["wgmma"]}), CUDA-core kernel {ms_cores:.4f} ms '
-          f'({t["cuda_cores"]}), plain (Philox noise included) '
+          f'({t["wgmma_bfloat16"]}), CUDA-core kernel {ms_cores:.4f} ms '
+          f'({t["cuda_cores_bfloat16"]}), plain (Philox noise included) '
           f'{plain_ms:.4f} ms', flush=True)
-    # the fp32-W route (csrc/sample_head.cu), which every fp32 batch takes
-    # (the released recipes' precision): 20 launches a batch of 16
-    w32 = w.float()
-    ms32 = cuda_time_ms(lambda: S.sample_head_kernel(
-        x, ln_w, ln_b, w32, b, 1.0, seed))
-
-    def plain32():
-        g1, g2 = S.philox_gumbel(int(seed), m, v, dev)
-        return S.sample_head_reference(x, ln_w, ln_b, w32, b, 1.0, g1, g2)
-
-    plain32_ms = cuda_time_ms(plain32, calls=5, reps=3)
+    # the fp32-W route, which every fp32 batch takes (the released
+    # recipes' precision): x and W fp32 read once, Y and tok written once;
+    # 3 x 2 M D V TF32 operations, the bound; the same product in fp32
+    # FMAs beside it
     b32_ms, b32_by = bound(m * d * 4 + d * v * 4 + (2 * d + v) * 4
-                           + m * (4 + 8), 2 * m * d * v, 'fp32')
-    print(f'[sample_head] M={m} fp32 W (the CUDA-core route of every fp32 '
-          f'batch): kernel {ms32:.4f} ms, plain {plain32_ms:.4f} ms, bound '
-          f'{b32_ms:.4f} ms ({b32_by})', flush=True)
+                           + m * (4 + 8), 3 * 2 * m * d * v, 'tf32')
+    ffma_ms, _ = bound(0, 2 * m * d * v, 'fp32')
+    print(f'[sample_head] M={m} fp32 W: split-TF32 kernel {ms32:.4f} ms '
+          f'({t["tf32x3_float32"]}), CUDA-core kernel {ms32_cores:.4f} ms '
+          f'({t["cuda_cores_float32"]}), plain {plain32_ms:.4f} ms, '
+          f'F.layer_norm + F.linear fp32 {ln_linear_ms:.4f} ms, W^T '
+          f'{prepare_ms:.4f} ms a sampling call; bound {b32_ms:.4f} ms '
+          f'({b32_by}: TF32 at {PEAK_FLOPS["tf32"] / 1e12:.0f} TFLOP/s; '
+          f'the product in fp32 FMAs {ffma_ms:.4f} ms)', flush=True)
     # x fp32 read once, W bf16 read once, Y and tok written once
     nbytes = m * d * 4 + d * v * 2 + (2 * d + v) * 4 + m * (4 + 8)
-    extra = {'philox': philox, 'bf16_logits_control_y_rel_err': ctrl,
-             'fp32_w_route': {'source': 'mmvid_tpu_torch/csrc/sample_head.cu',
-                              'max_abs_err': y_errs[torch.float32],
-                              'ms': ms32, 'plain_ms': plain32_ms,
-                              'library_ms': None, 'bound_ms': b32_ms,
-                              'bound_by': b32_by},
+    extra = {'philox': philox, 'controls_y_rel_err': controls,
+             'fp32_w_route': {
+                 'source': 'mmvid_tpu_torch/csrc/sample_head_tf32_sm90.cu',
+                 'max_abs_err': y_errs[torch.float32], 'ms': ms32,
+                 'ms_all': t['tf32x3_float32'], 'plain_ms': plain32_ms,
+                 'library_ms': None, 'bound_ms': b32_ms,
+                 'bound_by': b32_by, 'ffma_bound_ms': ffma_ms,
+                 'layer_norm_linear_fp32_ms': ln_linear_ms,
+                 'prepare_ms': prepare_ms,
+                 'cuda_cores_route': {
+                     'source': 'mmvid_tpu_torch/csrc/sample_head.cu',
+                     'ms': ms32_cores,
+                     'ms_all': t['cuda_cores_float32']}},
              'kernels_tokens_equal_share': cross,
              'cuda_cores_route': {'source':
                                   'mmvid_tpu_torch/csrc/sample_head.cu',
                                   'ms': ms_cores,
-                                  'ms_all': t['cuda_cores']},
-             'ms_all': t['wgmma']}
+                                  'ms_all': t['cuda_cores_bfloat16']},
+             'ms_all': t['wgmma_bfloat16']}
     return (y_errs[torch.bfloat16], ms, plain_ms, None) + bound(
         nbytes, 2 * m * d * v, 'bf16'), extra
 
@@ -1830,10 +1894,11 @@ def phase_main_path():
 def _flagship_fp32(steps: int) -> dict:
     """The flagship in fp32, the released recipes' precision (no script
     passes --bf16): one batch of 16 after a warm-up, through the fp32
-    attention route (12 x 20 launches) and the sample head's fp32-W
-    route; frames/s on the host clock, launch counts exact, videos
-    finite in [0, 1]; then one profiled batch: device time by kind and
-    the attention kernel's share of the busy time."""
+    attention route (12 x 20 launches) and the sample head's split-TF32
+    route (TF32_HEAD_LAUNCHES x 20); frames/s on the host clock, launch
+    counts exact, videos finite in [0, 1]; then one profiled batch:
+    device time by kind and the attention kernel's share of the busy
+    time."""
     import torch
     from mmvid_tpu_torch import breakdown
 
@@ -1854,7 +1919,8 @@ def _flagship_fp32(steps: int) -> dict:
     videos, seq = batch()[:2]
     dt = time.perf_counter() - t0
     counts = read_counts()
-    want = expected(attention=cfg.clip.layers * steps, sample_head=steps)
+    want = expected(attention=cfg.clip.layers * steps,
+                    sample_head=TF32_HEAD_LAUNCHES * steps)
     vid = videos.float()
     if counts != want:
         fail(f'fp32 flagship launch counts {counts} != {want}')
@@ -3180,6 +3246,20 @@ def _fp32_attention_entry(route, clip, flagship_fp32, driver_launches):
                 'device_busy_ms', 'idle_share')}}
 
 
+def _fp32_head_entry(route, flagship_fp32, driver_launches):
+    """The kernels line's entry of the sample head's fp32-W route (the
+    split-TF32 kernel): its numbers at M 8192 D 768 V 1024 with a
+    genuinely fp32 W, its launches in the fp32 flagship batch; the fp32
+    drivers' launches (the sample-head counter of those runs, every call
+    of which is fp32) beside them."""
+    return {'name': 'sample_head_fp32', 'route': 'cuda',
+            'replaces': 'mmvid_tpu/ops/sample_head.py:97',
+            'launches': flagship_fp32['launches']['sample_head'],
+            **route,
+            'launches_by_path': {'flagship_fp32': flagship_fp32[
+                'launches']['sample_head'], **driver_launches}}
+
+
 def timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3331,10 +3411,17 @@ def main():
             entry['at'] = codebook_at
         if name == 'sample_head':   # the bf16 route, on wgmma
             entry['source'] = 'mmvid_tpu_torch/csrc/sample_head_sm90.cu'
-            entry.update(head_extra)
+            entry.update({k: e for k, e in head_extra.items()
+                          if k != 'fp32_w_route'})
         if name == 'gridstep':
             entry.update(probe)
         kernels.append(entry)
+        if name == 'sample_head':   # the fp32-W route, split TF32
+            kernels.append(_fp32_head_entry(
+                head_extra['fp32_w_route'], flagship_fp32, {
+                    'test_driver': test_driver['launches'][name],
+                    'test_driver_eval': test_driver_eval['launches'][name],
+                    'test_driver_clip': clip_run['launches'][name]}))
         if name == 'attention':
             kernels.append(_fp32_attention_entry(
                 attention_fp32, attention_clip, flagship_fp32, {

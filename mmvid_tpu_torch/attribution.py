@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the int8 attention, fused LN+QKV, nearest-code and fp32 attention
-kernels spend their time: the first kernels (``csrc/attention_int8.cu``
-and ``csrc/fused_ln_qkv.cu`` of
+"""Where the int8 attention, fused LN+QKV, nearest-code, fp32 attention
+and fp32-W sample-head kernels spend their time: the first kernels
+(``csrc/attention_int8.cu`` and ``csrc/fused_ln_qkv.cu`` of
 commit 3f73783) and the port's current ones (``csrc/attention_int8_sm90.cu``
 and ``csrc/fused_ln_qkv_sm90.cu``), each built as it is and as variants
 with one part of its work cut out, timed in turns on the card.  The
@@ -57,6 +57,16 @@ all but the products (``products_only``: no mask loads, no row-max
 shuffles, no exps); and with a third stage in its K/V ring
 (``three_stages``).
 
+The sample head with fp32 W (``--sample-head``; M 8192 D 768 V 1024, a
+genuinely fp32 W): the CUDA-core kernel (``csrc/sample_head.cu``, now
+the route of the other shapes), the split-TF32 route
+(``ops/sample_head.py``),
+``F.layer_norm`` + ``F.linear`` in fp32 with TF32 off (the product
+alone), and the split-TF32 kernels (``csrc/sample_head_tf32_sm90.cu``) as
+they are and with one part cut out (``NEW_HEAD_TF32``); each build that
+computes the function also reads its agreement with the plain version
+fed ``philox_gumbel`` (temp 1 and temp 0).
+
 Usage (needs nvcc and a CUDA card; the old sources from git history, e.g.
 ``git show 3f73783:mmvid_tpu_torch/csrc/attention_int8.cu > OLD8.cu``,
 ``git show 8e5084f:mmvid_tpu_torch/csrc/codebook.cu > OLDCB.cu``,
@@ -65,7 +75,7 @@ source is optional and names the families timed):
 
     python -m mmvid_tpu_torch.attribution --int8-source OLD8.cu \\
         --lnqkv-source OLDLN.cu --codebook-source OLDCB.cu \\
-        --attention-fp32-source OLDATT.cu [--out FILE]
+        --attention-fp32-source OLDATT.cu [--sample-head] [--out FILE]
 
 Prints the card, one line per (shape, variant) and one JSON object.
 """
@@ -148,6 +158,46 @@ NEW_ATTN_FP32 = {
     'three_stages': [(r'constexpr int kStages = 2;',
                       'constexpr int kStages = 3;')],
 }
+# the split-TF32 sample head (fp32 W): the sampling launch cut out
+# (no_sample), the logits launch cut out (sample_only: the sampling of
+# stale logits), the products cut out, one TF32 pass (h_hi W_hi) alone,
+# the tile's products summed in the tensor cores' accumulator over all of
+# D instead of a fresh one each slab (no_promote), the LN arithmetic of
+# the fragments cut out (no_norm_math: h = x), and the LN statistics'
+# prologue cut out (no_stats: mu 0, rstd 1)
+NEW_HEAD_TF32 = {
+    'as_is': [],
+    'no_sample': [(r'  sample_head_tf32_sample<<<',
+                   '  if (M < 0) sample_head_tf32_sample<<<')],
+    'sample_only': [(r'  sample_head_tf32_logits<<<',
+                     '  if (M < 0) sample_head_tf32_logits<<<')],
+    'no_products': [(r'    wgmma_fence\(\);\n    wgmma_tf32_n128[^;]*;\n'
+                     r'[^;]*;\n[^;]*;\n', '    wgmma_fence();\n')],
+    'one_pass': [(r'    wgmma_tf32_n128\(acc, lo, [^;]*;\n'
+                  r'    wgmma_tf32_n128\(acc, hi, desc_swizzled\(wlo[^;]*;\n'
+                  r'    wgmma_tf32_n128\(acc, hi, desc_swizzled\(whi, 128\), '
+                  r'1\);',
+                  '    wgmma_tf32_n128(acc, hi, desc_swizzled(whi, 128), '
+                  '!fresh);')],
+    'no_promote': [(r'products\(it, 0, ahi\[0\], alo\[0\], true\)',
+                    'products(it, 0, ahi[0], alo[0], q == 0)'),
+                   (r'sum\[i\] \+= acc\[i\];', 'sum[i] = acc[i];')],
+    'no_norm_math': [(r'const float hv = __fadd_rn\(\n[^;]*;',
+                      'const float hv = xv;')],
+    'no_stats': [(r'for \(int i = 0; i < 16; i \+= kStatRows\)',
+                  'for (int i = 0; i < 0; i += kStatRows)'),
+                 (r'const float2 ms\[2\] = \{[^}]*\};',
+                  'const float2 ms[2] = {make_float2(0.f, 1.f), '
+                  'make_float2(0.f, 1.f)};')],
+}
+# the builds whose outputs are wrong on purpose
+HEAD_CUT = ('no_sample', 'sample_only', 'no_products', 'no_norm_math',
+            'no_stats')
+HEAD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_float, ctypes.c_void_p]
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+OLD_HEAD_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 3)
 NEW_ATTN_FP32['products_only'] = (
     NEW_ATTN_FP32['no_mask_load'] + NEW_ATTN_FP32['no_exp']
     + [(r'mx = fmaxf\(mx, __shfl_xor_sync\(0xffffffffu, mx, off\)\);', ';')])
@@ -194,14 +244,16 @@ def patch(src: str, subs) -> str:
 
 
 def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
-          attention_fp32_source=None) -> dict:
+          attention_fp32_source=None, sample_head=False) -> dict:
     """{(family, variant): C entry point}, one library each, all nvcc runs
     at once.  Families: old_int8, new_int8 (with ``int8_source``),
     old_lnqkv, new_lnqkv (``lnqkv_source``), old_codebook, new_codebook
     (``codebook_source``), old_attn_fp32, new_attn_fp32
-    (``attention_fp32_source``)."""
+    (``attention_fp32_source``), old_head, new_head_tf32
+    (``sample_head``: the CUDA-core kernel and the split-TF32 one, both
+    from this tree)."""
     nvcc = _build.find_nvcc()
-    for name in ('common.cuh', 'sm90.cuh'):
+    for name in ('common.cuh', 'sm90.cuh', 'sample_head.cuh'):
         (tmp / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
 
     def current(name):
@@ -233,15 +285,25 @@ def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
         extra[('old_attn_fp32', 'as_is')] = [str(tmp / 'wgmma_stub.cu')]
         sources.update({('new_attn_fp32', n): patch(newfp, v)
                         for n, v in NEW_ATTN_FP32.items()})
+    if sample_head:
+        sources[('old_head', 'as_is')] = current('sample_head.cu')
+        newh = current('sample_head_tf32_sm90.cu')
+        sources.update({('new_head_tf32', n): patch(newh, v)
+                        for n, v in NEW_HEAD_TF32.items()})
     cmds, libs = [], {}
     for key, src in sources.items():
         stem = '_'.join(key)
         cu = tmp / f'{stem}.cu'
         cu.write_text(src)
         libs[key] = tmp / f'lib_{stem}.so'
-        cmds.append([nvcc, *_build.NVCC_FLAGS, f'-I{tmp}', '-shared', '-o',
-                     str(libs[key]), str(cu), *extra.get(key, [])])
-    _build._run_all(cmds)
+        ptxas = ['-Xptxas', '-v'] if key[0] == 'new_head_tf32' else []
+        cmds.append([nvcc, *_build.NVCC_FLAGS, *ptxas, f'-I{tmp}', '-shared',
+                     '-o', str(libs[key]), str(cu), *extra.get(key, [])])
+    for key, out in zip(sources, _build._run_all(cmds)):
+        for line in out.splitlines():   # the split-TF32 builds' registers
+            if 'spill' in line or 'Used' in line:
+                print(f'[attribution] ptxas {"_".join(key)}: '
+                      f'{line.strip()}', flush=True)
     fns = {}
     for key, path in libs.items():
         lib = ctypes.CDLL(str(path))
@@ -251,6 +313,10 @@ def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
             fn, args = lib.mmvid_attention_fwd, ATTN_ARGS
         elif key[0] == 'new_attn_fp32':
             fn, args = lib.mmvid_attention_fp32_at, ATTN_ARGS
+        elif key[0] == 'old_head':
+            fn, args = lib.mmvid_sample_head, OLD_HEAD_ARGS
+        elif key[0] == 'new_head_tf32':
+            fn, args = lib.mmvid_sample_head_tf32, HEAD_ARGS
         elif key[0].endswith('codebook'):
             fn = lib.mmvid_nearest_code
             args = (OLD_CODEBOOK_ARGS if key[0] == 'old_codebook'
@@ -457,12 +523,83 @@ def attention_fp32(fns, res):
                   f'{t:.4f} ms', flush=True)
 
 
+def sample_head(fns, res):
+    """The sample head with fp32 W at the main paths' M 8192 (16 videos of
+    512 tokens), D 768, V 1024: every build in turns, the route, and
+    F.layer_norm + F.linear in fp32 (TF32 off; the product alone, another
+    function); and each build's agreement with the plain version fed
+    philox_gumbel at temp 1 (tokens equal, Y's relative error where they
+    are) and at temp 0 (|Y - p(tok)|)."""
+    import torch.nn.functional as F
+    from mmvid_tpu_torch.ops import sample_head as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, d, v = 8192, 768, 1024
+    g = torch.Generator(device='cuda').manual_seed(7)
+    x = torch.randn((m, d), generator=g, device='cuda') * 2 + 0.5
+    ln_w = 1 + 0.1 * torch.randn((d,), generator=g, device='cuda')
+    ln_b = 0.1 * torch.randn((d,), generator=g, device='cuda')
+    w = 0.108 * torch.randn((d, v), generator=g, device='cuda')
+    b = 0.1 * torch.randn((v,), generator=g, device='cuda')
+    seed = torch.tensor([20260516], dtype=torch.int64, device='cuda')
+    hi, lo = S.prepare_head_weight(w)
+    runs = S.tf32_runs(m, v, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    logits = torch.empty((m, v), device='cuda')
+    y = torch.empty((m,), device='cuda')
+    tok = torch.empty((m,), dtype=torch.int64, device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(family, fn, temp):
+        if family == 'old_head':
+            return checked(fn, 0, x.data_ptr(), ln_w.data_ptr(),
+                           ln_b.data_ptr(), w.data_ptr(), b.data_ptr(),
+                           temp, seed.data_ptr(), m, d, v, y.data_ptr(),
+                           tok.data_ptr(), stream)
+        return checked(fn, x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(),
+                       hi.data_ptr(), lo.data_ptr(), b.data_ptr(), temp,
+                       seed.data_ptr(), m, d, v, runs, logits.data_ptr(),
+                       y.data_ptr(), tok.data_ptr(), stream)
+
+    g1, g2 = S.philox_gumbel(int(seed), m, v, 'cuda')
+    y_ref, tok_ref = S.sample_head_reference(x, ln_w, ln_b, w, b, 1.0, g1,
+                                             g2)
+    probs = torch.softmax(S.head_logits(x, ln_w, ln_b, w, b), -1)
+    names = {key: 'old' if key[0] == 'old_head' else key[1] for key in fns
+             if key[0] in ('old_head', 'new_head_tf32')}
+    for key, name in names.items():
+        if name in HEAD_CUT:
+            continue
+        call(key[0], fns[key], 1.0)()
+        same = tok == tok_ref
+        share = same.float().mean().item()
+        y_rel = (((y - y_ref).abs() / y_ref)[same].max().item()
+                 if bool(same.any()) else float('nan'))
+        call(key[0], fns[key], 0.0)()
+        y0 = (y - probs.gather(1, tok[:, None])[:, 0]).abs().max().item()
+        res['sample_head_agreement'][name] = {
+            'tokens_equal_share': share, 'y_rel_err': y_rel,
+            'temp0_y_err': y0}
+        print(f'[attribution] sample head {name}: tokens equal {share:.6f}, '
+              f'Y rel {y_rel:.3e}; temp 0 |Y - p(tok)| {y0:.3e}', flush=True)
+    calls = {name: call(key[0], fns[key], 1.0) for key, name in names.items()}
+    calls['route'] = lambda: S.sample_head_kernel(x, ln_w, ln_b, w, b, 1.0,
+                                                  seed, w_prepared=(hi, lo))
+    wt = w.t().contiguous()
+    calls['layer_norm_linear'] = lambda: F.linear(
+        F.layer_norm(x, (d,), ln_w, ln_b), wt, b)
+    res['sample_head_ms'] = in_turns(calls)
+    for n, t in res['sample_head_ms'].items():
+        print(f'[attribution] sample head M={m} fp32 W {n}: {t:.4f} ms',
+              flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--int8-source', type=Path, default=None)
     ap.add_argument('--lnqkv-source', type=Path, default=None)
     ap.add_argument('--codebook-source', type=Path, default=None)
     ap.add_argument('--attention-fp32-source', type=Path, default=None)
+    ap.add_argument('--sample-head', action='store_true')
     ap.add_argument('--out', type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -473,12 +610,13 @@ def main(argv=None):
     print(smi, flush=True)
     res = {'device': smi, 'int8_attention_ms': {}, 'ln_qkv_ms': {},
            'codebook_ms': {}, 'attention_fp32_ms': {},
-           'attention_fp32_route_rows': {}}
+           'attention_fp32_route_rows': {}, 'sample_head_ms': {},
+           'sample_head_agreement': {}}
     _build.library()
     with tempfile.TemporaryDirectory() as tmp:
         fns = build(args.int8_source, args.lnqkv_source,
                     args.codebook_source, Path(tmp),
-                    args.attention_fp32_source)
+                    args.attention_fp32_source, args.sample_head)
         with torch.no_grad():
             if args.int8_source:
                 int8_attention(fns, res)
@@ -488,6 +626,8 @@ def main(argv=None):
                 nearest_code(fns, res)
             if args.attention_fp32_source:
                 attention_fp32(fns, res)
+            if args.sample_head:
+                sample_head(fns, res)
     print(json.dumps(res), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -84,7 +84,7 @@ KINDS = (
                                 'int8_operands_kernel')),
     ('attention kernel, tensor cores', ('attention_fwd_kernel_wgmma',)),
     ('attention kernel, CUDA cores', ('attention_fwd_kernel',)),
-    ('sample-head kernel', ('sample_head_kernel',)),
+    ('sample-head kernel', ('sample_head_kernel', 'sample_head_tf32_')),
     ('nearest-code kernel', ('nearest_code_',)),
     ('LN+QKV kernel', ('ln_qkv_', 'ln_stats_kernel')),
     ('ART-V decode kernel', ('artv_step_kernel',)),

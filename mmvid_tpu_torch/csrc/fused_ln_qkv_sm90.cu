@@ -51,8 +51,6 @@
 // through the CUDA runtime's entry-point query, so the library links no
 // -lcuda).
 
-#include <cudaTypedefs.h>
-
 #include <atomic>
 
 #include "sm90.cuh"
@@ -351,40 +349,12 @@ ln_qkv_wgmma(const __grid_constant__ CUtensorMap x_map,
   if (wl == 0) bulk_wait();
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static std::atomic<void*> fn{nullptr};
-  void* p = fn.load(std::memory_order_relaxed);
-  if (p == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn.store(p, std::memory_order_relaxed);
-  }
-  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-}
-
 // a bf16 [rows, cols] row-major tensor, boxes of box_rows x 64 columns
 // (128 bytes) with the 128-byte swizzle
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
                      int box_rows) {
-  auto encode = encode_fn();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kTK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_map_128b(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows,
+                       cols, box_rows);
 }
 
 }  // namespace

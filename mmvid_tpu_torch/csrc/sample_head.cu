@@ -27,9 +27,9 @@
 // 4 vocab columns x 16 rows in registers from coalesced W loads; the 16 x V
 // logits tile goes to shared memory, then one warp per row draws the noise
 // and reduces max / sum-of-exp / argmax in one pass.  It is the route
-// for fp32 W and for the shapes the tensor-core kernel
-// (sample_head_sm90.cu) does not take; the noise and the running state
-// are sample_head.cuh's, shared by both.
+// for the shapes the tensor-core kernels (sample_head_sm90.cu for bf16 W,
+// sample_head_tf32_sm90.cu for fp32 W) do not take; the noise and the
+// running state are sample_head.cuh's, shared by all three.
 
 #include "sample_head.cuh"
 

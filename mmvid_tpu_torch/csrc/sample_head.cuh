@@ -1,6 +1,7 @@
-// The sample head's noise and its running softmax state, shared by its two
-// kernels (sample_head.cu on the CUDA cores, sample_head_sm90.cu on wgmma)
-// so that one seed gives both the same draws.  The plain version of the
+// The sample head's noise and its running softmax state, shared by its
+// three kernels (sample_head.cu on the CUDA cores, sample_head_sm90.cu on
+// wgmma in bf16, sample_head_tf32_sm90.cu on wgmma in split TF32) so that
+// one seed gives all the same draws.  The plain version of the
 // noise is ops/sample_head.py::philox_gumbel.
 #pragma once
 

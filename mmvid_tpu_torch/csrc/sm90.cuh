@@ -1,9 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core and bulk-copy
 // kernels (attention_sm90.cu, attention_int8_sm90.cu, artv_decode_sm90.cu,
-// fused_ln_qkv_sm90.cu, sample_head_sm90.cu): mbarriers, cp.async, 1-D
-// bulk copies and 2-D tensor copies (TMA) into shared memory, wgmma's
-// fences, its swizzled tile layouts and their shared-memory descriptors.
+// fused_ln_qkv_sm90.cu, sample_head_sm90.cu, sample_head_tf32_sm90.cu):
+// mbarriers, cp.async, 1-D bulk copies and 2-D tensor copies (TMA) into
+// shared memory and their tensor maps, wgmma's fences, its swizzled tile
+// layouts and their shared-memory descriptors.
 #pragma once
+
+#include <cudaTypedefs.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -201,6 +206,45 @@ __device__ __forceinline__ void bulk_wait() {
 __device__ __forceinline__ void flag_release(unsigned* p, unsigned v) {
   asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v)
                : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (so the
+// library links no -lcuda); null where the driver has none
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static std::atomic<void*> fn{nullptr};
+  void* p = fn.load(std::memory_order_relaxed);
+  if (p == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn.store(p, std::memory_order_relaxed);
+  }
+  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+}
+
+// The tensor map of a row-major [rows, cols] tensor of `type` (elem_bytes
+// a value): boxes of box_rows rows by 128 bytes of columns, with the
+// 128-byte swizzle (the K-major wgmma layout of swizzle128); elements
+// outside the tensor are zero-filled on loads and not written by stores
+inline cudaError_t make_map_128b(CUtensorMap* map, CUtensorMapDataType type,
+                                 int elem_bytes, const void* ptr, int rows,
+                                 int cols, int box_rows) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

@@ -23,7 +23,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from mmvid_tpu_torch.ops.sample_head import fused_sample_head
+from mmvid_tpu_torch.ops.sample_head import (fused_sample_head,
+                                             prepare_head_weight)
 from mmvid_tpu_torch.ops.sample_head import gumbel as _gumbel
 
 
@@ -181,6 +182,10 @@ def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
     w_head = (fc.weight.to(core.dtype).t().contiguous()
               if not spec.deterministic else None)
     b_head = fc.bias.float() if not spec.deterministic else None
+    # W as the split-TF32 kernel reads it (an fp32 W's TF32 split), made
+    # once for the rounds
+    w_prepared = (prepare_head_weight(w_head) if not spec.deterministic
+                  else None)
 
     def forward(tokens, remask):
         """tokens / remask [B', N], B' = J*b (beams folded J-major);
@@ -200,7 +205,8 @@ def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
             return _sample_argmax(head_in)
         bp, n, d = head_in.shape
         y, tok = fused_sample_head(head_in.reshape(bp * n, d), ln.weight,
-                                   ln.bias, w_head, b_head, temp, generator)
+                                   ln.bias, w_head, b_head, temp, generator,
+                                   w_prepared=w_prepared)
         return y.view(bp, n), tok.view(bp, n)
 
     # initial step: everything except the preserved slots is masked

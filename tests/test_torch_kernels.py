@@ -17,8 +17,12 @@ from chip_smoke import (
     ATTN_TOL,
     FP32_TILE_ROWS,
     CODE_GAP_TOL,
+    HEAD_TOKEN_SHARE,
+    HEAD_Y_REL_TOL_FP32,
+    TF32_HEAD_LAUNCHES,
     TRAIN_BACKWARD_CALLS,
     TRAIN_LAUNCHES,
+    Y_TOL,
     _packed_grads,
     disagreement,
     int8_agrees,
@@ -321,8 +325,9 @@ def test_int_mm_on_the_card_is_exact(cuda_device, m, k, n):
 @pytest.mark.parametrize('m', [1000, 8192])
 def test_sample_head_kernel_temp0_matches_plain(cuda_device, w_dtype, tol, m):
     """At temp 0 the kernel's Y is the plain softmax probability of the
-    token it chose; any M (1000 leaves a ragged last block).  bf16
-    tolerance: the LN output's bf16 rounding can flip on last-bit
+    token it chose; any M (1000 leaves a ragged last block).  fp32 W takes
+    the split-TF32 route (two launches), bf16 W the tensor-core kernel.
+    bf16 tolerance: the LN output's bf16 rounding can flip on last-bit
     differences of the statistics."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -335,14 +340,15 @@ def test_sample_head_kernel_temp0_matches_plain(cuda_device, w_dtype, tol, m):
     b = torch.zeros(v, device=cuda_device)
     before = S.launches
     y, tok = S.fused_sample_head(x, ln_w, ln_b, w, b, 0.0, g)
-    assert S.launches == before + 1
+    assert S.launches == before + (TF32_HEAD_LAUNCHES
+                                   if w_dtype == torch.float32 else 1)
     probs = torch.softmax(S.head_logits(x, ln_w, ln_b, w, b), -1)
     want = probs.gather(1, tok[:, None])[:, 0]
     assert (y - want).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('route', S.ROUTES)
+@pytest.mark.parametrize('route', ['wgmma', 'cuda_cores'])
 @pytest.mark.parametrize('m', [1000, 8192])
 def test_sample_head_kernels_match_philox_plain(cuda_device, route, m):
     """Both bf16 routes at temp 1 against the plain version fed the
@@ -367,7 +373,7 @@ def test_sample_head_kernels_match_philox_plain(cuda_device, route, m):
     seed = torch.tensor([987654321987], dtype=torch.int64,
                         device=cuda_device)
     assert S.kernel_route(w) == 'wgmma' and S.kernel_route(w.float()) == \
-        'cuda_cores'
+        'tf32x3'
     before = S.launches
     y, tok = S.sample_head_kernel(x, ln_w, ln_b, w, b, 1.0, seed, route)
     assert S.launches == before + 1
@@ -381,6 +387,48 @@ def test_sample_head_kernels_match_philox_plain(cuda_device, route, m):
     _, tok_other = S.sample_head_kernel(x, ln_w, ln_b, w, b, 1.0, seed,
                                         other)
     assert (tok == tok_other).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('temp', [0.0, 1.0])
+@pytest.mark.parametrize('m', [1000, 8192])
+def test_sample_head_tf32_matches_philox_plain(cuda_device, temp, m):
+    """The split-TF32 route (fp32 W with all its mantissa bits) against
+    the plain version fed philox_gumbel at one seed: tokens equal on
+    HEAD_TOKEN_SHARE of rows and Y within HEAD_Y_REL_TOL_FP32 where they
+    are (at temp 0 also within Y_TOL of the plain softmax probability of
+    its token); its tokens equal the CUDA-core kernel's on the same W on as
+    many; two launches a call (the logits, then the sampling), W^T
+    prepared once beside them.  M 1000 leaves a ragged row tile."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    d, v = 768, 1024
+    x = torch.randn((m, d), generator=g, device=cuda_device) * 2 + 0.5
+    ln_w = 1 + 0.1 * torch.randn((d,), generator=g, device=cuda_device)
+    ln_b = 0.1 * torch.randn((d,), generator=g, device=cuda_device)
+    w = 0.108 * torch.randn((d, v), generator=g, device=cuda_device)
+    b = 0.1 * torch.randn((v,), generator=g, device=cuda_device)
+    seed = torch.tensor([123456789], dtype=torch.int64, device=cuda_device)
+    w_t = S.prepare_head_weight(w)
+    assert S.kernel_route(w) == 'tf32x3' and w_t is not None
+    before = S.launches
+    y, tok = S.sample_head_kernel(x, ln_w, ln_b, w, b, temp, seed,
+                                  w_prepared=w_t)
+    assert S.launches == before + TF32_HEAD_LAUNCHES
+    g1, g2 = S.philox_gumbel(int(seed), m, v, cuda_device)
+    y_ref, tok_ref = S.sample_head_reference(x, ln_w, ln_b, w, b, temp, g1,
+                                             g2)
+    same = tok == tok_ref
+    assert same.float().mean().item() >= HEAD_TOKEN_SHARE
+    assert ((y - y_ref).abs() / y_ref)[same].max().item() <= \
+        HEAD_Y_REL_TOL_FP32
+    if temp == 0.0:
+        probs = torch.softmax(S.head_logits(x, ln_w, ln_b, w, b), -1)
+        want = probs.gather(1, tok[:, None])[:, 0]
+        assert (y - want).abs().max().item() <= Y_TOL['float32']
+    _, tok_cores = S.sample_head_kernel(x, ln_w, ln_b, w, b, temp, seed,
+                                        'cuda_cores')
+    assert (tok == tok_cores).float().mean().item() >= HEAD_TOKEN_SHARE
 
 
 @pytest.mark.cuda

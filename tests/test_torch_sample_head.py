@@ -29,6 +29,7 @@ from mmvid_tpu.models.sampler import (
 from mmvid_tpu_torch.models import sampler as port_sampler
 from mmvid_tpu_torch.ops import sample_head as S
 from test_torch_clip_bert import jax_tiny
+from test_torch_sample_head_tf32 import head_logits_tf32x3
 
 Y_TOL = 1e-5
 
@@ -71,6 +72,17 @@ def test_head_logits_match_jax_to_logits(head):
     h, logits, (ln_w, ln_b, w, b) = head
     got = S.head_logits(torch.from_numpy(h.reshape(-1, h.shape[-1])), ln_w,
                         ln_b, w, b)
+    np.testing.assert_allclose(got.numpy(), logits.reshape(got.shape),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_tf32x3_logits_match_jax_to_logits(head):
+    """The split-TF32 route's arithmetic (h and W each split into TF32
+    high and low parts, three products in fp32) against JAX's fp32
+    to_logits, within the plain version's tolerance."""
+    h, logits, (ln_w, ln_b, w, b) = head
+    got = head_logits_tf32x3(torch.from_numpy(h.reshape(-1, h.shape[-1])),
+                             ln_w, ln_b, w, b)
     np.testing.assert_allclose(got.numpy(), logits.reshape(got.shape),
                                rtol=1e-5, atol=1e-5)
 
@@ -175,13 +187,18 @@ def test_philox_gumbel_matches_integer_philox(seed):
 
 @pytest.mark.parametrize('shape,dtype,route', [
     ((768, 1024), torch.bfloat16, 'wgmma'),        # every full-width model
-    ((768, 1024), torch.float32, 'cuda_cores'),
+    ((768, 1024), torch.float32, 'tf32x3'),        # the same in fp32
     ((768, 1000), torch.bfloat16, 'cuda_cores'),   # V % 256
     ((100, 1024), torch.bfloat16, 'cuda_cores'),   # D % 64
     ((1024, 1024), torch.bfloat16, 'cuda_cores'),  # D > 960
-    ((64, 256), torch.bfloat16, 'wgmma')])
+    ((64, 256), torch.bfloat16, 'wgmma'),
+    ((1024, 128), torch.float32, 'tf32x3'),
+    ((768, 1000), torch.float32, 'cuda_cores'),    # V % 128
+    ((100, 1024), torch.float32, 'cuda_cores'),    # D % 64
+    ((1088, 1024), torch.float32, 'cuda_cores')])  # D > 1024
 def test_kernel_route_rule(shape, dtype, route):
     """The shape rule the CUDA wrapper states: bf16 W with D % 64 == 0,
-    D <= 960 and V % 256 == 0 takes the tensor-core kernel, the rest the
-    CUDA-core kernel."""
+    D <= 960 and V % 256 == 0 takes the tensor-core kernel, fp32 W with D
+    % 64 == 0, D <= 1024 and V % 128 == 0 the split-TF32 kernel, the rest
+    the CUDA-core kernel."""
     assert S.kernel_route(torch.empty(shape, dtype=dtype)) == route
