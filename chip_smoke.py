@@ -171,6 +171,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
     loss); the test driver with ``--eval_metric clip`` over 32 samples
     (``clip_score.txt``, the score in [-1, 1], attention launched).
 
+21. the fixed language model: a synthetic roberta-large folder (the
+    published shapes, N(0, 0.02) weights, a ``RobertaForMaskedLM``
+    ``pytorch_model.bin``, a BPE vocabulary learned on the recipe's
+    captions) through ``factories.get_fixed_language_model`` on the card
+    and on the CPU: the features of 4 captions within ``ROBERTA_TOL``;
+    ``encode``'s ms at batch 24 and 16, peak memory.
+22. the text_augment recipe (``--fixed_language_model roberta-large``):
+    ``train.sh``'s flags for 3 steps in fp32 at batch 24, ``ROBERTA_PATH``
+    at that folder (finite losses, the LM once a step, attention's
+    backward calls exact, the kernels launched; step ms, the LM's ms a
+    step, peak memory), then ``test.sh``'s flags on the run with
+    ``--description "A girl."`` (videos finite in [0, 1], the grid
+    written, the LM once, attention and the sample head launched;
+    frames/s).
+
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
 then as its last line ``{"ok": true, "device": {...}}``.  Run from the
 repository root:
@@ -401,14 +416,19 @@ def cuda_time_ms(fn, calls: int = 20, reps: int = 5,
     return statistics.median(times)
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is False: this smoke test needs a '
              'CUDA device')
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card()
     print(smi, flush=True)
     print(f'[device] torch {torch.__version__} cuda {torch.version.cuda} '
           f'{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}',
@@ -2661,6 +2681,110 @@ def write_vqgan_ckpt(path: str, seed: int, image_size: int = 128):
     return sd
 
 
+# the captions of the text_augment recipe (test.sh and its NOTE), and of
+# the synthetic driver data (write_driver_data)
+ROBERTA_CAPTIONS = (
+    'A girl.', 'A person has no hair.', 'A person wears spectacles.',
+    'A person is youthful.',
+    'A man with a beard is talking. He is young.',
+    'A woman with wavy hair is talking. She wears earrings.',
+    'A person with glasses is speaking.')
+
+
+def learn_merges(captions, n: int) -> list:
+    """``n`` byte-level BPE merges learned on ``captions`` by greedy pair
+    counting (the most frequent adjacent pair, the smallest on a tie),
+    over the pieces of the port's RoBERTa pre-tokenizer."""
+    from collections import Counter
+
+    from mmvid_tpu_torch.roberta_tokenizer import pre_tokenize
+    from mmvid_tpu_torch.tokenizer import byte_unicode_table
+    table = byte_unicode_table()
+    words = Counter(tuple(table[b] for b in piece.encode('utf-8'))
+                    for text in captions for piece in pre_tokenize(text))
+    merges = []
+    while len(merges) < n:
+        pairs = Counter()
+        for w, c in words.items():
+            for pair in zip(w[:-1], w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    return merges
+
+
+def write_roberta_archive(folder: str, cfg=None, seed: int = 0,
+                          captions=ROBERTA_CAPTIONS, merges: int = 50):
+    """A RoBERTa model folder as the hub lays out roberta-large's, on
+    synthetic weights: ``config.json`` (``cfg``, default the published
+    roberta-large shapes; its vocabulary the one written), ``vocab.json``
+    (the specials, the 256 byte symbols, ``merges`` merges learned on
+    ``captions``, placeholder entries up to ``cfg.vocab_size``, ``<mask>``
+    last) and ``merges.txt``, and a ``pytorch_model.bin`` of a
+    ``RobertaForMaskedLM``: every weight under the ``roberta.`` prefix with
+    an ``lm_head``, drawn N(0, 0.02) from ``seed`` (LayerNorm weights
+    1 + N(0, 0.02)).  Returns (the config, the encoder's state dict)."""
+    import dataclasses as dc
+
+    import torch
+    from mmvid_tpu_torch.models.roberta import ROBERTA_LARGE, RobertaModel
+    from mmvid_tpu_torch.tokenizer import byte_unicode_table
+    os.makedirs(folder, exist_ok=True)
+    pairs = learn_merges(captions, merges)
+    tokens = (['<s>', '<pad>', '</s>', '<unk>']
+              + list(byte_unicode_table().values())
+              + [a + b for a, b in pairs])
+    if cfg is None:
+        cfg = ROBERTA_LARGE
+        tokens += [f'<extra_{i}>' for i in
+                   range(cfg.vocab_size - len(tokens) - 1)]
+    tokens.append('<mask>')
+    cfg = dc.replace(cfg, vocab_size=len(tokens))
+    with open(os.path.join(folder, 'vocab.json'), 'w',
+              encoding='utf-8') as f:
+        json.dump({t: i for i, t in enumerate(tokens)}, f)
+    with open(os.path.join(folder, 'merges.txt'), 'w',
+              encoding='utf-8') as f:
+        f.write('#version: 0.2\n' + ''.join(f'{a} {b}\n' for a, b in pairs))
+    with open(os.path.join(folder, 'config.json'), 'w') as f:
+        json.dump({'model_type': 'roberta',
+                   'architectures': ['RobertaForMaskedLM'],
+                   'bos_token_id': 0, 'eos_token_id': 2,
+                   **dc.asdict(cfg)}, f, indent=1)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.device('meta'):
+        shapes = RobertaModel(cfg).state_dict()
+    sd = {}
+    for k, v in shapes.items():
+        w = torch.randn(v.shape, generator=gen) * 0.02
+        sd[k] = w + 1 if k.endswith('LayerNorm.weight') else w
+    h = cfg.hidden_size
+    archive = {f'roberta.{k}': v for k, v in sd.items()}
+    archive.update({
+        'lm_head.dense.weight': torch.randn((h, h), generator=gen) * 0.02,
+        'lm_head.dense.bias': torch.zeros(h),
+        'lm_head.layer_norm.weight': torch.ones(h),
+        'lm_head.layer_norm.bias': torch.zeros(h),
+        'lm_head.decoder.weight': sd['embeddings.word_embeddings.weight'],
+        'lm_head.bias': torch.zeros(cfg.vocab_size)})
+    torch.save(archive, os.path.join(folder, 'pytorch_model.bin'))
+    return cfg, sd
+
+
 # the training driver's runs: the text-to-video recipe at its batch 48
 # (iterations 0-5, then resumed to 8) and the text+mask recipe at its 20
 DRIVER_ITERS, DRIVER_RESUME_ITERS, DRIVER_SAVE_EVERY = 6, 8, 3
@@ -2955,6 +3079,218 @@ def phase_test_driver(run_dir: str, tmp: str):
             fail(f'test driver: {name} launched no time')
     return {'launches': counts, 'sample_s': out['sample_s'],
             'frames_s': frames / out['sample_s'], 'calls': len(seen)}
+
+
+# the fixed LM on the card against the CPU: max |features| difference
+# over max |features|, fp32 with TF32 off on both (24 post-LN layers
+# keep fp32 rounding near 1e-6 of the scale; a TF32 product reads about
+# 1e-3)
+ROBERTA_TOL = 1e-4
+TEXT_AUGMENT_ITERS = 3
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn()`` between two syncs, after a warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_roberta():
+    """The fixed language model at full width: a synthetic roberta-large
+    folder (``write_roberta_archive``: the published shapes, N(0, 0.02)
+    weights, a ``RobertaForMaskedLM`` ``pytorch_model.bin``) read through
+    ``factories.get_fixed_language_model`` on the card and on the CPU.
+    Gate: the 4 recipe captions' features [4, 1024] finite, the card's
+    within ``ROBERTA_TOL`` of max |features| from the CPU's.  Prints
+    ``encode``'s host ms at batch 24 (text_augment/train.sh's) and 16
+    (test.sh's), median of 5 between syncs, and the peak memory.  Returns
+    (the numbers, the folder; the caller removes it)."""
+    import tempfile
+    import types
+
+    import torch
+    from mmvid_tpu_torch import factories
+
+    folder = tempfile.mkdtemp(prefix='mmvid_roberta_')
+    try:
+        t0 = time.perf_counter()
+        cfg, _ = write_roberta_archive(folder, seed=5)
+        write_s = time.perf_counter() - t0
+        os.environ['ROBERTA_PATH'] = folder
+        args = types.SimpleNamespace(fixed_language_model='roberta-large')
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        encode, dim = factories.get_fixed_language_model(args, 'cuda')
+        load_s = time.perf_counter() - t0
+        cpu_encode, _ = factories.get_fixed_language_model(args, 'cpu')
+        caps = list(ROBERTA_CAPTIONS[:4])
+        got, want = encode(caps), cpu_encode(caps)
+        del cpu_encode
+        scale = float(want.abs().max())
+        err = float((got.cpu() - want).abs().max())
+        print(f'[roberta] {cfg.num_hidden_layers} layers x '
+              f'{cfg.hidden_size}, vocabulary {cfg.vocab_size}: archive '
+              f'written in {write_s:.2f} s, loaded on the card in '
+              f'{load_s:.2f} s; features {tuple(got.shape)} card vs CPU '
+              f'max |d| {err:.3e} of max |features| {scale:.4f} (bound '
+              f'{ROBERTA_TOL} of it)', flush=True)
+        if (tuple(got.shape) != (4, cfg.hidden_size)
+                or dim != cfg.hidden_size
+                or not bool(torch.isfinite(got).all())):
+            fail(f'roberta: features {tuple(got.shape)}, dim {dim}, not '
+                 f'finite or not [4, {cfg.hidden_size}]')
+        if err > ROBERTA_TOL * scale:
+            fail(f'roberta: the card is {err:.3e} from the CPU, over '
+                 f'{ROBERTA_TOL} x {scale:.4f}')
+        res = {'max_abs_err': err, 'max_abs_features': scale,
+               'load_s': load_s, 'card': card()}
+        for batch in (24, 16):
+            texts = (list(ROBERTA_CAPTIONS) * 4)[:batch]
+            res[f'encode_ms_b{batch}'] = _host_ms(lambda: encode(texts))
+        res['peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+        print(f'[roberta] encode {res["encode_ms_b24"]:.3f} ms at batch 24, '
+              f'{res["encode_ms_b16"]:.3f} ms at 16 (host clock, median of '
+              f'5 between syncs, tokenizer included); peak memory '
+              f'{res["peak_memory_bytes"]} B; {res["card"]}', flush=True)
+        return res, folder
+    except BaseException:
+        shutil.rmtree(folder, ignore_errors=True)
+        raise
+
+
+def phase_text_augment(tmp: str, roberta: str):
+    """The text_augment recipe through the drivers with ``ROBERTA_PATH``
+    at ``roberta`` (``phase_roberta``'s folder): ``train.sh``'s flags
+    verbatim but the data and log paths and ``--iters 3 --log_every 1
+    --image_size 128`` (test.sh's size, the vox frames'; fp32 at batch 24,
+    as the script runs) on the training driver's
+    synthetic tree and VQGAN checkpoint under ``tmp``; then ``test.sh``'s
+    flags on that run (``--description "A girl."``, batch 16, 4 rows of 20
+    rounds).  Gates: finite losses; the LM called once a step and once by
+    the test driver; attention's launches, and its backward calls exact,
+    in training; attention and the sample head launched in sampling; the
+    videos finite in [0, 1]; the grid written."""
+    import torch
+    from mmvid_tpu_torch import breakdown, factories
+    from mmvid_tpu_torch import test as test_driver
+    from mmvid_tpu_torch import train as train_driver
+    from mmvid_tpu_torch.config import process_args
+    from mmvid_tpu_torch.models.mmvid import MMVIDBert
+
+    os.environ['ROBERTA_PATH'] = roberta
+    tree, logs = os.path.join(tmp, 'vox_text'), os.path.join(tmp, 'logs')
+    # train.sh passes no --image_size, so both packages' get_vae_model
+    # would build a 256 px VQGAN (2048 targets a video) that the 128 px
+    # vox frames do not fill; test.sh passes 128 for the same model
+    argv = recipe_argv('text_augment', 'train.sh', {
+        '--image_text_folder': tree,
+        '--vae_path': os.path.join(tmp, 'vae.ckpt')}) + [
+        '--log_root', logs, '--iters', str(TEXT_AUGMENT_ITERS),
+        '--log_every', '1', '--image_size', '128']
+    args = process_args(train=True, argv=argv)
+    run_dir = os.path.join(logs, args.name)
+    lm_calls = []
+    orig_lm = factories.get_fixed_language_model
+
+    def timed_lm(a, device='cuda'):
+        encode, dim = orig_lm(a, device)
+
+        def timed_encode(texts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = encode(texts)
+            torch.cuda.synchronize()
+            lm_calls.append((len(texts), (time.perf_counter() - t0) * 1e3))
+            return out
+        return timed_encode, dim
+
+    factories.get_fixed_language_model = timed_lm
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        record = train_driver.main_worker(args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        calls = breakdown.KERNELS['attention'].backward_calls
+        losses = _driver_losses(run_dir)
+        step_ms, wait_ms = _steady(record)
+        train_lm = list(lm_calls)
+        lm_ms = statistics.mean(ms for _, ms in train_lm[1:])
+        print(f'[text_augment] train.sh (fp32, batch {args.batch_size}): '
+              f'step {step_ms:.2f} ms (mean of iterations '
+              f'1-{TEXT_AUGMENT_ITERS - 1}, to the loss read), the LM '
+              f'{lm_ms:.3f} ms of it ({lm_ms / step_ms:.4f}), loader wait '
+              f'{wait_ms:.3f} ms; losses {losses}; LM calls {train_lm}; '
+              f'launches {counts}, attention backward calls {calls}; peak '
+              f'memory {peak} B; {card()}', flush=True)
+        if len(train_lm) != TEXT_AUGMENT_ITERS or any(
+                n != args.batch_size for n, _ in train_lm):
+            fail(f'text_augment: the LM calls {train_lm} are not one of '
+                 f'{args.batch_size} captions a step')
+        if sorted(losses) != list(range(TEXT_AUGMENT_ITERS)):
+            fail(f'text_augment: iterations logged {sorted(losses)}')
+        if calls != _backward_calls(args, TEXT_AUGMENT_ITERS):
+            fail(f'text_augment: attention backward calls {calls} != '
+                 f'{_backward_calls(args, TEXT_AUGMENT_ITERS)}')
+        for name in ('attention', 'codebook'):
+            if counts[name] <= 0:
+                fail(f'text_augment: {name} launched no time')
+
+        targv = recipe_argv('text_augment', 'test.sh', {
+            '--image_text_folder': tree, '--dalle_path': run_dir}) + [
+            '--log_root', logs]
+        targs = process_args(train=False, argv=targv)
+        seen = []
+        orig_gen = MMVIDBert.generate_images
+
+        def recorded(self, *a, **kw):
+            out = orig_gen(self, *a, **kw)
+            v = out[0].float()
+            seen.append((tuple(v.shape), bool(torch.isfinite(v).all()),
+                         float(v.min()), float(v.max())))
+            return out
+
+        reset_counts()
+        del lm_calls[:]
+        MMVIDBert.generate_images = recorded
+        try:
+            out = test_driver.main_worker(targs)
+            torch.cuda.synchronize()
+        finally:
+            MMVIDBert.generate_images = orig_gen
+        tcounts = read_counts()
+    finally:
+        factories.get_fixed_language_model = orig_lm
+    frames = sum(sh[0] * sh[1] for sh, *_ in seen)
+    frames_s = frames / out['sample_s']
+    print(f'[text_augment] test.sh ({targs.description!r}): {len(seen)} '
+          f'sampling calls {seen}; visualize_train {out["sample_s"]:.2f} s '
+          f'({frames_s:.2f} frames/s); LM calls {lm_calls}; launches '
+          f'{tcounts}; {card()}', flush=True)
+    if len(lm_calls) != 1:
+        fail(f'text_augment: the test driver called the LM {lm_calls}')
+    if not seen or not all(ok and lo >= 0 and hi <= 1
+                           for _, ok, lo, hi in seen):
+        fail('text_augment: videos not finite or outside [0, 1]')
+    grid = os.path.join(out['sample_dir'], '0000000_0.png')
+    if not os.path.isfile(grid):
+        fail(f'text_augment: {grid} not written')
+    for name in ('attention', 'sample_head'):
+        if tcounts[name] <= 0:
+            fail(f'text_augment test: {name} launched no time')
+    return {'step_ms': step_ms, 'lm_ms': lm_ms, 'loader_wait_ms': wait_ms,
+            'lm_share': lm_ms / step_ms, 'peak_memory_bytes': peak,
+            'launches': counts, 'attention_backward_calls': calls,
+            'test_frames_s': frames_s, 'test_launches': tcounts}
 
 
 def _cpu_i3d_check(i3d):
@@ -3313,6 +3649,12 @@ def main():
         test_driver_eval = timed(phase_test_driver_eval, run_dir,
                                  driver_tmp)
         clip_run = timed(phase_clip, run_dir, driver_tmp)
+        _, roberta_dir = timed(phase_roberta)
+        try:
+            text_augment = timed(phase_text_augment, driver_tmp,
+                                 roberta_dir)
+        finally:
+            shutil.rmtree(roberta_dir, ignore_errors=True)
     finally:
         shutil.rmtree(driver_tmp, ignore_errors=True)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
@@ -3421,13 +3763,19 @@ def main():
                 head_extra['fp32_w_route'], flagship_fp32, {
                     'test_driver': test_driver['launches'][name],
                     'test_driver_eval': test_driver_eval['launches'][name],
-                    'test_driver_clip': clip_run['launches'][name]}))
+                    'test_driver_clip': clip_run['launches'][name],
+                    'text_augment_train': text_augment['launches'][name],
+                    'text_augment_test': text_augment['test_launches'][
+                        name]}))
         if name == 'attention':
             kernels.append(_fp32_attention_entry(
                 attention_fp32, attention_clip, flagship_fp32, {
                     'test_driver': test_driver['launches'][name],
                     'test_driver_eval': test_driver_eval['launches'][name],
-                    'test_driver_clip': clip_run['launches'][name]}))
+                    'test_driver_clip': clip_run['launches'][name],
+                    'text_augment_train': text_augment['launches'][name],
+                    'text_augment_test': text_augment['test_launches'][
+                        name]}))
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

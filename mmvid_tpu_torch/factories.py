@@ -4,11 +4,12 @@ tokenizers and datasets made from CLI args.
 Counterpart of ``__graft_entry__._flagship`` and of ``get_tokenizer`` /
 ``get_vae_model`` / ``get_dalle`` / ``get_dataset`` in
 ``mmvid_tpu/factories.py`` (mask-predict models with the cvae of the
-visual-control recipes, and ART-V with ``--ar``; the fixed language
-model comes later), the drivers' build (:func:`get_driver_model`: JAX's
-``get_dalle`` dtypes, weights from a seed, the pretrained CLIP stack
-grafted from ``--openai_clip_model_path`` where the archive exists, and
-taming VQGAN checkpoints), and the training builds of the
+visual-control recipes, and ART-V with ``--ar``), the fixed language
+model (:func:`get_fixed_language_model`), the drivers' build
+(:func:`get_driver_model`: JAX's ``get_dalle`` dtypes, weights from a
+seed, the pretrained CLIP stack grafted from ``--openai_clip_model_path``
+where the archive exists, and taming VQGAN checkpoints), and the
+training builds of the
 flagship and ART-V (:func:`flagship_train`, :func:`artv_train`: fp32
 parameters, the compute dtype at use, each block rematerialised, as
 ``scripts/bench_train.py`` builds JAX's).  Every factory puts the model
@@ -211,17 +212,24 @@ def get_vae_model(args, dtype=torch.float32, device='cuda') -> VQGanVAE:
 
 def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
               dtype=torch.float32, device='cuda',
-              param_dtype=None, clip_cfg=None) -> MMVIDBert | ArtvModel:
+              param_dtype=None, clip_cfg=None,
+              text_feature_dim: int = 0) -> MMVIDBert | ArtvModel:
     """MMVIDBert from CLI args, or ArtvModel with ``args.ar``, with
     ``cvae`` tokenizing the visual controls when given (weights left to
     the caller; ``param_dtype``: the dense parameters', ``dtype``
     unless given; ``clip_cfg``: the backbone's, ``--which_transformer``'s
-    unless given)."""
+    unless given).  With ``--fixed_language_model`` the text is one token
+    of ``text_feature_dim`` features (:func:`get_fixed_language_model`'s
+    width); ART-V takes no fixed language model."""
     clip_cfg = clip_cfg or build_clip_config(args.which_transformer)
     if args.dim != clip_cfg.width:
         raise ValueError(f'--dim {args.dim} must match the '
                          f'{args.which_transformer} width {clip_cfg.width}')
+    fixed_lm = getattr(args, 'fixed_language_model', None)
     if getattr(args, 'ar', False):
+        if fixed_lm is not None:
+            raise ValueError('--ar with --fixed_language_model: ART-V '
+                             'takes text ids, no fixed language model')
         cfg = ArtvConfig(
             dim=args.dim, num_text_tokens=49408,
             text_seq_len=args.text_seq_len,
@@ -233,12 +241,13 @@ def get_dalle(args, vae: VQGanVAE, cvae: VQGanVAE | None = None,
         return ArtvModel(cfg, vae, cvae=cvae, dtype=dtype,
                          param_dtype=param_dtype).to(device)
     cfg = BertConfig(
-        dim=args.dim, num_text_tokens=49408, text_seq_len=args.text_seq_len,
+        dim=args.dim, num_text_tokens=49408,
+        text_seq_len=args.text_seq_len if fixed_lm is None else 1,
         num_visuals=args.num_visuals, num_targets=args.num_targets,
         num_image_tokens=vae.num_tokens, image_fmap_size=vae.fmap_size,
         image_size=vae.image_size, insert_sep=args.insert_sep,
         use_separate_visual_emb=args.use_separate_visual_emb,
-        fixed_language_model=args.fixed_language_model,
+        fixed_language_model=fixed_lm, text_feature_dim=text_feature_dim,
         text_emb_bottleneck=args.text_emb_bottleneck, clip=clip_cfg)
     return MMVIDBert(cfg, vae, cvae=cvae, dtype=dtype,
                      param_dtype=param_dtype).to(device)
@@ -266,6 +275,31 @@ def get_tokenizer(args):
 
         return HugWrap()
     raise NotImplementedError(which)
+
+
+def get_fixed_language_model(args, device='cuda'):
+    """(encode, hidden_size) of ``--fixed_language_model roberta-large``,
+    as ``mmvid_tpu/factories.py::get_fixed_language_model`` returns them:
+    ``encode(texts)`` gives the captions' mean-pooled RoBERTa features
+    [B, hidden_size] fp32 on ``device``
+    (:class:`~mmvid_tpu_torch.models.roberta.RobertaModel`).  The model
+    folder is ``ROBERTA_PATH`` (default ``roberta-large``, as JAX's): its
+    ``config.json``, ``vocab.json`` + ``merges.txt`` (or
+    ``tokenizer.json``), and ``model.safetensors`` or
+    ``pytorch_model.bin``.  Nothing is downloaded."""
+    from mmvid_tpu_torch.models.roberta import RobertaModel
+    if args.fixed_language_model != 'roberta-large':
+        raise ValueError(f'--fixed_language_model '
+                         f'{args.fixed_language_model!r}: only '
+                         "'roberta-large'")
+    path = os.environ.get('ROBERTA_PATH', 'roberta-large')
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f'ROBERTA_PATH={path!r} is not a folder: set ROBERTA_PATH to a '
+            'local roberta-large folder (config.json, vocab.json, '
+            'merges.txt, model.safetensors or pytorch_model.bin)')
+    model = RobertaModel.from_pretrained(path, device=device)
+    return model.encode, model.cfg.hidden_size
 
 
 def load_pretrained_stack(args):
@@ -318,7 +352,7 @@ def taming_vqgan_state(path: str) -> dict:
 
 
 def get_driver_model(args, device='cuda', use_cvae=None,
-                     training: bool = True):
+                     training: bool = True, text_feature_dim: int = 0):
     """The drivers' model from CLI args, as ``mmvid_tpu/factories.py::
     get_dalle`` builds it: with ``--bf16`` (or ``--fp16``) fp32 parameters
     computing in bf16 (a serving build, ``training`` False, keeps its
@@ -329,12 +363,9 @@ def get_driver_model(args, device='cuda', use_cvae=None,
     (:func:`load_pretrained_stack`), and ``--vae_path`` / ``--cvae_path``
     load taming VQGAN checkpoints.  ``use_cvae`` (default: a
     ``--cvae_path`` is given) adds the visual-control VQGAN.  The VQGANs
-    compute, and keep their weights, in the compute dtype.  Returns the
-    model, on ``device``."""
-    if getattr(args, 'fixed_language_model', None) is not None:
-        raise NotImplementedError(
-            'fixed_language_model text features are not ported yet '
-            '(ROADMAP.md queue A, item 9)')
+    compute, and keep their weights, in the compute dtype.
+    ``text_feature_dim``: the fixed language model's width, with
+    ``--fixed_language_model``.  Returns the model, on ``device``."""
     clip_cfg, stack_sd = load_pretrained_stack(args)
     bf16 = getattr(args, 'bf16', False) or getattr(args, 'fp16', False)
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -345,7 +376,7 @@ def get_driver_model(args, device='cuda', use_cvae=None,
         else None
     model = get_dalle(args, vae, cvae, dtype=dtype, device=device,
                       param_dtype=torch.float32 if training else dtype,
-                      clip_cfg=clip_cfg)
+                      clip_cfg=clip_cfg, text_feature_dim=text_feature_dim)
     init_weights(model, torch.Generator().manual_seed(args.seed))
     if stack_sd is not None:
         graft_transformer_params(model, stack_sd)

@@ -122,6 +122,12 @@ def load_model(args):
     for k in HPARAM_KEYS:
         if ckpt['hparams'].get(k) is not None:
             setattr(args, k, ckpt['hparams'][k])
+    if args.fixed_language_model is not None:
+        raise NotImplementedError(
+            f'{args.dalle_path}: a fixed-LM model takes its captions\' '
+            'language-model features; generate.py feeds text ids, as JAX\'s '
+            'does (ROADMAP.md queue A, item A9). Sample it with '
+            'mmvid_tpu_torch.test --description')
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     weights = dict(ckpt['weights'])
     vae = factories.get_vae_model(args, dtype=dtype, device=args.device)

@@ -7,6 +7,8 @@ MSM cross-entropy, REL and VID binary cross-entropies).
 Sequence layout:
   [REL](1) | text(text_seq_len) | visual(num_visuals*n (+SEP)) |
   [ST1],[VID](2) | target(num_targets*n)          n = fmap^2 (64 for 128px)
+With a fixed language model the text segment is one token, its pooled
+features through ``text_feature_mapping``.
 
 Submodule and parameter names are the reference ``dalle.pt`` ``weights``
 names (``text_emb``, ``transformer.transformer.resblocks.{i}``,
@@ -55,6 +57,7 @@ class BertConfig:
     insert_sep: bool = False
     use_separate_visual_emb: bool = False
     fixed_language_model: Optional[str] = None
+    text_feature_dim: int = 0
     text_emb_bottleneck: Optional[int] = None
     stable: bool = False
     clip: ClipStackConfig = ClipStackConfig()
@@ -140,15 +143,24 @@ class BertCore(nn.Module):
     def __init__(self, cfg: BertConfig, dtype=torch.float32,
                  param_dtype=None):
         super().__init__()
-        if cfg.fixed_language_model is not None:
-            raise NotImplementedError(
-                'fixed_language_model text features are not ported yet '
-                '(ROADMAP.md queue A, item 9)')
         self.cfg, self.dtype = cfg, dtype
         param_dtype = param_dtype or dtype
         d = cfg.dim
-        self.text_emb = nn.Embedding(cfg.effective_num_text_tokens, d)
-        self.text_pos_emb = nn.Embedding(cfg.effective_text_seq_len, d)
+        if cfg.fixed_language_model is None:
+            self.text_emb = nn.Embedding(cfg.effective_num_text_tokens, d)
+            self.text_pos_emb = nn.Embedding(cfg.effective_text_seq_len, d)
+        elif cfg.text_emb_bottleneck is not None:
+            # LN -> Linear -> LN -> Linear -> LN
+            f, nf = cfg.text_feature_dim, int(cfg.text_emb_bottleneck)
+            self.text_feature_mapping = nn.Sequential(
+                nn.LayerNorm(f, eps=1e-5),
+                nn.Linear(f, nf, dtype=param_dtype),
+                nn.LayerNorm(nf, eps=1e-5),
+                nn.Linear(nf, d, dtype=param_dtype),
+                nn.LayerNorm(d, eps=1e-5))
+        else:
+            self.text_feature_mapping = nn.Linear(
+                cfg.text_feature_dim, d, dtype=param_dtype)
         self.image_emb = nn.Embedding(cfg.num_image_tokens + 2, d)
         self.target_pos_emb = AxialPositionalEmbedding(
             d, (cfg.num_targets, cfg.image_fmap_size, cfg.image_fmap_size))
@@ -169,23 +181,48 @@ class BertCore(nn.Module):
         self.to_logits_rel = _head(d, 1, param_dtype)
         self.to_logits_vid = _head(d, 1, param_dtype)
 
+    def text_feature_embedding(self, feat):
+        """[B, text_feature_dim] features -> [B, D] through
+        ``text_feature_mapping``: its norms in fp32, its dense layers in
+        the compute dtype."""
+        m = self.text_feature_mapping
+        if isinstance(m, nn.Linear):
+            return linear(m, feat.to(self.dtype))
+        h = linear(m[1], layer_norm_fp32(m[0], feat, self.dtype))
+        h = linear(m[3], layer_norm_fp32(m[2], h, self.dtype))
+        return layer_norm_fp32(m[4], h, torch.float32)
+
     def control_embedding(self, text, visual_tokens=None, drop_visual=False):
         """[REL] | text | visual | [ST1][VID] -> [B, control_seq_len, D]
         fp32.  text: [B, text_seq_len] int tokens, padding id 0 remapped to
-        a unique id per position; visual_tokens: [B, visual_seq_len] int
-        tokens when cfg.num_visuals > 0.  ``drop_visual``: negvc's negative
-        control, [REL] | text | [ST1][VID] with no visual segment (shorter
-        than control_seq_len when cfg.num_visuals > 0)."""
+        a unique id per position; with ``cfg.fixed_language_model``, the
+        fixed LM's [B, text_feature_dim] float features instead, one token
+        through :meth:`text_feature_embedding`.  visual_tokens:
+        [B, visual_seq_len] int tokens when cfg.num_visuals > 0.
+        ``drop_visual``: negvc's negative control, [REL] | text |
+        [ST1][VID] with no visual segment (shorter than control_seq_len
+        when cfg.num_visuals > 0)."""
         cfg = self.cfg
         b, dev = text.shape[0], text.device
+        features = cfg.fixed_language_model is not None
+        if text.is_floating_point() != features:
+            raise ValueError(
+                f'text of dtype {text.dtype}: the model takes '
+                + ('[B, text_feature_dim] float features of its fixed '
+                   'language model' if features else '[B, text_seq_len] '
+                   'int token ids'))
         before_tok = torch.zeros((b, 1), dtype=torch.long, device=dev)
         parts = [self.special_emb(before_tok)
                  + self.special_pos_emb(before_tok)]
 
-        pos = torch.arange(cfg.text_seq_len, device=dev)
-        text_range = pos + (cfg.effective_num_text_tokens - cfg.text_seq_len)
-        text = torch.where(text == 0, text_range[None, :], text)
-        parts.append(self.text_emb(text) + self.text_pos_emb(pos)[None])
+        if features:
+            parts.append(self.text_feature_embedding(text)[:, None, :])
+        else:
+            pos = torch.arange(cfg.text_seq_len, device=dev)
+            text_range = pos + (cfg.effective_num_text_tokens
+                                - cfg.text_seq_len)
+            text = torch.where(text == 0, text_range[None, :], text)
+            parts.append(self.text_emb(text) + self.text_pos_emb(pos)[None])
 
         if cfg.num_visuals > 0 and not drop_visual:
             if visual_tokens is None:

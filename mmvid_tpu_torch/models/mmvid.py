@@ -171,7 +171,8 @@ class MMVIDBert(nn.Module):
              face_mode=None, visual_aug_mode=None, negvc=False,
              visual_neg=None, text_neg=None, visual_drop=None, draws=None):
         """(loss_msm, loss_rel, loss_vid), the JAX package's
-        ``MMVIDBert.loss``.  target: frames [B, T, H, W, 3] in [0, 1] or
+        ``MMVIDBert.loss``.  text: as ``generate_images`` takes it.
+        target: frames [B, T, H, W, 3] in [0, 1] or
         ids [B, target_seq_len]; the frozen VQGANs tokenize targets,
         visual controls and the VID negatives under no_grad.
         ``visual_drop``: a bool (or 0-d tensor), True replaces the visual
@@ -241,7 +242,8 @@ class MMVIDBert(nn.Module):
                         mask_predict_steps=0, preserve=None, t_overlap=1,
                         long_mode='long', dynamic=True, mp_config=None,
                         decode=True):
-        """text [B, text_seq_len] int; visual: control frames
+        """text [B, text_seq_len] int, or with a fixed language model its
+        [B, text_feature_dim] float features; visual: control frames
         [B, V, H, W, 3] in [0, 1] or ids, used when cfg.num_visuals > 0
         (none: a fully [MASK] control) -> (videos [B, T, H, W, 3] in [0, 1]
         or None when ``decode`` is False, img_seq [B, T*n] int64).

@@ -340,14 +340,18 @@ def quantize_for_serving(model, text=None, generator=None, decoder=True,
     Calibration forwards: the sampler's first state (an all-[MASK]
     target) and a random target, so both ends of mask-predict's
     activation range are seen; ``text`` (default: 4 random rows from
-    ``generator``) should be served text where there is some.  The
+    ``generator``: ids, or normal features for a fixed-LM model) should
+    be served text where there is some.  The
     decoder calibrates on the token grids of a 3-round mask-predict
     sample of the unquantized model."""
     cfg = model.cfg
     dev = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    if text is None:
+    if text is None and cfg.fixed_language_model is not None:
+        text = torch.randn((4, cfg.text_feature_dim), generator=generator,
+                           device=dev)
+    elif text is None:
         text = torch.randint(1, min(1000, cfg.num_text_tokens),
                              (4, cfg.text_seq_len), generator=generator,
                              device=dev)

@@ -27,6 +27,12 @@ the TF-Hub variables; random weights only with
 scorer of ``--openai_clip_model_path``; the artifacts go to
 ``<log_root>/<name><suffix>/metrics``.  ``--eval_mode long`` is not ported
 yet (ROADMAP.md queue A, item A3).
+
+A checkpoint of a fixed-LM model (``--fixed_language_model roberta-large``,
+the text_augment recipe) samples from its captions' RoBERTa features
+(``factories.get_fixed_language_model``, weights from ``ROBERTA_PATH``);
+``--eval_mode eval`` raises for it, since JAX's evaluation never builds
+the language model (ROADMAP.md queue A, item A9).
 """
 
 from __future__ import annotations
@@ -96,6 +102,11 @@ def main_worker(args):
     for k in HPARAM_KEYS:
         if hparams.get(k) is not None:
             setattr(args, k, hparams[k])
+    if args.fixed_language_model is not None and args.eval_mode == 'eval':
+        raise NotImplementedError(
+            '--eval_mode eval of a fixed-LM model: JAX\'s evaluation feeds '
+            'text ids and never builds the language model (ROADMAP.md '
+            'queue A, item A9)')
     if args.spec:
         if not args.ar:
             raise SystemExit('--spec requires --ar (speculative decode '
@@ -104,10 +115,16 @@ def main_worker(args):
             raise SystemExit('--spec is a bf16 decode path; drop --int8')
 
     tokenizer = factories.get_tokenizer(args)
+    encode, text_feature_dim = None, 0
+    if args.fixed_language_model is not None:
+        encode, text_feature_dim = factories.get_fixed_language_model(
+            args, device)
     weights = ckpt['weights']
     use_cvae = args.use_cvae or any(k.startswith('cvae.') for k in weights)
     model = factories.get_driver_model(args, device, use_cvae=use_cvae,
-                                       training=False).eval()
+                                       training=False,
+                                       text_feature_dim=text_feature_dim
+                                       ).eval()
     load_dalle_weights(model, weights)
     generate_kw = {}
     if args.int8:
@@ -144,7 +161,8 @@ def main_worker(args):
         if args.eval_mode == 'eval':
             return run_eval(args, model, tokenizer,
                             infinite_batches(loader), device)
-        return _visualize(args, model, tokenizer, loader, device, log_dir)
+        return _visualize(args, model, tokenizer, loader, device, log_dir,
+                          encode)
     finally:
         if args.spec and flag is None:
             os.environ.pop('MMVID_ARTV_SPEC', None)
@@ -152,8 +170,11 @@ def main_worker(args):
             os.environ['MMVID_ARTV_SPEC'] = flag
 
 
-def _visualize(args, model, tokenizer, loader, device, log_dir):
-    """The sampling grids of the first batch (reference visualize_test)."""
+def _visualize(args, model, tokenizer, loader, device, log_dir,
+               encode=None):
+    """The sampling grids of the first batch (reference visualize_test);
+    ``encode``: the fixed language model's, whose features of the
+    captions are the text."""
     from mmvid_tpu_torch.data.loader import infinite_batches
     from mmvid_tpu_torch.train import VIZ_SALT, step_generator
     from mmvid_tpu_torch.utils.viz import visualize_train
@@ -164,6 +185,8 @@ def _visualize(args, model, tokenizer, loader, device, log_dir):
             [args.description] * args.batch_size, args.text_seq_len,
             truncate_text=True)
         batch['description'] = [args.description] * args.batch_size
+    if encode is not None:
+        batch['text'] = encode(batch['description'])
     webpage = None
     if args.use_html:
         from mmvid_tpu_torch.utils.html import initialize_webpage

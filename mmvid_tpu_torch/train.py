@@ -20,8 +20,11 @@ iter)``, the counterpart of JAX's ``fold_in(base_key, iter)``, and a
 resume starts the loader at the batch the step reads, so a resumed run
 takes what an uninterrupted one takes; visualization uses a separate
 stream.  ``--device cuda`` (the default) raises when there is no GPU.
-Multi-process DDP (``--multiprocessing_distributed``) and
-``--fixed_language_model`` raise: they are not ported yet (ROADMAP.md).
+With ``--fixed_language_model roberta-large`` (the text_augment recipe)
+each step's text is the captions' RoBERTa features on the device
+(``factories.get_fixed_language_model``, weights from ``ROBERTA_PATH``).
+Multi-process DDP (``--multiprocessing_distributed``) raises: it is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -160,7 +163,12 @@ def main_worker(args):
 
     # ---- components (reference train.py:129-234) ----
     tokenizer = factories.get_tokenizer(args)
-    model = factories.get_driver_model(args, device)
+    encode, text_feature_dim = None, 0
+    if args.fixed_language_model is not None:
+        encode, text_feature_dim = factories.get_fixed_language_model(
+            args, device)
+    model = factories.get_driver_model(args, device,
+                                       text_feature_dim=text_feature_dim)
 
     # --auto_resume: a restarted job (same command line, e.g. after the
     # SIGTERM preemption checkpoint below) picks up its own weights/last,
@@ -264,7 +272,8 @@ def main_worker(args):
             with torch.profiler.record_function('mmvid_train_iter'):
                 batch = next(batches)
                 rec['wait_s'] = time.perf_counter() - t_it
-                feed = {'text': to_device(batch['text'], torch.long),
+                feed = {'text': (encode(batch['description']) if encode
+                                 else to_device(batch['text'], torch.long)),
                         'target': to_device(batch['target'],
                                             torch.float32)}
                 if model.cfg.num_visuals > 0 and 'visual' in batch:
@@ -329,7 +338,7 @@ def main_worker(args):
                 from mmvid_tpu_torch.utils.viz import visualize_train
                 t = time.perf_counter()
                 visualize_train(
-                    model, batch,
+                    model, dict(batch, text=feed['text']),
                     step_generator(args.seed, idx, VIZ_SALT, device),
                     str(log_sample_dir), idx, n_sample=args.n_sample,
                     n_per_sample=min(args.n_per_sample, 2),

@@ -94,7 +94,9 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
     """Real / recon / generated (/counterfactual-control) grids
     (reference visualize_train/visualize_test, utils_train.py:391-1217).
 
-    ``batch`` holds numpy arrays (the loader's); ``generator`` is a
+    ``batch`` holds numpy arrays (the loader's); its ``text`` may also be
+    a tensor, and for a fixed-LM model is the captions' features;
+    ``generator`` is a
     torch.Generator on the model's device.  mask_predict_steps may be an
     int or a list — like the reference's --mask_predict_steps 10 20 30,
     each generated row cycles through the list.  counterfactual=True adds
@@ -114,8 +116,8 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
                                   'ROADMAP.md queue A')
     os.makedirs(out_dir, exist_ok=True)
     dev = next(model.parameters()).device
-    text = torch.as_tensor(np.asarray(batch['text']), dtype=torch.long,
-                           device=dev)
+    text = torch.as_tensor(batch['text'], device=dev)
+    text = text if text.is_floating_point() else text.long()
     target = torch.as_tensor(np.asarray(batch['target']),
                              dtype=torch.float32, device=dev)
     visual = (torch.as_tensor(np.asarray(batch['visual']),

@@ -104,6 +104,26 @@ def clip_full_params_to_torch(visual: Dict, text: Dict
     return {k: np.asarray(v, np.float32) for k, v in sd.items()}
 
 
+def roberta_params_to_torch(flax_params: Dict) -> Dict[str, np.ndarray]:
+    """The params of ``transformers``' ``FlaxRobertaModel`` (JAX's fixed
+    language model, ``mmvid_tpu/factories.py::get_fixed_language_model``)
+    -> the state_dict of the port's
+    :class:`~mmvid_tpu_torch.models.roberta.RobertaModel`, which carries
+    the library's torch names: Dense kernels [in, out] transposed to
+    Linear weights, ``embedding`` and LayerNorm ``scale`` as ``weight``;
+    the pooler, which the port does not compute, left out."""
+    leaf_names = {'kernel': 'weight', 'embedding': 'weight',
+                  'scale': 'weight', 'bias': 'bias'}
+    sd = {}
+    for path, w in _flatten(flax_params):
+        if path[0] == 'pooler':
+            continue
+        w = w.T if path[-1] == 'kernel' else w
+        sd['.'.join(path[:-1] + (leaf_names[path[-1]],))] = np.asarray(
+            w, np.float32)
+    return sd
+
+
 def int8_scales_from_jax(clip_scales=None, vae_scales=None):
     """JAX int8 serving scales in the port's form: (the backbone's tuple
     of per-layer (qkv_in, out_in, fc_in, proj_in), the decoder's sorted

@@ -40,6 +40,22 @@ from mmvid_tpu_torch.utils import checkpoint as pckpt
 from mmvid_tpu_torch.utils import html
 
 
+@pytest.fixture(scope='module', autouse=True)
+def _one_thread():
+    """torch's and the BLAS / OpenMP pools at one thread for the module,
+    as tests/test_torch_eval.py::one_thread: the drivers' tiny ops run
+    as fast in one, and do not spin against the other test workers'
+    threads (the suite runs six processes on the CPU)."""
+    from threadpoolctl import threadpool_limits
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(1):
+            yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def data_tree(tmp_path_factory):
     """6 clips of 10 frames at 32 px, written through every filter type."""
@@ -446,3 +462,149 @@ def test_generate_gif_refused_before_sampling(tmp_path,
             generate.main(argv + ['--format', 'mp4'])
     with pytest.raises(AssertionError, match='model was loaded'):
         generate.main(argv + ['--format', 'png'])
+
+
+# -- the text_augment recipe: the fixed language model -----------------------
+
+LM_WIDTH = 32
+
+
+@pytest.fixture(scope='module')
+def roberta_dir(tmp_path_factory):
+    """A tiny RoBERTa folder (chip_smoke.write_roberta_archive: 2 layers
+    of 32, a BPE vocabulary learned on the recipe's captions)."""
+    from chip_smoke import write_roberta_archive
+    from mmvid_tpu_torch.models.roberta import RobertaConfig
+    folder = tmp_path_factory.mktemp('roberta')
+    write_roberta_archive(str(folder), RobertaConfig(
+        hidden_size=LM_WIDTH, num_hidden_layers=2, num_attention_heads=2,
+        intermediate_size=64, max_position_embeddings=134,
+        type_vocab_size=1, layer_norm_eps=1e-5), seed=4)
+    yield str(folder)
+    shutil.rmtree(folder, ignore_errors=True)
+
+
+def _recipe(script, paths, extra):
+    from chip_smoke import recipe_argv
+    return recipe_argv('text_augment', script, paths) + [
+        *MODEL, '--batch_size', '2', '--num_workers', '2', *extra]
+
+
+def _count_lm(monkeypatch, calls):
+    real = factories.get_fixed_language_model
+
+    def counted(args, device='cuda'):
+        encode, dim = real(args, device)
+
+        def wrapped(texts):
+            calls.append(list(texts))
+            return encode(texts)
+        return wrapped, dim
+
+    monkeypatch.setattr(factories, 'get_fixed_language_model', counted)
+
+
+@pytest.fixture(scope='module')
+def text_augment_run(data_tree, roberta_dir, tmp_path_factory):
+    """text_augment/train.sh's flags at the tiny size, ROBERTA_PATH at the
+    tiny folder, with ``--text_emb_bottleneck 8`` for the round trip
+    below, 2 iterations: (logs root, run dir, the captions the LM
+    encoded)."""
+    logs = tmp_path_factory.mktemp('ta_logs')
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv('ROBERTA_PATH', roberta_dir)
+        _count_lm(mp, calls)
+        args = process_args(train=True, argv=_recipe('train.sh', {
+            '--image_text_folder': str(data_tree), '--vae_path': ''}, [
+            '--log_root', str(logs), '--iters', '2', '--log_every', '1',
+            '--text_emb_bottleneck', '8']))
+        ptrain.main_worker(args)
+    yield logs, logs / args.name, calls
+    shutil.rmtree(logs, ignore_errors=True)
+
+
+def test_text_augment_train_and_test(text_augment_run, data_tree,
+                                     roberta_dir, monkeypatch):
+    """train.sh: one LM call a step on the batch's captions, the feature
+    layout's weights and the hparams (fixed_language_model,
+    text_emb_bottleneck) in the checkpoint; test.sh on that run (its
+    flags carry no bottleneck: the hparams bring it back) samples the
+    grid from ``--description``'s features, one LM call."""
+    logs, run_dir, calls = text_augment_run
+    assert _iters(run_dir) == [0, 1]
+    assert [len(c) for c in calls] == [2, 2]
+    ck = _payload(run_dir / 'weights' / 'last' / 'dalle.pt')
+    assert ck['hparams']['fixed_language_model'] == 'roberta-large'
+    assert ck['hparams']['text_emb_bottleneck'] == '8'
+    assert {'fixed_language_model', 'text_emb_bottleneck'} <= set(
+        generate.HPARAM_KEYS)
+    text_keys = sorted(k for k in ck['weights'] if k.startswith('text_'))
+    assert text_keys == sorted(f'text_feature_mapping.{i}.{leaf}'
+                               for i in range(5)
+                               for leaf in ('weight', 'bias'))
+    assert ck['weights']['text_feature_mapping.1.weight'].shape == (
+        8, LM_WIDTH)
+    monkeypatch.setenv('ROBERTA_PATH', roberta_dir)
+    test_calls = []
+    _count_lm(monkeypatch, test_calls)
+    out = ptest.main_worker(process_args(train=False, argv=_recipe(
+        'test.sh', {'--image_text_folder': str(data_tree),
+                    '--dalle_path': str(run_dir)},
+        ['--log_root', str(logs), '--n_per_sample', '1',
+         '--mask_predict_steps', '2'])))
+    assert test_calls == [['A girl.'] * 2]
+    assert len(_grids(out['sample_dir'])) == 1
+
+
+def test_fixed_lm_checkpoint_crosses_to_jax(text_augment_run, data_tree):
+    """The run's dalle.pt (text_feature_mapping.0-4) through JAX's
+    load_dalle_checkpoint and carried back by weights.load_jax_params
+    gives every saved weight; JAX's writer of those params is read back by
+    the port with every key and value."""
+    logs, run_dir, _ = text_augment_run
+    path = run_dir / 'weights' / 'last' / 'dalle.pt'
+    ck = jcompat.load_dalle_checkpoint(str(path))
+    assert set(ck['params']['tfm_ln0']) == {'scale', 'bias'}
+    args = process_args(train=True, argv=_recipe('train.sh', {
+        '--image_text_folder': str(data_tree), '--vae_path': ''},
+        ['--text_emb_bottleneck', '8']))
+    model = factories.get_driver_model(args, 'cpu',
+                                       text_feature_dim=LM_WIDTH)
+    weights.load_jax_params(model, ck['params'], ck['vae'], ck['cvae'])
+    saved = _payload(path)['weights']
+    got = model.state_dict()
+    assert sorted(got) == sorted(saved)
+    assert not [k for k in saved if not torch.equal(got[k], saved[k])]
+    back = logs / 'jax_written.pt'
+    jcompat.save_dalle_checkpoint(str(back), params=ck['params'],
+                                  vae_params=ck['vae'],
+                                  hparams=ck['hparams'])
+    read = weights.read_dalle_checkpoint(str(back))
+    assert read['hparams']['fixed_language_model'] == 'roberta-large'
+    assert sorted(read['weights']) == sorted(saved)
+    assert not [k for k in saved if not np.array_equal(
+        np.asarray(read['weights'][k]), saved[k].numpy())]
+    back.unlink()
+
+
+def test_fixed_lm_refusals(text_augment_run, data_tree, roberta_dir,
+                           monkeypatch, tmp_path):
+    """A fixed-LM checkpoint: ``--eval_mode eval`` and ``generate.py``
+    raise (JAX's evaluation and generate.py never build the LM; ROADMAP
+    A9); without a ROBERTA_PATH folder the driver raises naming it."""
+    logs, run_dir, _ = text_augment_run
+    monkeypatch.setenv('ROBERTA_PATH', roberta_dir)
+    with pytest.raises(NotImplementedError, match='A9'):
+        ptest.main_worker(_test_args(data_tree, logs, 'x', [
+            '--dalle_path', str(run_dir), '--eval_mode', 'eval']))
+    with pytest.raises(NotImplementedError, match='A9'):
+        generate.load_model(generate.parse_args([
+            '--dalle_path', str(run_dir / 'weights' / 'last' / 'dalle.pt'),
+            '--device', 'cpu', '--no-bf16']))
+    monkeypatch.setenv('ROBERTA_PATH', str(tmp_path / 'absent'))
+    with pytest.raises(FileNotFoundError, match='ROBERTA_PATH'):
+        ptrain.main_worker(process_args(train=True, argv=_recipe(
+            'train.sh', {'--image_text_folder': str(data_tree),
+                         '--vae_path': ''},
+            ['--log_root', str(tmp_path), '--iters', '1'])))

@@ -179,7 +179,8 @@ def test_tokenizer_ids_match_jax_package():
 def test_card_path_imports_no_jax():
     """Every module of the port, and what generate.main imports lazily
     (its file writers), import no jax, flax, regex, PIL, imageio, sklearn,
-    tensorflow or matplotlib, and nothing of mmvid_tpu at all."""
+    tensorflow, matplotlib, transformers, tokenizers or safetensors, and
+    nothing of mmvid_tpu at all."""
     code = (
         'import importlib, pkgutil, sys\n'
         'import mmvid_tpu_torch\n'
@@ -194,7 +195,8 @@ def test_card_path_imports_no_jax():
         "weights.bert_params_to_torch({'text_emb': {'embedding': [[0.0]]}})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'regex', 'PIL', 'imageio', 'sklearn', "
-        "'tensorflow', 'matplotlib', 'mmvid_tpu')]\n"
+        "'tensorflow', 'matplotlib', 'transformers', 'tokenizers', "
+        "'safetensors', 'mmvid_tpu')]\n"
         'assert not bad, bad\n')
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
