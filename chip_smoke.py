@@ -28,7 +28,8 @@ mmvid_tpu_torch.train`` and ``.test`` through ``main_worker`` on the
 released scripts' flags, over synthetic PNG clips: training, sampling,
 ``evaluation.sh``'s FVD / PRD, and a full-size ViT-B/32-shaped CLIP
 archive grafted into a training run and scoring through ``--eval_metric
-clip``.
+clip``; and VQGAN finetuning, ``python -m mmvid_tpu_torch.train_vqgan``
+through its ``main`` at full width.
 The paths' models, inputs and batch-16 timings come from
 ``mmvid_tpu_torch.breakdown`` (``build``, ``inputs``, ``measure``,
 ``build_train``, ``train_batch``, ``measure_train``).
@@ -70,7 +71,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at one W, each tolerance against a control it must refuse (bf16
    logits; one TF32 pass); timed in turns per W, the fp32 route beside
    ``F.layer_norm`` + ``F.linear`` in fp32, its plain version and bound.
-5. nearest-code kernel vs its plain version at M 1024, 4096 and 8192
+5. nearest-code kernel vs its plain version at M 512, 1024, 4096 and 8192
    (D 256, K 1024): ids equal on a randn codebook; within 1e-5 of the
    best score on the random-init codebook; kernel, plain and bound times
    at each M.
@@ -185,6 +186,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
     ``--description "A girl."`` (videos finite in [0, 1], the grid
     written, the LM once, attention and the sample head launched;
     frames/s).
+23. VQGAN finetuning (``mmvid_tpu_torch.train_vqgan``): the tiny trainer
+    (32 px) from one seed on the card and on the CPU, one g step and one
+    d step each on camera-like frames and on uniform noise, every metric
+    and gradient within ``VQGAN_METRIC_TOL`` / ``VQGAN_GRAD_TOL`` of the
+    CPU's, TF32 off, and the control with TF32 on
+    (``vqgan_tiny_tf32_control``); then the driver's ``main``
+    at full width (``VQGanConfig()`` at 128 px, batch 8, fp32, LPIPS on
+    seeded random VGG16 weights, ``NLayerDiscriminator(64, 3)``) over
+    synthetic 128 px PNGs, 8 iterations, a save every 4: every metric
+    finite, the nearest-code kernel launched exactly twice an iteration
+    (M 512), the checkpoint read back by ``factories.taming_vqgan_state``
+    into ``get_vae_model``'s VQGAN, encoding and decoding a batch; s an
+    iteration, images/s, peak memory, and one profiled iteration's device
+    time by kind and idle share, on a ``[vqgan train] path`` JSON line of
+    their own.
 
 Prints each phase's wall time (``[time]`` lines), the kernels' JSON line,
 then as its last line ``{"ok": true, "device": {...}}``.  Run from the
@@ -1096,9 +1112,10 @@ def phase_sample_head():
 
 def phase_codebook():
     """Nearest-code kernel vs plain at the paths' shapes, D 256, K 1024:
-    M 1024 (16 control frames x 64 latents: text+mask, ART-V's speculative
-    path), 4096 (the image_and_video recipe's 4 control frames) and 8192
-    (one video's 8 frames: recon_images, the VQGAN's training encode).
+    M 512 (VQGAN finetuning's batch of 8 images x 64 latents), 1024 (16
+    control frames x 64 latents: text+mask, ART-V's speculative path),
+    4096 (the image_and_video recipe's 4 control frames) and 8192 (one
+    video's 8 frames: recon_images, the VQGAN's training encode).
     Returns the M 1024 row and the times at every M."""
     import torch
     from mmvid_tpu_torch.ops import codebook as C
@@ -1107,7 +1124,7 @@ def phase_codebook():
     dev = torch.device('cuda')
     d, k = 256, 1024
     at_m = {}
-    for m in (1024, 4096, 8192):
+    for m in (512, 1024, 4096, 8192):
         g = torch.Generator(device=dev).manual_seed(11)
         z = torch.randn((m, d), generator=g, device=dev)
         spread = torch.randn((k, d), generator=g, device=dev)
@@ -1147,7 +1164,7 @@ def phase_codebook():
     row = at_m[1024]
     return ((row['max_abs_err'], row['ms'], row['plain_ms'], None,
              row['bound_ms'], row['bound_by']),
-            {f'M{m}': at_m[m] for m in (4096, 8192)})
+            {f'M{m}': at_m[m] for m in (512, 4096, 8192)})
 
 
 def phase_ln_qkv():
@@ -3300,7 +3317,7 @@ def _cpu_i3d_check(i3d):
     import copy
 
     import torch
-    from mmvid_tpu_torch.eval.evaluate import fp32_exact
+    from mmvid_tpu_torch.ops.precision import fp32_exact
     g = torch.Generator().manual_seed(3)
     clip = torch.rand((1, 15, 224, 224, 3), generator=g) * 2 - 1
     cpu = copy.deepcopy(i3d).cpu()
@@ -3337,6 +3354,7 @@ def phase_eval():
     from mmvid_tpu_torch import bench_eval, breakdown
     from mmvid_tpu_torch.eval import evaluate as E
     from mmvid_tpu_torch.eval.fvd import frechet_distance, preprocess_videos
+    from mmvid_tpu_torch.ops.precision import fp32_exact
 
     os.environ['MMVID_ALLOW_RANDOM_I3D'] = '1'
     os.environ.pop('I3D_CHECKPOINT', None)
@@ -3386,7 +3404,7 @@ def phase_eval():
     try:
         with torch.no_grad():
             tf32_ms = breakdown.steady(lambda: i3d.embed(clips))[0] * 1e3
-            with E.fp32_exact():
+            with fp32_exact():
                 fp32_ms = breakdown.steady(lambda: i3d.embed(clips))[0] * 1e3
     finally:
         torch.cuda.synchronize()
@@ -3559,6 +3577,350 @@ def phase_clip(run_dir: str, tmp: str):
             'archive_s': archive_s, 'train_step_run_s': train_s}
 
 
+# VQGAN finetuning (phase_vqgan_train).  The tiny trainer on the card
+# against the CPU from the same weights, on camera-like frames
+# (_smooth_frames) and on uniform noise, TF32 off on both: each metric
+# within VQGAN_METRIC_TOL of max(|CPU|, 1), Adam's first moments (the
+# gradients) within VQGAN_GRAD_TOL of the model's largest.  The phase
+# prints its control (vqgan_tiny_tf32_control), TF32 on; PERF.md records
+# its reading.
+VQGAN_METRIC_TOL = 1e-4
+VQGAN_GRAD_TOL = 1e-4
+VQGAN_TINY_FLAGS = ['--image_size', '32', '--ch', '32', '--ch_mult', '1,2',
+                    '--num_res_blocks', '1', '--z_channels', '64',
+                    '--embed_dim', '64', '--n_embed', '128',
+                    '--attn_resolutions', '']
+# the full-width run: train_vqgan.py's defaults (the vqgan.1024 config,
+# batch 8) at 128 px, iterations cut from 10000; the median s an
+# iteration over those after VQGAN_WARMUP
+VQGAN_ITERS = 8
+VQGAN_SAVE_EVERY = 4
+VQGAN_WARMUP = 3
+VQGAN_IMAGES = 48
+
+
+def _vqgan_grad_gap(opt_a, mod_a, opt_b, mod_b) -> float:
+    """The largest gap between two trainers' Adam first moments (the
+    gradients, halved), over the largest of the CPU's (``b``)."""
+    pairs = [(opt_a.state[p]['exp_avg'].cpu(), opt_b.state[q]['exp_avg'])
+             for p, q in zip(mod_a.parameters(), mod_b.parameters())]
+    top = max(w.abs().max().item() for _, w in pairs)
+    return (max((g - w).abs().max().item() for g, w in pairs)
+            / max(top, 1e-30))
+
+
+def vqgan_conv_gflop(batch: int = 8, size: int = 128) -> dict:
+    """GFLOP of the convolutions of one forward of each network of VQGAN
+    finetuning at ``VQGanConfig()`` (encoder, decoder, LPIPS' VGG16 over
+    both batches, the discriminator), counted from the shapes on meta
+    tensors: 2 x output elements x the kernel's input taps."""
+    import torch
+    from mmvid_tpu_torch.models.lpips import VGG16Features
+    from mmvid_tpu_torch.models.vqgan import VQGanConfig, VQModel
+    from mmvid_tpu_torch.models.vqgan_losses import NLayerDiscriminator
+
+    with torch.device('meta'):
+        vq = VQModel(VQGanConfig(resolution=size))
+        nets = {'encoder': (vq.encoder, torch.empty(batch, 3, size, size)),
+                'decoder': (vq.decoder, torch.empty(
+                    batch, 256, size // 16, size // 16)),
+                'vgg16_both': (VGG16Features(),
+                               torch.empty(2 * batch, 3, size, size)),
+                'discriminator': (NLayerDiscriminator(),
+                                  torch.empty(batch, 3, size, size))}
+        out = {}
+        for name, (net, x) in nets.items():
+            flops = [0]
+
+            def hook(m, inp, y):
+                flops[0] += (2 * y.numel() * m.in_channels
+                             * m.kernel_size[0] * m.kernel_size[1])
+
+            hooks = [m.register_forward_hook(hook) for m in net.modules()
+                     if isinstance(m, torch.nn.Conv2d)]
+            net(x)
+            for h in hooks:
+                h.remove()
+            out[name] = flops[0] / 1e9
+    return out
+
+
+def _vqgan_tiny_steps(device: str, x, tf32: bool = False):
+    """One g step and one d step of the tiny trainer (VQGAN_TINY_FLAGS)
+    built by ``train_vqgan.build_trainer`` from its seed on ``device``,
+    with a randn codebook from its own seed (the uniform-initialised one
+    has near-ties), on ``x`` [B, 3, 32, 32] in [-1, 1]; ``tf32`` (the
+    control): TF32 on where the trainer turns it off.  Returns the
+    trainer and its metrics."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from mmvid_tpu_torch import train_vqgan as driver
+    from mmvid_tpu_torch.models import vqgan_losses
+
+    @contextlib.contextmanager
+    def tf32_on():
+        conv, mm = (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = conv
+            torch.backends.cuda.matmul.allow_tf32 = mm
+
+    args = driver.parse_args(['--image_folder', '.'] + VQGAN_TINY_FLAGS)
+    tr = driver.build_trainer(args, torch.device(device))
+    cb = tr.model.quantize.embedding.weight
+    with torch.no_grad():
+        cb.copy_(torch.randn(cb.shape, generator=torch.Generator(
+        ).manual_seed(5)))
+    xd = x.to(device)
+    with (mock.patch.object(vqgan_losses, 'fp32_exact', tf32_on) if tf32
+          else contextlib.nullcontext()):
+        metrics = {k: float(v) for k, v in tr.g_step(xd).items()}
+        metrics.update({k: float(v) for k, v in tr.d_step(xd).items()})
+    return tr, metrics
+
+
+def _vqgan_tiny_gaps(a, b):
+    """Two tiny runs' (``_vqgan_tiny_steps``) metric gaps (of max(|b|,
+    1)) and each step's gradient gap (``_vqgan_grad_gap``)."""
+    (ta, ma), (tb, mb) = a, b
+    gaps = {k: abs(ma[k] - v) / max(abs(v), 1.0) for k, v in mb.items()}
+    return gaps, {'g_step': _vqgan_grad_gap(ta.g_opt, ta.model, tb.g_opt,
+                                            tb.model),
+                  'd_step': _vqgan_grad_gap(ta.d_opt, ta.disc, tb.d_opt,
+                                            tb.disc)}
+
+
+def _vqgan_tiny_batches() -> dict:
+    """The tiny check's two batches, NCHW in [-1, 1]: two 32 px
+    ``_smooth_frames`` and two uniform-noise images."""
+    import numpy as np
+    import torch
+
+    frames = torch.from_numpy(np.stack(_smooth_frames(
+        np.random.RandomState(3), 2, 32)).astype(np.float32) / 127.5
+        - 1).permute(0, 3, 1, 2).contiguous()
+    noise = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, frames.shape).astype(np.float32))
+    return {'frames': frames, 'noise': noise}
+
+
+def vqgan_tiny_card_vs_cpu():
+    """One g step and one d step of the tiny trainer on the card and on
+    the CPU from the same weights, on each of ``_vqgan_tiny_batches``
+    (``_vqgan_tiny_steps``).  Returns the card's metrics on the frames,
+    its launches, each metric's gap to the CPU's (of max(|CPU|, 1)) and
+    each step's gradient gap (``_vqgan_grad_gap``), keyed
+    ``<batch>/<name>``."""
+    reset_counts()   # the CPU trainer launches nothing
+    cards = {name: _vqgan_tiny_steps('cuda', x)
+             for name, x in _vqgan_tiny_batches().items()}
+    launches = read_counts()
+    gaps, grad_gaps = {}, {}
+    for name, x in _vqgan_tiny_batches().items():
+        g, gg = _vqgan_tiny_gaps(cards[name], _vqgan_tiny_steps('cpu', x))
+        gaps.update({f'{name}/{k}': v for k, v in g.items()})
+        grad_gaps.update({f'{name}/{k}': v for k, v in gg.items()})
+    return cards['frames'][1], launches, gaps, grad_gaps
+
+
+def vqgan_tiny_tf32_control() -> dict:
+    """The tiny check's control: the card with TF32 on against the CPU on
+    the frames, as the largest metric gap (and which) and each step's
+    gradient gap; each must exceed its limit, or the check could not tell
+    TF32 from fp32."""
+    frames = _vqgan_tiny_batches()['frames']
+    gaps, grads = _vqgan_tiny_gaps(_vqgan_tiny_steps('cuda', frames, True),
+                                   _vqgan_tiny_steps('cpu', frames))
+    worst = max(gaps, key=gaps.get)
+    return {'metric': gaps[worst], 'worst': worst, **grads}
+
+
+def phase_vqgan_train():
+    """VQGAN finetuning (``mmvid_tpu_torch.train_vqgan``).  First the tiny
+    trainer (tests/test_vqgan_train.py's TINY_VQ, 32 px, batch 2) built by
+    ``train_vqgan.build_trainer`` from one seed on the card and on the
+    CPU, one randn codebook in both (the random-init one has near-ties):
+    one g step and one d step each on each of ``_vqgan_tiny_batches``,
+    every metric (``d_weight`` included) and gradient against the CPU's,
+    four nearest-code launches; then its control with TF32 on
+    (``vqgan_tiny_tf32_control``), printed.  Then the driver's
+    ``main`` (what ``python -m mmvid_tpu_torch.train_vqgan``
+    runs) at full width: ``VQGanConfig()`` at 128 px, batch 8, fp32,
+    LPIPS on seeded random VGG16 weights, ``NLayerDiscriminator(64, 3)``,
+    over VQGAN_IMAGES synthetic 128 px PNGs, VQGAN_ITERS iterations with
+    ``--log_every 1`` and a save every VQGAN_SAVE_EVERY.  Gates: every
+    logged metric finite; the nearest-code kernel launched exactly twice
+    an iteration (the g step's reconstruction and the d step's); the
+    last checkpoint read by ``factories.taming_vqgan_state`` into
+    ``get_vae_model``'s VQGAN, which encodes and decodes a batch to
+    finite images.  Then one iteration of a fresh trainer under
+    ``torch.profiler`` (``breakdown.profile_run``): device time by kind,
+    busy time and idle share.  Returns the launches, the tiny check's
+    gaps and control, s an iteration (median after VQGAN_WARMUP),
+    images/s, peak memory, the profile and the wall time."""
+    import argparse
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch import train_vqgan as driver
+    from mmvid_tpu_torch.data import png
+    from mmvid_tpu_torch.weights import load_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='mmvid_vqgan_')
+    try:
+        # -- the tiny trainer, card against CPU --------------------------
+        folder = os.path.join(tmp, 'frames')
+        os.makedirs(folder)
+        rng = np.random.RandomState(3)
+        for i, img in enumerate(_smooth_frames(rng, VQGAN_IMAGES, 128)):
+            png.write_png(os.path.join(folder, f'{i:04d}.png'), img, i % 5)
+        metrics, tiny_launches, gaps, grad_gaps = vqgan_tiny_card_vs_cpu()
+        metric_gap = max(gaps.values())
+        grad_gap = max(grad_gaps.values())
+        print(f'[vqgan train] tiny card vs CPU: metrics {metrics}; '
+              f'gaps {gaps} (tol {VQGAN_METRIC_TOL}); gradient gaps '
+              f'{grad_gaps} (tol {VQGAN_GRAD_TOL}); launches '
+              f'{tiny_launches}', flush=True)
+        if not metric_gap <= VQGAN_METRIC_TOL:
+            fail(f'vqgan train: tiny card metrics off the CPU by '
+                 f'{metric_gap} > {VQGAN_METRIC_TOL}')
+        if not grad_gap <= VQGAN_GRAD_TOL:
+            fail(f'vqgan train: tiny card gradients off the CPU by '
+                 f'{grad_gap} > {VQGAN_GRAD_TOL}')
+        if tiny_launches != expected(codebook=4):
+            fail(f'vqgan train: tiny launches {tiny_launches}')
+        tf32 = vqgan_tiny_tf32_control()
+        print(f'[vqgan train] tiny control, TF32 on, card vs CPU on the '
+              f'frames (must exceed the limits): {tf32}', flush=True)
+        if not (tf32['metric'] > VQGAN_METRIC_TOL
+                and max(tf32['g_step'], tf32['d_step']) > VQGAN_GRAD_TOL):
+            fail(f'vqgan train: the check cannot tell TF32 on: {tf32}')
+
+        # -- the driver at full width ------------------------------------
+        logs = os.path.join(tmp, 'logs')
+        args = driver.parse_args([
+            '--image_folder', folder, '--image_size', '128',
+            '--batch_size', '8', '--iters', str(VQGAN_ITERS),
+            '--log_every', '1', '--save_every_n_steps',
+            str(VQGAN_SAVE_EVERY), '--log_root', logs])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        record = driver.main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        lines = open(os.path.join(logs, args.name, 'log.txt')).read(
+        ).splitlines()
+        values = [float(w) for ln in lines for w in ln.split()[3:10:2]]
+        iter_s = [r['load_s'] + r['step_s'] for r in record['iters']]
+        steady = iter_s[VQGAN_WARMUP:]
+        s_iter = statistics.median(steady)
+        step_s = statistics.median(r['step_s'] for r in
+                                   record['iters'][VQGAN_WARMUP:])
+        load_s = statistics.median(r['load_s'] for r in
+                                   record['iters'][VQGAN_WARMUP:])
+        # an iteration's convolutions: the g step's forward, the adaptive
+        # weight's input gradients through VGG16 and the discriminator,
+        # the backward (data and weight gradients of the VQGAN, input
+        # gradients of the frozen nets), the d step's reconstruction, two
+        # discriminator calls and their weight gradients
+        gf = vqgan_conv_gflop()
+        iter_gflop = (4 * (gf['encoder'] + gf['decoder'])
+                      + 3 * gf['vgg16_both'] + 7 * gf['discriminator'])
+        bound_s = iter_gflop * 1e9 / PEAK_FLOPS['fp32']
+        print(f'[vqgan train] driver, VQGanConfig() at 128 px, batch 8, '
+              f'fp32: {VQGAN_ITERS} iterations in {run_s:.2f} s (build '
+              f'and saves included); s an iteration {iter_s}; median '
+              f'after {VQGAN_WARMUP}: {s_iter:.4f} s (steps {step_s:.4f}, '
+              f'image read {load_s:.4f}), {8 / s_iter:.2f} images/s; '
+              f'convolutions {iter_gflop:.1f} GFLOP an iteration ({gf}), '
+              f'{bound_s:.4f} s at the fp32 peak; peak {peak} B; launches '
+              f'{counts}; saves {record["saves"]}', flush=True)
+        print('\n'.join(f'[vqgan train] {ln}' for ln in lines), flush=True)
+        if len(lines) != VQGAN_ITERS or len(values) != 4 * VQGAN_ITERS:
+            fail(f'vqgan train: {len(lines)} log lines, {len(values)} '
+                 f'values')
+        if not all(math.isfinite(v) for v in values):
+            fail(f'vqgan train: a non-finite metric in {lines}')
+        if counts != expected(codebook=2 * VQGAN_ITERS):
+            fail(f'vqgan train: launches {counts}, expected the nearest '
+                 f'code {2 * VQGAN_ITERS} and nothing else')
+        last = os.path.join(logs, args.name, 'weights', 'last',
+                            driver.CKPT_FILE)
+        if (record['saves'][-1] != os.path.join(
+                os.path.abspath(os.path.join(logs, args.name)), 'weights',
+                str(VQGAN_ITERS), driver.CKPT_FILE)
+                or not os.path.isfile(last)):
+            fail(f'vqgan train: checkpoints {record["saves"]}')
+        vae = factories.get_vae_model(argparse.Namespace(
+            image_size=128, which_vae='vqgan1024'), device='cuda')
+        load_weights(vae.model, factories.taming_vqgan_state(
+            record['saves'][-1]))
+        img = (torch.from_numpy(driver.image_batch(
+            driver.image_paths(folder), np.random.RandomState(1), 8, 128))
+            .cuda() + 1) / 2
+        ids = vae.get_codebook_indices(img)
+        dec = vae.decode(ids)
+        torch.cuda.synchronize()
+        if (tuple(ids.shape) != (8, 64) or int(ids.min()) < 0
+                or int(ids.max()) >= 1024 or tuple(dec.shape) !=
+                (8, 128, 128, 3) or not torch.isfinite(dec).all()):
+            fail(f'vqgan train: the finetuned checkpoint encodes to '
+                 f'{tuple(ids.shape)} and decodes to {tuple(dec.shape)}')
+        print(f'[vqgan train] checkpoint {record["saves"][-1]} read back '
+              f'by taming_vqgan_state: ids {tuple(ids.shape)}, images '
+              f'{tuple(dec.shape)} finite', flush=True)
+        del vae
+
+        # -- where an iteration's device time goes -----------------------
+        from mmvid_tpu_torch import breakdown
+        tr = driver.build_trainer(args, torch.device('cuda'))
+        xb = (img * 2 - 1).permute(0, 3, 1, 2).contiguous()
+
+        def iteration():
+            tr.g_step(xb)
+            tr.d_step(xb)
+
+        iteration()
+        prof = breakdown.profile_run(iteration)
+        print(f'[vqgan train] one profiled iteration: device busy '
+              f'{prof["device_busy_ms"]:.3f} ms of a '
+              f'{prof["batch_span_ms"]:.3f} ms span, idle share '
+              f'{prof["idle_share"]:.4f}, {prof["device_events"]} device '
+              f'events; ms by kind {prof["device_ms_by_kind"]}; largest '
+              f'kernels {prof["top_kernels_ms"]}', flush=True)
+        if prof['launches'] != expected(codebook=2):
+            fail(f'vqgan train: profiled launches {prof["launches"]}')
+        del tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {'launches': counts, 'tiny_launches': tiny_launches,
+            'tiny_metric_gap': metric_gap, 'tiny_grad_gap': grad_gap,
+            'tiny_tf32_control': tf32,
+            's_per_iter': s_iter, 'step_s': step_s, 'load_s': load_s,
+            'images_per_s': 8 / s_iter, 'peak_bytes': peak,
+            'conv_gflop_per_iter': iter_gflop, 'bound_s': bound_s,
+            'profile': {k: prof[k] for k in (
+                'device_busy_ms', 'batch_span_ms', 'idle_share',
+                'device_events', 'device_ms_by_kind', 'top_kernels_ms')},
+            'iter_s': iter_s, 'wall_s': time.perf_counter() - t_phase}
+
+
 def _fp32_attention_entry(route, clip, flagship_fp32, driver_launches):
     """The kernels line's entry of attention's fp32 route: its numbers at
     the fp32 flagship's shape (B16 H12 D64 L565, packed views), its
@@ -3657,6 +4019,7 @@ def main():
             shutil.rmtree(roberta_dir, ignore_errors=True)
     finally:
         shutil.rmtree(driver_tmp, ignore_errors=True)
+    vqgan_train = timed(phase_vqgan_train)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
                'attention_int8': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
@@ -3702,6 +4065,9 @@ def main():
                                       'test_driver_eval': test_driver_eval[
                                           'launches'][name],
                                       'test_driver_clip': clip_run[
+                                          'launches'][name],
+                                      # VQGAN finetuning's driver run
+                                      'vqgan_train': vqgan_train[
                                           'launches'][name]}}
         if name == 'attention':
             # the bf16 route (the bf16 paths'), the tensor-core kernel, on
@@ -3776,6 +4142,13 @@ def main():
                     'text_augment_train': text_augment['launches'][name],
                     'text_augment_test': text_augment['test_launches'][
                         name]}))
+    # VQGAN finetuning's path record: the whole iteration's numbers (the
+    # nearest-code kernel's own are in the kernels line)
+    print('[vqgan train] path ' + json.dumps({k: vqgan_train[k] for k in (
+        's_per_iter', 'step_s', 'load_s', 'images_per_s', 'peak_bytes',
+        'conv_gflop_per_iter', 'bound_s', 'tiny_metric_gap',
+        'tiny_grad_gap', 'tiny_tf32_control', 'profile', 'wall_s')}),
+        flush=True)
     print(f'[total] {time.perf_counter() - t_start:.1f} s', flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

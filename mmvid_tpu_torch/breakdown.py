@@ -89,13 +89,16 @@ KINDS = (
     ('LN+QKV kernel', ('ln_qkv_', 'ln_stats_kernel')),
     ('ART-V decode kernel', ('artv_step_kernel',)),
     ('grid-step probe', ('probe_layer_kernel', 'probe_persistent_kernel')),
-    ('convolutions', ('conv', 'fprop', 'dgrad', 'implicit_gemm',
-                      'winograd')),
+    # cuDNN's FFT convolutions: the transforms, the pointwise complex
+    # products and the complex GEMM
+    ('convolutions', ('conv', 'fprop', 'dgrad', 'wgrad', 'implicit_gemm',
+                      'winograd', 'fft', '_complex', 'gemm_cf32')),
     ('GEMMs', ('gemm', 'nvjet', 'cutlass', 'xmma', 'cublas')),
     ('LayerNorm / GroupNorm', ('layer_norm', 'group_norm', 'norm')),
     ('copies and casts', ('copy', 'memcpy', 'memset', 'cast', 'convert')),
 )
 BATCH, STEPS = 16, 20
+TOP_KERNELS = 10   # kernels by name in profile_run's record
 SPEC_K = 8   # drafts a chunk on the artv_spec path
 PROMPTS = ['a woman with wavy hair is talking', 'a man is smiling',
            'a young person with glasses speaks',
@@ -262,9 +265,9 @@ def profile_run(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the port's kernels'
     launches in it and attention's backward calls
     (``FusedAttention.backward``), its device events, device time by
-    kind, the device's busy time and the call's host-side span (ms), and
-    the idle share (the part of the span covered by no device
-    activity)."""
+    kind and of the TOP_KERNELS largest kernels by name, the device's
+    busy time and the call's host-side span (ms), and the idle share (the
+    part of the span covered by no device activity)."""
     for mod in KERNELS.values():
         mod.launches = 0
     attention.backward_calls = 0
@@ -284,9 +287,10 @@ def profile_run(fn) -> dict:
     window = [e for e in events if e.name() == 'mmvid_batch'
               and e.device_type() == DeviceType.CPU][0]
     dev = device_events(events, 'mmvid_batch')
-    by_kind = {}
+    by_kind, by_name = {}, {}
     for s, e, name in dev:
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + (e - s)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
     busy = busy_ns(dev)
     span = window.duration_ns()
     return {'launches': launches,
@@ -294,6 +298,8 @@ def profile_run(fn) -> dict:
             'device_events': len(dev),
             'device_ms_by_kind': {k: v / 1e6 for k, v in sorted(
                 by_kind.items(), key=lambda kv: -kv[1])},
+            'top_kernels_ms': [(name[:120], v / 1e6) for name, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]],
             'device_busy_ms': busy / 1e6, 'batch_span_ms': span / 1e6,
             'idle_share': 1 - busy / span if span > 0 else None}
 

@@ -21,7 +21,6 @@ in fp32 with TF32 off (:func:`fp32_exact`), as JAX runs eval in fp32.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import pickle
 import warnings
@@ -36,21 +35,7 @@ from mmvid_tpu_torch.eval.fvd import (
     pingpong_indices,
     preprocess_videos,
 )
-
-
-@contextlib.contextmanager
-def fp32_exact():
-    """TF32 off for cuDNN's convolutions and cuBLAS's products inside
-    (cuDNN allows it by default), the flags restored after."""
-    conv, mm = (torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = mm
+from mmvid_tpu_torch.ops.precision import fp32_exact
 
 
 def model_device(model) -> torch.device:

@@ -20,7 +20,7 @@ follow the flax tree's (``Mixed_3b.Branch_1_Conv3d_0b_3x3.conv_3d``, BN
 
 The convolutions are XLA convolutions in JAX, so cuDNN's (``F.conv3d``)
 are their port.  Eval runs them in fp32 with TF32 off, as JAX runs eval
-in fp32 (:func:`mmvid_tpu_torch.eval.evaluate.fp32_exact`).
+in fp32 (:func:`mmvid_tpu_torch.ops.precision.fp32_exact`).
 
 Weights: ``convert_tfhub_i3d`` turns a TF-Hub checkpoint's variables into
 JAX's trees, ``load_i3d_checkpoint`` reads a ``.npz`` of them (a TF

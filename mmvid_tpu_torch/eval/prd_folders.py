@@ -60,7 +60,7 @@ def make_embedder(kind: str, clip_path: str | None = None, batch: int = 32,
             inception_preprocess,
             load_inception_checkpoint,
         )
-        from mmvid_tpu_torch.eval.evaluate import fp32_exact
+        from mmvid_tpu_torch.ops.precision import fp32_exact
         from mmvid_tpu_torch.weights import load_conv_bn_variables
         model = InceptionV3()
         if inception_path:
@@ -82,7 +82,7 @@ def make_embedder(kind: str, clip_path: str | None = None, batch: int = 32,
 
         return embed
     if kind == 'clip':
-        from mmvid_tpu_torch.eval.evaluate import fp32_exact
+        from mmvid_tpu_torch.ops.precision import fp32_exact
         from mmvid_tpu_torch.models.clip_full import load_clip_scorer
         scorer = load_clip_scorer(clip_path, device=device)
 

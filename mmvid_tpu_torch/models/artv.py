@@ -76,6 +76,7 @@ from mmvid_tpu_torch.ops.artv_decode import (
     decode_token_step,
     stack_decode_params,
 )
+from mmvid_tpu_torch.ops.precision import fp32_exact
 from mmvid_tpu_torch.ops.sample_head import gumbel
 
 
@@ -465,7 +466,7 @@ def _grow(cache, width):
 
 
 @torch.no_grad()
-@int8_ops.exact_fp32_products()
+@fp32_exact()
 def ar_sample(core: ArtvCore, text, visual_tokens, generator,
               filter_thres: float = 0.5, temperature: float = 1.0,
               int8: bool = False, return_steps: bool = False):

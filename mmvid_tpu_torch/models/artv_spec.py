@@ -57,7 +57,7 @@ from mmvid_tpu_torch.models.artv import (
     ar_prefill,
 )
 from mmvid_tpu_torch.models.clip import NEG_INF
-from mmvid_tpu_torch.ops.int8 import exact_fp32_products
+from mmvid_tpu_torch.ops.precision import fp32_exact
 from mmvid_tpu_torch.ops.sample_head import gumbel
 
 
@@ -83,7 +83,7 @@ def _chunk_block(p, x, ck, cv, lanes, rows_w, valid, heads, dt):
 
 
 @torch.no_grad()
-@exact_fp32_products()
+@fp32_exact()
 def ar_sample_spec(core: ArtvCore, text, visual_tokens, generator,
                    spec_k: int, filter_thres: float = 0.5,
                    temperature: float = 1.0):

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmvid_tpu_torch.ops.int8 import exact_fp32_products
+from mmvid_tpu_torch.ops.precision import fp32_exact
 from mmvid_tpu_torch.roberta_tokenizer import RobertaTokenizer
 from mmvid_tpu_torch.utils import hf_archive
 
@@ -209,7 +209,7 @@ class RobertaModel(nn.Module):
         """``last_hidden_state`` [B, L, hidden] fp32."""
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0,
                            torch.finfo(torch.float32).min)
-        with exact_fp32_products():
+        with fp32_exact():
             return self.encoder(self.embeddings(input_ids), bias)
 
     @torch.no_grad()

@@ -1,11 +1,14 @@
 """VQGAN image tokenizer (taming-transformers VQModel) in PyTorch.
 
-Counterpart of ``mmvid_tpu/models/vqgan.py``'s runtime surface:
+Counterpart of ``mmvid_tpu/models/vqgan.py``:
 
 * encode: [0, 1] images -> [-1, 1] -> Encoder -> 1x1 quant_conv -> fp32
   latents -> nearest codebook entry (``ops/codebook.py``) -> ids;
 * decode: ids -> codebook lookup -> 1x1 post_quant_conv -> Decoder ->
-  [0, 1] images.
+  [0, 1] images;
+* training (``models/vqgan_losses.py``): ``VQModel.forward`` through
+  ``VectorQuantizer.forward`` (the nearest code, the straight-through
+  estimator and the codebook loss), and :class:`GumbelQuantize`.
 
 Modules carry taming's state_dict names (``encoder.down.{i}.block.{j}``,
 ``encoder.down.{i}.downsample.conv``, ``decoder.up.{i}.block.{j}``,
@@ -310,7 +313,11 @@ class Decoder(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """The codebook [n_embed, embed_dim], kept in fp32."""
+    """The codebook [n_embed, embed_dim], kept in fp32; the forward is
+    nearest-neighbour VQ with the straight-through gradient (taming
+    quantize.py:230-358, legacy beta placement)."""
+
+    BETA = 0.25
 
     def __init__(self, n_embed: int, embed_dim: int):
         super().__init__()
@@ -324,11 +331,82 @@ class VectorQuantizer(nn.Module):
         scores; the CUDA kernel on the card)."""
         return nearest_codebook_indices(z, self.embedding.weight)
 
+    def forward(self, z):
+        """z [B, C, h, w] -> (z_q [B, C, h, w] in z's dtype, the codebook
+        loss, ids [B, h, w]).  The ids carry no gradient; z_q's gradient
+        goes to z unchanged (straight-through), the loss's to z and to
+        the codebook."""
+        z32 = z.float()
+        idx = nearest_codebook_indices(z32.detach().permute(0, 2, 3, 1),
+                                       self.embedding.weight.detach())
+        z_q = self.embedding(idx).permute(0, 3, 1, 2)
+        loss = (torch.mean((z_q.detach() - z32) ** 2)
+                + self.BETA * torch.mean((z_q - z32.detach()) ** 2))
+        z_q = z32 + (z_q - z32).detach()
+        return z_q.to(z.dtype), loss, idx
+
+
+KL_WEIGHT = 5e-4   # the Gumbel quantizer's KL-to-uniform weight (taming's)
+
+
+def gumbel_noise(shape, generator: torch.Generator):
+    """-log(-log(u)), u uniform in [1e-20, 1) (JAX's draw in
+    ``GumbelQuantize``), from ``generator`` on its device."""
+    u = torch.rand(shape, generator=generator,
+                   device=generator.device).clamp_min(1e-20)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_quantize(logits, embed, noise=None, temp: float = 1.0):
+    """Gumbel-softmax quantization of code logits [B, n_embed, h, w]
+    against ``embed`` [n_embed, embed_dim]: with ``noise`` (training) the
+    soft one-hot softmax((logits + noise) / temp), made hard in the
+    forward (straight-through); without, the arg-max one-hot.  Returns
+    (z_q [B, embed_dim, h, w], KL_WEIGHT x KL to the uniform prior, ids
+    [B, h, w])."""
+    n_embed = logits.shape[1]
+    if noise is not None:
+        soft = torch.softmax((logits + noise) / temp, dim=1)
+        idx = soft.argmax(1)
+        hard = F.one_hot(idx, n_embed).permute(0, 3, 1, 2).to(soft.dtype)
+        soft = soft + (hard - soft).detach()
+    else:
+        idx = logits.argmax(1)
+        soft = F.one_hot(idx, n_embed).permute(0, 3, 1, 2).to(
+            logits.dtype)
+    z_q = torch.einsum('bnhw,nd->bdhw', soft, embed)
+    probs = torch.softmax(logits, dim=1)
+    kl = KL_WEIGHT * torch.mean(
+        torch.sum(probs * torch.log(probs * n_embed + 1e-10), dim=1))
+    return z_q, kl, idx
+
+
+class GumbelQuantize(nn.Module):
+    """Gumbel-softmax quantizer (taming quantize.py:113-227): a 1x1
+    ``proj`` conv from ``embed_dim`` channels to code logits, a codebook
+    ``embed``; :func:`gumbel_quantize` does the rest.  Training draws its
+    noise from ``generator`` (on the module's device)."""
+
+    def __init__(self, n_embed: int, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(embed_dim, n_embed, 1)
+        self.embed = nn.Embedding(n_embed, embed_dim)
+
+    def forward(self, z, temp: float = 1.0, train: bool = False,
+                generator: torch.Generator | None = None):
+        """z [B, embed_dim, h, w] -> (z_q [B, embed_dim, h, w], kl, ids
+        [B, h, w])."""
+        logits = self.proj(z)
+        noise = gumbel_noise(logits.shape, generator) if train else None
+        return gumbel_quantize(logits, self.embed.weight, noise, temp)
+
 
 class VQModel(nn.Module):
-    """taming's VQModel, runtime surface (encode to ids, decode ids).
-    The encoder is registered after the decode half, so the decode half's
-    weights drawn by ``factories.init_weights`` do not depend on it."""
+    """taming's VQModel: encode to ids and decode ids (serving), and the
+    training surface (``encode``, ``decode_latent``, ``forward``) that
+    ``models/vqgan_losses.py`` finetunes.  The encoder is registered after
+    the decode half, so the decode half's weights drawn by
+    ``factories.init_weights`` do not depend on it."""
 
     def __init__(self, cfg: VQGanConfig, dtype=torch.float32):
         super().__init__()
@@ -350,11 +428,24 @@ class VQModel(nn.Module):
         """x [B, 3, H, W] in [-1, 1] -> ids [B, h, w] int64."""
         return self.quantize.nearest(self.encode_latents(x))
 
+    def encode(self, x):
+        """x [B, C, H, W] in [-1, 1] -> (z_q [B, embed_dim, h, w], the
+        codebook loss, ids [B, h, w])."""
+        return self.quantize(self.quant_conv(self.encoder(x)))
+
+    def decode_latent(self, quant):
+        """quant [B, embed_dim, h, w] -> image [B, out_ch, H, W]."""
+        return self.decoder(self.post_quant_conv(quant.to(self.dtype)))
+
     def decode_code(self, code):
         """code [B, h, w] int -> image [B, 3, H, W] in about [-1, 1]."""
-        quant = self.quantize.lookup(code).to(self.dtype)
-        quant = quant.permute(0, 3, 1, 2)
-        return self.decoder(self.post_quant_conv(quant))
+        return self.decode_latent(
+            self.quantize.lookup(code).permute(0, 3, 1, 2))
+
+    def forward(self, x):
+        """x [B, C, H, W] -> (reconstruction, codebook loss)."""
+        quant, diff, _ = self.encode(x)
+        return self.decode_latent(quant), diff
 
 
 class VQGanVAE(nn.Module):

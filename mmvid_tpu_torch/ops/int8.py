@@ -378,16 +378,3 @@ def quantize_for_serving(model, text=None, generator=None, decoder=True,
         vae = quantize_vae_decoder(model.vae, sample_tokens=frames,
                                    percentile=percentile)
     return quantized_model(model, scales, vae)
-
-
-@contextlib.contextmanager
-def exact_fp32_products():
-    """TF32 off for fp32 matmuls while open: where integer-valued fp32
-    tensors are multiplied (ART-V's int8 attention), the sums are exact
-    only at full fp32 precision."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -40,6 +40,21 @@ def _write(path: str, payload: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+def save_file(log_dir: str, step, payload: Dict[str, Any], name: str,
+              keep_last: bool = True) -> str:
+    """Write weights/<step>/<name> and refresh weights/last/<name>;
+    returns the file written under ``step``."""
+    path = os.path.join(os.path.abspath(_ckpt_dir(log_dir, step)), name)
+    _write(path, payload)
+    if keep_last:
+        last = os.path.join(os.path.abspath(_ckpt_dir(log_dir, 'last')),
+                            name)
+        os.makedirs(os.path.dirname(last), exist_ok=True)
+        shutil.copyfile(path, last + '.tmp')
+        os.replace(last + '.tmp', last)
+    return path
+
+
 def save_checkpoint(log_dir: str, step, tree: Dict[str, Any],
                     hparams: Optional[Dict] = None, keep_last: bool = True
                     ) -> str:
@@ -48,15 +63,7 @@ def save_checkpoint(log_dir: str, step, tree: Dict[str, Any],
     Returns the file written under ``step``."""
     payload = {'iter': int(tree['step']), 'hparams': dict(hparams or {}),
                'vae_params': None, **tree}
-    path = os.path.join(os.path.abspath(_ckpt_dir(log_dir, step)), FILE)
-    _write(path, payload)
-    if keep_last:
-        last = os.path.join(os.path.abspath(_ckpt_dir(log_dir, 'last')),
-                            FILE)
-        os.makedirs(os.path.dirname(last), exist_ok=True)
-        shutil.copyfile(path, last + '.tmp')
-        os.replace(last + '.tmp', last)
-    return path
+    return save_file(log_dir, step, payload, FILE, keep_last)
 
 
 def _numeric_iters(root: str):

@@ -19,6 +19,7 @@ from mmvid_tpu_torch.utils.torch_compat import (
     _flatten,
     bert_params_to_torch,
     stack_params_to_torch,
+    vqgan_params_to_torch,
 )
 
 
@@ -201,3 +202,53 @@ def train_state_from_jax(model: torch.nn.Module, tc, params: Dict,
             for k in training.PLATEAU_FIELDS}
     return training.TrainState(step=int(step), params=state.params,
                                opt_state=opt)
+
+
+def gumbel_params_to_torch(params: Dict) -> Dict[str, np.ndarray]:
+    """JAX's ``GumbelQuantize`` params (``proj`` conv, ``embedding``) ->
+    the port's :class:`~mmvid_tpu_torch.models.vqgan.GumbelQuantize`
+    state_dict (``proj.weight`` / ``bias``, ``embed.weight``)."""
+    sd = flax_conv_bn_to_torch({'params': {'proj': params['proj']}})
+    sd['embed.weight'] = np.asarray(params['embedding'])
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def lpips_vgg_from_jax(vgg_params: Dict) -> Dict[str, np.ndarray]:
+    """JAX's LPIPS ``VGG16Features`` params (``conv_<i>``) -> the state_dict
+    of the port's :class:`~mmvid_tpu_torch.models.lpips.VGG16Features`."""
+    return {k: np.asarray(v, np.float32) for k, v in
+            flax_conv_bn_to_torch({'params': vgg_params}).items()}
+
+
+def _load_adam(opt: torch.optim.Adam, module: torch.nn.Module, adam,
+               convert) -> None:
+    """optax's ``ScaleByAdamState`` (count, mu, nu over the params' tree)
+    as ``opt``'s state for ``module``'s parameters, ``convert`` naming the
+    moments' leaves as ``module``'s state_dict does."""
+    mu, nu = convert(adam.mu), convert(adam.nu)
+    count = float(np.asarray(adam.count))
+    for name, p in module.named_parameters():
+        opt.state[p] = {
+            'step': torch.tensor(count),
+            'exp_avg': torch.as_tensor(np.array(mu[name])).to(p),
+            'exp_avg_sq': torch.as_tensor(np.array(nu[name])).to(p)}
+
+
+def vqgan_train_state_from_jax(trainer, state) -> None:
+    """JAX's ``VQGanTrainState`` (numpy or array leaves) into a
+    :class:`~mmvid_tpu_torch.models.vqgan_losses.VQGanTrainer`: the
+    VQModel's params through ``vqgan_params_to_torch``, the
+    discriminator's params and batch stats through
+    :func:`flax_conv_bn_to_torch` (HWIO kernels to OIHW; the BatchNorm's
+    flax names as they are), both Adams' counts and moments, and the
+    step count.  Every key must match."""
+    load_weights(trainer.model, vqgan_params_to_torch(state.g_params))
+    load_weights(trainer.disc, {
+        k: np.asarray(v, np.float32) for k, v in flax_conv_bn_to_torch(
+            {'params': state.d_params,
+             'batch_stats': state.d_state}).items()})
+    _load_adam(trainer.g_opt, trainer.model, _find_state(state.g_opt, 'nu'),
+               vqgan_params_to_torch)
+    _load_adam(trainer.d_opt, trainer.disc, _find_state(state.d_opt, 'nu'),
+               lambda tree: flax_conv_bn_to_torch({'params': tree}))
+    trainer.step = int(np.asarray(state.step))

@@ -22,10 +22,13 @@ from chip_smoke import (
     TF32_HEAD_LAUNCHES,
     TRAIN_BACKWARD_CALLS,
     TRAIN_LAUNCHES,
+    VQGAN_GRAD_TOL,
+    VQGAN_METRIC_TOL,
     Y_TOL,
     _packed_grads,
     disagreement,
     int8_agrees,
+    vqgan_tiny_card_vs_cpu,
 )
 from mmvid_tpu_torch.models.clip import attention_mask, build_attention_mask
 from mmvid_tpu_torch.ops import artv_decode as AD
@@ -852,3 +855,16 @@ def test_training_build_samples_through_the_kernels(cuda_device, path):
             decode=False, **kw)
     assert counter.launches > before
     assert 0 <= int(seq.min()) and int(seq.max()) < cfg.num_image_tokens
+
+
+@pytest.mark.cuda
+def test_vqgan_finetune_steps_card_vs_cpu(cuda_device):
+    """VQGAN finetuning's tiny g step and d step on the card against the
+    CPU from the same weights, on camera-like frames and on uniform noise
+    (``chip_smoke.vqgan_tiny_card_vs_cpu``, TF32 off): every metric and
+    gradient within tolerance; the nearest-code kernel launched once a
+    step, under grad in the g step."""
+    _, launches, gaps, grad_gaps = vqgan_tiny_card_vs_cpu()
+    assert max(gaps.values()) <= VQGAN_METRIC_TOL, gaps
+    assert max(grad_gaps.values()) <= VQGAN_GRAD_TOL, grad_gaps
+    assert launches['codebook'] == 4 and sum(launches.values()) == 4
