@@ -26,6 +26,7 @@ step; then evaluation (FVD / PRD through ``eval.evaluate.evaluate`` at
 batch 16 with a random I3D); then the recipes' drivers, ``python -m
 mmvid_tpu_torch.train`` and ``.test`` through ``main_worker`` on the
 released scripts' flags, over synthetic PNG clips: training, sampling,
+the long-video modes, the PNAG debug grids, the shapes evaluation,
 ``evaluation.sh``'s FVD / PRD, and a full-size ViT-B/32-shaped CLIP
 archive grafted into a training run and scoring through ``--eval_metric
 clip``; and VQGAN finetuning, ``python -m mmvid_tpu_torch.train_vqgan``
@@ -91,7 +92,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    192 launches a call, and the cost of one launch.
 9. tiny models on the card vs the same weights on the CPU: the flagship,
    the text+mask model's cvae ids and forward logits, and ART-V's greedy
-   tokens, each device on its default decode path; then ART-V's exact
+   tokens, each device on its default decode path; under the
+   deterministic hook, a preserved ``interp`` call and the PNAG trace
+   (``mask_predict_trace``): tokens and keep masks equal, the preserved
+   slots holding their source; then ART-V's exact
    speculative decode on the card: greedy tokens equal to ``ar_sample``'s
    (decode kernel and per-layer step) at k 1, 4 and 8, forced
    acceptance's chunk counts, and the sampled distribution against the
@@ -162,7 +166,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
 19. the test driver (``mmvid_tpu_torch.test.main_worker``) on
     ``text_to_video/test.sh``'s flags, sampling the training run's latest
     checkpoint: videos finite in [0, 1], the grid written, the kernels
-    launched; frames/s.  Then on ``text_to_video/evaluation.sh``'s flags
+    launched; frames/s.  Then ``--eval_mode long`` on the same flags at
+    batch 16, once a mode (``LONG_MODES``: ``long`` at t_repeat 3 and
+    t_overlap 1 with ``--save_codebook``, 22 frames; ``interp`` at
+    t_repeat 3, 32; ``interp_real`` at t_repeat 2, 15): videos finite in
+    [0, 1] of those frames, ``long_{i}.png`` a sample,
+    ``codebook_long.npy`` [16, 22 * 64], every preserved slot equal to
+    its source, the kernels launched; frames/s and peak memory a mode.
+    Then ``--debug`` with ``--n_sample 16``: the PNAG trace of the batch
+    (each round's frames decoded alone), a step grid a sample, the keep
+    counts on the schedule, peak memory.  Then the shapes evaluation: a
+    ``shape_attr`` folder of 128 px clips, a full-width model with 3
+    visual controls and a cvae saved as ``dalle.pt``, ``--dataset
+    shape_attr --negvc --test_mode shapes``: a grid row a control slot,
+    the kernels launched (nearest code through the cvae).  Then on
+    ``text_to_video/evaluation.sh``'s flags
     (``--eval_num 64``, random I3D): every artifact written, FVD finite,
     the embeddings [64, 400], the kernels launched.
 20. CLIP: a ViT-B/32-shaped torch.jit archive traced from the port's
@@ -276,6 +294,8 @@ LNQKV_TOL = 2e-2
 # chosen code's score within this of the best (fp64) on the random-init
 # codebook U(-1/1024, 1/1024), whose scores differ by ~1e-5 between codes
 CODE_GAP_TOL = 1e-5
+# the latent rows phase_codebook checks the nearest-code kernel at
+CODEBOOK_ROWS = (192, 512, 1024, 4096, 6144, 8192)
 # ART-V decode step vs plain: fp32 max abs (sums in another order); bf16
 # y within tol * (1 + |plain|), k_new and v_new within one bf16 ulp of
 # max(|plain|, 1): the kernel rounds h, the probabilities and the MLP
@@ -1112,11 +1132,13 @@ def phase_sample_head():
 
 def phase_codebook():
     """Nearest-code kernel vs plain at the paths' shapes, D 256, K 1024:
-    M 512 (VQGAN finetuning's batch of 8 images x 64 latents), 1024 (16
+    M 192 (the shapes model's 3 control frames x 64 latents, one sample),
+    512 (VQGAN finetuning's batch of 8 images x 64 latents), 1024 (16
     control frames x 64 latents: text+mask, ART-V's speculative path),
-    4096 (the image_and_video recipe's 4 control frames) and 8192 (one
-    video's 8 frames: recon_images, the VQGAN's training encode).
-    Returns the M 1024 row and the times at every M."""
+    4096 (the image_and_video recipe's 4 control frames), 6144 (the last
+    128-frame chunk of ``--save_codebook``'s 352 frames, 96 x 64) and 8192
+    (one video's 8 frames: recon_images, the VQGAN's training encode).
+    Returns the M 1024 row and the times at every other M."""
     import torch
     from mmvid_tpu_torch.ops import codebook as C
 
@@ -1124,7 +1146,7 @@ def phase_codebook():
     dev = torch.device('cuda')
     d, k = 256, 1024
     at_m = {}
-    for m in (512, 1024, 4096, 8192):
+    for m in CODEBOOK_ROWS:
         g = torch.Generator(device=dev).manual_seed(11)
         z = torch.randn((m, d), generator=g, device=dev)
         spread = torch.randn((k, d), generator=g, device=dev)
@@ -1164,7 +1186,7 @@ def phase_codebook():
     row = at_m[1024]
     return ((row['max_abs_err'], row['ms'], row['plain_ms'], None,
              row['bound_ms'], row['bound_by']),
-            {f'M{m}': at_m[m] for m in (512, 4096, 8192)})
+            {f'M{m}': at_m[m] for m in CODEBOOK_ROWS if m != 1024})
 
 
 def phase_ln_qkv():
@@ -1542,6 +1564,7 @@ def phase_tiny_reference():
           f'(tol 1e-3, fp32, TF32 off)', flush=True)
     if not (max(errs) <= 1e-3 and img_err <= 1e-3):
         fail('tiny model on the card disagrees with the CPU')
+    _tiny_preserve_and_trace(cpu, gpu, text, g)
 
     # the tiny text+mask model: cvae ids (codebook with spread, in both)
     # and the forward logits with the visual segment
@@ -1569,6 +1592,51 @@ def phase_tiny_reference():
     torch.backends.cudnn.allow_tf32 = True
     if n_diff or not max(errs) <= 1e-3:
         fail('tiny text+mask model on the card disagrees with the CPU')
+
+
+def _tiny_preserve_and_trace(cpu, gpu, text, g):
+    """Under the deterministic hook (argmax sampling, the most confident
+    tokens kept), card against CPU: one ``interp`` call preserving a
+    source's first frame, and the PNAG trace (``mask_predict_trace``):
+    tokens and keep masks equal, the preserved slots holding their
+    source."""
+    import torch
+    from mmvid_tpu_torch.models import mmvid as pm
+    from mmvid_tpu_torch.models import sampler as ps
+
+    cfg = cpu.cfg
+    src = torch.randint(0, 1024, (2, cfg.target_seq_len), generator=g)
+    pmask, N = ps.preserve_layout(cfg, 'long', 1, False)
+    spec = dataclasses.replace(ps.build_spec(pm.DEFAULT_MP_CONFIG, N,
+                                             steps=6, dynamic=False),
+                               deterministic=True)
+    build = pm.build_spec
+    pm.build_spec = lambda *a, **k: dataclasses.replace(build(*a, **k),
+                                                        deterministic=True)
+    out = {}
+    try:
+        with torch.no_grad():
+            for model, dev in ((cpu, 'cpu'), (gpu, 'cuda')):
+                _, toks = model.generate_images(
+                    torch.Generator(device=dev), text.to(dev),
+                    preserve=src.to(dev), long_mode='interp',
+                    mask_predict_steps=6, dynamic=False, decode=False)
+                trace = ps.mask_predict_trace(
+                    model.core, model.core.control_embedding(text.to(dev)),
+                    torch.Generator(device=dev), spec, pmask)
+                out[dev] = [toks.cpu()] + [t.cpu() for t in trace]
+    finally:
+        pm.build_spec = build
+    imask, _ = ps.preserve_layout(cfg, 'interp', 1, True)
+    want = ps.arrange_preserve_tokens(cfg, src, 'interp', 1)
+    same = [torch.equal(a, b) for a, b in zip(out['cpu'], out['cuda'])]
+    held = torch.equal(out['cuda'][0][:, imask], want[:, imask])
+    print(f'[tiny] deterministic hook, card vs CPU: interp tokens equal '
+          f'{same[0]}, preserved slots held {held}; trace tokens / keep '
+          f'masks / final equal {same[1:]}', flush=True)
+    if not (all(same) and held):
+        fail('tiny preserved interp call or PNAG trace: the card differs '
+             'from the CPU')
 
 
 def phase_tiny_artv():
@@ -3098,6 +3166,508 @@ def phase_test_driver(run_dir: str, tmp: str):
             'frames_s': frames / out['sample_s'], 'calls': len(seen)}
 
 
+# --eval_mode long on the test driver: each mode's flags and the frames a
+# video (long: T + (t_repeat-1)(T - t_overlap); interp: T 2^(t_repeat-1);
+# interp_real: last_tt T/2 + T - 1, last_tt = (T - T/2) // (T/4)) and its
+# sampling calls (the windows), of which the first of long and interp
+# preserves nothing
+LONG_MODES = {
+    'long': (['--t_repeat', '3', '--t_overlap', '1', '--save_codebook'],
+             22, 3, 2),
+    'interp': (['--t_repeat', '3'], 32, 7, 6),
+    'interp_real': (['--t_repeat', '2'], 15, 3, 3)}
+
+
+def _test_sh_argv(run_dir: str, tmp: str, *extra, data=None) -> list:
+    """``text_to_video/test.sh``'s flags but the data and log paths, the run
+    to sample, and ``extra``."""
+    return recipe_argv('text_to_video', 'test.sh', {
+        '--image_text_folder': data or os.path.join(tmp, 'vox_text'),
+        '--dalle_path': run_dir}) + [
+        '--log_root', os.path.join(tmp, 'logs'), *extra]
+
+
+def _preserved_mismatch(model, kw, seq) -> int:
+    """Tokens of a sampling call's preserved slots that differ from the
+    sources it was given (``generate_images``'s ``preserve``)."""
+    import torch
+    from mmvid_tpu_torch.models.sampler import (
+        arrange_preserve_tokens,
+        preserve_layout,
+    )
+    mode, overlap = kw['long_mode'], kw.get('t_overlap', 1)
+    pmask, _ = preserve_layout(model.cfg, mode, overlap, True)
+    src = arrange_preserve_tokens(model.cfg, kw['preserve'], mode, overlap)
+    pm = torch.as_tensor(pmask, device=seq.device)
+    return int((seq[:, pm] != src[:, pm]).sum())
+
+
+class _HostTime:
+    """Accumulates the host seconds of ``module.name`` while installed
+    (``with``): what a phase spends writing its PNGs."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.s = module, name, 0.0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def timed_call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*a, **kw)
+            finally:
+                self.s += time.perf_counter() - t0
+        setattr(self.module, self.name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+# where the models call the kernels' wrappers: (kernel, module, name)
+CAPTURE_SITES = (
+    ('attention', 'mmvid_tpu_torch.models.clip', 'fused_attention_blhd'),
+    ('sample_head', 'mmvid_tpu_torch.models.sampler', 'fused_sample_head'),
+    ('codebook', 'mmvid_tpu_torch.models.vqgan', 'nearest_codebook_indices'))
+# the noise seed of the sample head's check on captured inputs
+CAPTURE_SEED = 20260516
+
+
+def _copy_qkv(q, k, v):
+    """Copies of q, k, v [B, L, H, D] in their layout: strided views of one
+    packed [B, L, 3 * H * D] buffer where they were such views (the main
+    path's, models/clip.py), else contiguous tensors."""
+    import torch
+    b, l, h, d = q.shape
+    packed = (l * 3 * h * d, 3 * h * d, d, 1)
+    if all(t.stride() == packed for t in (q, k, v)):
+        qkv = torch.cat([t.reshape(b, l, h * d) for t in (q, k, v)], -1)
+        return [qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+                for i in range(3)]
+    return [t.clone(memory_format=torch.contiguous_format)
+            for t in (q, k, v)]
+
+
+def _copy_inputs(kernel, a, kw):
+    """A copy of a wrapper call's inputs that later calls cannot change."""
+    from mmvid_tpu_torch.ops import attention as A
+    if kernel == 'attention':
+        q, k, v, mask = (tuple(a) + (None,))[:4]
+        if isinstance(mask, A.AttentionMask):
+            mask = A.AttentionMask(mask.dense.clone(), mask.compact)
+        elif mask is not None:
+            mask = mask.clone()
+        return (*_copy_qkv(q, k, v), mask)
+    if kernel == 'sample_head':
+        x, ln_w, ln_b, w, b, temp = a[:6]
+        return (x.clone(), ln_w.detach().clone(), ln_b.detach().clone(),
+                w.detach().clone(), b.detach().clone(), float(temp),
+                kw.get('w_prepared'))
+    z, codebook = a[:2]
+    return z.reshape(-1, z.shape[-1]).clone(), codebook.detach().clone()
+
+
+def _shape_key(kernel, a) -> tuple:
+    if kernel == 'attention':
+        return (tuple(a[0].shape), str(a[0].dtype),
+                len(a) < 4 or a[3] is None)
+    if kernel == 'sample_head':
+        return tuple(a[0].shape), str(a[3].dtype)
+    z, codebook = a[:2]
+    return z.numel() // z.shape[-1], z.shape[-1], codebook.shape[0]
+
+
+class _LaunchCapture:
+    """Installed (``with``) over the names the models call the kernels'
+    wrappers by (CAPTURE_SITES): keeps a copy of the inputs of the first
+    call at each shape a phase's run gives a kernel on the card, so that
+    :func:`check_captured` can hold the kernel against its plain version
+    at the shapes the run gave it, after the run's counts are read."""
+
+    def __init__(self):
+        self.calls = {}   # (kernel, *shape key) -> inputs
+
+    def __enter__(self):
+        import importlib
+        self.orig = []
+        for kernel, mod_name, name in CAPTURE_SITES:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, name)
+            self.orig.append((mod, name, fn))
+            setattr(mod, name, self._wrap(kernel, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+    def _wrap(self, kernel, fn):
+        def call(*a, **kw):
+            key = (kernel,) + _shape_key(kernel, a)
+            if key not in self.calls and a[0].device.type == 'cuda':
+                self.calls[key] = _copy_inputs(kernel, a, kw)
+            return fn(*a, **kw)
+        return call
+
+
+def _capture_name(kernel: str, key) -> str:
+    """'attention B1 L757 H12 D64 float32', 'sample_head M512 W float32',
+    'codebook M192 D256 K1024' from a :func:`_shape_key`."""
+    if kernel == 'attention':
+        (b, l, h, d), dtype, no_mask = key
+        return (f'attention B{b} L{l} H{h} D{d} {dtype.split(".")[-1]}'
+                f'{" no mask" if no_mask else ""}')
+    if kernel == 'sample_head':
+        (m, d), dtype = key
+        return f'sample_head M{m} D{d} W {dtype.split(".")[-1]}'
+    return 'codebook M{} D{} K{}'.format(*key)
+
+
+def check_captured(tag: str, cap: _LaunchCapture, counts: dict) -> dict:
+    """Each kernel's wrapper against its plain version on the inputs
+    ``cap`` kept, TF32 off, at the tolerances of the kernel phases:
+    attention within ATTN_TOL (and, for bf16 outputs, ATTN_DIFFER_MAX);
+    the sample head against the plain version fed its Philox noise at one
+    seed, tokens equal on HEAD_TOKEN_SHARE of rows and Y within
+    HEAD_Y_REL_TOL (HEAD_Y_REL_TOL_FP32 for fp32 W) on those; nearest-code
+    ids within CODE_GAP_TOL of the best score (the ids differing from
+    plain printed).  Fails beyond them, or where a kernel the run
+    launched (``counts``) left no inputs.  Returns the errors by kernel
+    and shape."""
+    import torch
+    from mmvid_tpu_torch.ops import attention as A
+    from mmvid_tpu_torch.ops import codebook as C
+    from mmvid_tpu_torch.ops import sample_head as S
+    from mmvid_tpu_torch.ops.precision import fp32_exact
+
+    for kernel, _, _ in CAPTURE_SITES:
+        if counts[kernel] > 0 and not any(key[0] == kernel
+                                          for key in cap.calls):
+            fail(f'{tag}: {kernel} launched but no call of its was captured')
+    res = {}
+    with fp32_exact(), torch.no_grad():
+        for (kernel, *key), inp in cap.calls.items():
+            if kernel == 'attention':
+                q, k, v, mask = inp
+                bf16p = A.bf16_probs()
+                got = A.fused_attention_blhd(q, k, v, mask)
+                dense = (mask.dense if isinstance(mask, A.AttentionMask)
+                         else mask)
+                if dense is None:
+                    dense = torch.zeros(q.shape[1:2] * 2, device=q.device)
+                ref = A.attention_reference(q, k, v, dense,
+                                            q.shape[-1] ** -0.5, bf16p)
+                dtype = str(q.dtype).split('.')[-1]
+                err = (got.float() - ref.float()).abs().max().item()
+                differ = (got != ref).float().mean().item()
+                tol = ATTN_TOL[(dtype, bf16p)]
+                ok = err <= tol and (dtype != 'bfloat16' or bf16p
+                                     or differ <= ATTN_DIFFER_MAX)
+                row = {'max_abs_err': err, 'differ_share': differ,
+                       'tol': tol}
+            elif kernel == 'sample_head':
+                x, ln_w, ln_b, w, b, temp, w_prepared = inp
+                seed = torch.tensor([CAPTURE_SEED], dtype=torch.int64,
+                                    device=x.device)
+                g1, g2 = S.philox_gumbel(CAPTURE_SEED, x.shape[0],
+                                         w.shape[1], x.device)
+                y_ref, tok_ref = S.sample_head_reference(
+                    x, ln_w, ln_b, w, b, temp, g1, g2)
+                y, tok = S.sample_head_kernel(x, ln_w, ln_b, w, b, temp,
+                                              seed, w_prepared=w_prepared)
+                same = tok == tok_ref
+                share = same.float().mean().item()
+                y_rel = (((y - y_ref).abs() / y_ref)[same].max().item()
+                         if same.any() else float('inf'))
+                tol = (HEAD_Y_REL_TOL_FP32 if w.dtype == torch.float32
+                       else HEAD_Y_REL_TOL)
+                ok = share >= HEAD_TOKEN_SHARE and y_rel <= tol
+                row = {'route': S.kernel_route(w), 'temp': temp,
+                       'tokens_equal_share': share, 'y_rel_err': y_rel,
+                       'tol': tol}
+            else:
+                z, cb = inp
+                idx = C.nearest_codebook_indices(z, cb)
+                ref = C.nearest_codebook_reference(z, cb)
+                s = (z.double() @ cb.double().t()
+                     - 0.5 * cb.double().square().sum(-1)[None])
+                gap = (s.max(-1).values - s.gather(1, idx[:, None])[:, 0]
+                       ).max().item()
+                ok = gap <= CODE_GAP_TOL and 0 <= idx.min() and \
+                    idx.max() < cb.shape[0]
+                row = {'max_score_gap': gap, 'tol': CODE_GAP_TOL,
+                       'ids_differing': int((idx != ref).sum())}
+            torch.cuda.synchronize()
+            name = _capture_name(kernel, key)
+            print(f'[{tag}] {name} on the run\'s own inputs vs plain: '
+                  f'{row}', flush=True)
+            if not ok:
+                fail(f'{tag}: {name} disagrees with its plain version on '
+                     f'the run\'s inputs: {row}')
+            res[name] = row
+    return res
+
+
+def phase_test_driver_long(run_dir: str, tmp: str):
+    """``python -m mmvid_tpu_torch.test`` through ``main_worker`` on
+    ``text_to_video/test.sh``'s flags (fp32, batch 16, 20 rounds a call)
+    with ``--eval_mode long`` on the training driver's run, once for each
+    ``--long_mode`` (``LONG_MODES``).  Gates: videos [16, frames, 128,
+    128, 3] finite in [0, 1], ``long_{i}.png`` for each sample,
+    ``codebook_long.npy`` [16, 22 * 64] with ``--save_codebook``, every
+    sampling call's preserved slots equal to its sources, the sampling
+    calls counted, the attention and sample-head kernels launched in each
+    mode and the nearest-code kernel in ``interp_real`` (the batch's clips
+    encoded) and with ``--save_codebook``, and each kernel held against its
+    plain version on the inputs of its first launch at each shape the mode
+    gave it (:func:`check_captured`)."""
+    import numpy as np
+    import torch
+    from mmvid_tpu_torch import test as driver
+    from mmvid_tpu_torch.config import process_args
+    from mmvid_tpu_torch.models.mmvid import MMVIDBert
+    from mmvid_tpu_torch.utils import viz
+
+    orig = MMVIDBert.generate_images
+    res = {}
+    for mode, (flags, frames, calls, preserving) in LONG_MODES.items():
+        args = process_args(train=False, argv=_test_sh_argv(
+            run_dir, tmp, '--eval_mode', 'long', '--long_mode', mode,
+            '--name_suffix', f'_long_{mode}', *flags))
+        seen = []
+
+        def recorded(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            seen.append(None if kw.get('preserve') is None else
+                        _preserved_mismatch(self, kw, out[1]))
+            return out
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        MMVIDBert.generate_images = recorded
+        try:
+            with _HostTime(viz, 'save_image_array') as png_s, \
+                    _LaunchCapture() as cap:
+                out = driver.main_worker(args)
+            torch.cuda.synchronize()
+        finally:
+            MMVIDBert.generate_images = orig
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        video = out['video']
+        # args now hold the checkpoint's hparams
+        b, size = args.batch_size, args.image_size
+        rate = b * video.shape[1] / out['long_s']
+        print(f'[test driver long] {mode}: {video.shape[1]} frames a video, '
+              f'{len(seen)} sampling calls ({sum(s is not None for s in seen)}'
+              f' preserving, preserved tokens differing {seen}); '
+              f'visualize_long {out["long_s"]:.3f} s ({png_s.s:.3f} s of it '
+              f'writing PNG strips), {rate:.2f} frames/s, peak {peak} B, on '
+              f'{card()}; launches {counts}', flush=True)
+        if video.shape != (b, frames, size, size, 3):
+            fail(f'test driver long {mode}: videos {video.shape}')
+        if not (np.isfinite(video).all() and video.min() >= 0
+                and video.max() <= 1):
+            fail(f'test driver long {mode}: videos not finite in [0, 1]')
+        if len(seen) != calls or \
+                sum(s is not None for s in seen) != preserving:
+            fail(f'test driver long {mode}: {len(seen)} sampling calls')
+        if any(seen):
+            fail(f'test driver long {mode}: preserved tokens differ from '
+                 f'their sources {seen}')
+        for i in range(b):
+            if not os.path.isfile(os.path.join(out['long_dir'],
+                                               f'long_{i}.png')):
+                fail(f'test driver long {mode}: long_{i}.png not written')
+        need = ['attention', 'sample_head']
+        if mode == 'interp_real' or '--save_codebook' in flags:
+            need.append('codebook')
+        for name in need:
+            if counts[name] <= 0:
+                fail(f'test driver long {mode}: {name} launched no time')
+        if '--save_codebook' in flags:
+            codes = np.load(os.path.join(
+                os.path.dirname(out['long_dir']), 'codebook_long.npy'))
+            if codes.shape != (b, frames * (size // 16) ** 2):
+                fail(f'test driver long {mode}: codebook_long.npy '
+                     f'{codes.shape}')
+        res[mode] = {'launches': counts, 'frames': video.shape[1],
+                     'long_s': out['long_s'], 'png_s': png_s.s,
+                     'frames_s': rate, 'peak_bytes': peak,
+                     'checked': check_captured(
+                         f'test driver long {mode}', cap, counts)}
+    return res
+
+
+def phase_test_driver_debug(run_dir: str, tmp: str):
+    """The test driver's sampling grids with ``--debug`` on ``test.sh``'s
+    flags and ``--n_sample 16 --n_per_sample 1``: the PNAG trace of the
+    whole batch (20 rounds, fp32) and a step grid a sample, each round's
+    frames decoded in a call of their own.  Gates: the 16 ``_pnag``
+    grids written; each step's keep count the preserved count (0) plus
+    N - n_sched[t-1] (step 0: 0); the kernels launched, and held against
+    their plain versions on the run's own inputs (:func:`check_captured`);
+    peak memory printed (the captured inputs included)."""
+    import torch
+    from mmvid_tpu_torch import test as driver
+    from mmvid_tpu_torch.config import process_args
+    from mmvid_tpu_torch.models.mmvid import MMVIDBert
+    from mmvid_tpu_torch.models.sampler import build_spec
+    from mmvid_tpu_torch.utils import viz
+
+    args = process_args(train=False, argv=_test_sh_argv(
+        run_dir, tmp, '--debug', '--n_sample', '16', '--n_per_sample', '1',
+        '--name_suffix', '_debug'))
+    orig = MMVIDBert.generate_images_debug
+    seen = []
+
+    def recorded(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        seen.append((self.cfg.target_seq_len, tuple(out[2].shape),
+                     out[3].sum(-1).cpu()))
+        return out
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    MMVIDBert.generate_images_debug = recorded
+    try:
+        t0 = time.perf_counter()
+        with _HostTime(viz, 'save_pnag_debug_grid') as grid_s, \
+                _LaunchCapture() as cap:
+            out = driver.main_worker(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        MMVIDBert.generate_images_debug = orig
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if len(seen) != 1:
+        fail(f'test driver debug: {len(seen)} trace calls')
+    n, decodes_shape, keeps = seen[0]
+    spec = build_spec(args.mp_config, n, steps=args.mask_predict_steps[0],
+                      dynamic=False)
+    want = torch.tensor([0] + [n - spec.n_sched[t - 1]
+                               for t in range(1, spec.Tmax)])
+    print(f'[test driver debug] step decodes {decodes_shape}, keep counts '
+          f'a step {keeps[:, 0].tolist()}; visualize_train '
+          f'{out["sample_s"]:.3f} s ({grid_s.s:.3f} s of it writing the '
+          f'step grids; {wall:.3f} s with the load), peak {peak} B, on '
+          f'{card()}; launches {counts}', flush=True)
+    if decodes_shape != (spec.Tmax, 16, args.num_targets, args.image_size,
+                         args.image_size, 3):
+        fail(f'test driver debug: step decodes {decodes_shape}')
+    if not torch.equal(keeps, want[:, None].expand_as(keeps)):
+        fail('test driver debug: keep counts off the schedule')
+    for i in range(16):
+        grid = os.path.join(out['sample_dir'], '0000000_pnag',
+                            f'{i:02d}.png')
+        if not os.path.isfile(grid):
+            fail(f'test driver debug: {grid} not written')
+    for name in ('attention', 'sample_head', 'codebook'):
+        if counts[name] <= 0:
+            fail(f'test driver debug: {name} launched no time')
+    return {'launches': counts, 'sample_s': out['sample_s'],
+            'grid_s': grid_s.s, 'peak_bytes': peak, 'steps': spec.Tmax,
+            'checked': check_captured('test driver debug', cap,
+                                           counts)}
+
+
+SHAPE_SIZES = ('small', 'large')
+SHAPE_COLORS = ('red', 'blue', 'green')
+SHAPE_KINDS = ('circle', 'square', 'triangle')
+SHAPE_MOTIONS = ('left', 'up and right', 'down')
+
+
+def shape_caption(i: int, motion: int = 0) -> str:
+    """Clip i's caption 'A <size> <color> <shape> is moving <motion>':
+    every color with every shape in 9 clips, ``motion`` shifting the
+    motion alone."""
+    return (f'A {SHAPE_SIZES[i % 2]} {SHAPE_COLORS[i % 3]} '
+            f'{SHAPE_KINDS[(i // 3) % 3]} is moving '
+            f'{SHAPE_MOTIONS[(i + motion) % 3]}')
+
+
+def write_shapes_data(root: str, clips: int, frames: int, size: int = 128,
+                      seed: int = 0) -> str:
+    """A moving-shapes tree (``video/<key>/*.png``, ``txt/<key>.txt``) of
+    ``clips`` clips, two captions a clip (:func:`shape_caption`: one
+    object, two motions), written by the port's PNG writer."""
+    import numpy as np
+    from mmvid_tpu_torch.data import png
+    rng = np.random.RandomState(seed)
+    for i in range(clips):
+        key = f'shape{i:04d}'
+        d = os.path.join(root, 'video', key)
+        os.makedirs(d)
+        for j, img in enumerate(_smooth_frames(rng, frames, size)):
+            png.write_png(os.path.join(d, f'{j:03d}.png'), img, (i + j) % 5)
+        os.makedirs(os.path.join(root, 'txt'), exist_ok=True)
+        with open(os.path.join(root, 'txt', f'{key}.txt'), 'w') as f:
+            f.write(shape_caption(i) + '\n' + shape_caption(i, 1) + '\n')
+    return root
+
+
+def phase_test_driver_shapes(tmp: str):
+    """The shapes evaluation through the test driver: a ``shape_attr``
+    frame folder of 16 clips at 128 px, a full-width fp32 model with 3
+    visual controls and a cvae from seeded weights saved as ``dalle.pt``,
+    then ``test.sh``'s flags with ``--dataset shape_attr --attr_mode
+    color+shape+background+rand --negvc --test_mode shapes``.  Gates:
+    the grid's rows (real, reconstruction, the samples, the
+    counterfactual and free rows, and one row a control slot swapped for
+    its negative), the attention, sample-head and nearest-code (the
+    cvae) kernels launched, and held against their plain versions on the
+    run's own inputs (:func:`check_captured`: attention at B1 L757 with
+    the 3-control mask, the cvae's M192)."""
+    import torch
+    from mmvid_tpu_torch import factories
+    from mmvid_tpu_torch import test as driver
+    from mmvid_tpu_torch.config import process_args
+    from mmvid_tpu_torch.data import png
+    from mmvid_tpu_torch.generate import HPARAM_KEYS
+
+    t0 = time.perf_counter()
+    data = write_shapes_data(os.path.join(tmp, 'shapes'), 16,
+                             DRIVER_CLIP_FRAMES)
+    dalle = os.path.join(tmp, 'shapes_dalle.pt')
+    argv = _test_sh_argv(dalle, tmp, '--dataset', 'shape_attr',
+                         '--attr_mode', 'color+shape+background+rand',
+                         '--negvc', '--test_mode', 'shapes', '--visual',
+                         '--num_visuals', '3', '--name_suffix', '_shapes',
+                         data=data)
+    args = process_args(train=False, argv=argv)
+    model = factories.get_driver_model(args, 'cuda', use_cvae=True,
+                                       training=False)
+    torch.save({'iter': 0, 'hparams': {k: getattr(args, k)
+                                       for k in HPARAM_KEYS},
+                'weights': model.state_dict()}, dalle)
+    del model
+    setup = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    with _LaunchCapture() as cap:
+        out = driver.main_worker(process_args(train=False, argv=argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    grid = png.read_rgb(os.path.join(out['sample_dir'], '0000000_0.png'))
+    rows = grid.shape[0] // (args.image_size + 2)
+    want = 2 + args.n_per_sample + 2 + 3
+    print(f'[test driver shapes] data and dalle.pt written in {setup:.2f} '
+          f's; grid {grid.shape} ({rows} rows, {want} expected); '
+          f'visualize_train {out["sample_s"]:.3f} s ({wall:.3f} s with the '
+          f'load) on {card()}; launches {counts}', flush=True)
+    if rows != want or grid.shape[0] != want * (args.image_size + 2):
+        fail(f'test driver shapes: {rows} grid rows, not {want}')
+    for name in ('attention', 'sample_head', 'codebook'):
+        if counts[name] <= 0:
+            fail(f'test driver shapes: {name} launched no time')
+    return {'launches': counts, 'sample_s': out['sample_s'], 'rows': rows,
+            'checked': check_captured('test driver shapes', cap,
+                                           counts)}
+
+
 # the fixed LM on the card against the CPU: max |features| difference
 # over max |features|, fp32 with TF32 off on both (24 post-LN layers
 # keep fp32 rounding near 1e-6 of the scale; a TF32 product reads about
@@ -3958,6 +4528,15 @@ def _fp32_head_entry(route, flagship_fp32, driver_launches):
                 'launches']['sample_head'], **driver_launches}}
 
 
+def _long_launches(name, long_runs, debug, shapes):
+    """The launches of kernel ``name`` in the test driver's long-video
+    runs (one a mode), its ``--debug`` run and its shapes run."""
+    return {'test_driver_long': {mode: r['launches'][name]
+                                 for mode, r in long_runs.items()},
+            'test_driver_debug': debug['launches'][name],
+            'test_driver_shapes': shapes['launches'][name]}
+
+
 def timed(phase, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -4008,6 +4587,11 @@ def main():
     train_driver, run_dir, driver_tmp = timed(phase_train_driver)
     try:
         test_driver = timed(phase_test_driver, run_dir, driver_tmp)
+        test_driver_long = timed(phase_test_driver_long, run_dir,
+                                 driver_tmp)
+        test_driver_debug = timed(phase_test_driver_debug, run_dir,
+                                  driver_tmp)
+        test_driver_shapes = timed(phase_test_driver_shapes, driver_tmp)
         test_driver_eval = timed(phase_test_driver_eval, run_dir,
                                  driver_tmp)
         clip_run = timed(phase_clip, run_dir, driver_tmp)
@@ -4059,6 +4643,10 @@ def main():
                                           'launches'][name],
                                       'test_driver': test_driver[
                                           'launches'][name],
+                                      **_long_launches(
+                                          name, test_driver_long,
+                                          test_driver_debug,
+                                          test_driver_shapes),
                                       # eval: phase_eval's evaluate run
                                       # and the test driver's runs
                                       'eval': eval_res['launches'][name],
@@ -4128,6 +4716,8 @@ def main():
             kernels.append(_fp32_head_entry(
                 head_extra['fp32_w_route'], flagship_fp32, {
                     'test_driver': test_driver['launches'][name],
+                    **_long_launches(name, test_driver_long,
+                                     test_driver_debug, test_driver_shapes),
                     'test_driver_eval': test_driver_eval['launches'][name],
                     'test_driver_clip': clip_run['launches'][name],
                     'text_augment_train': text_augment['launches'][name],
@@ -4137,6 +4727,8 @@ def main():
             kernels.append(_fp32_attention_entry(
                 attention_fp32, attention_clip, flagship_fp32, {
                     'test_driver': test_driver['launches'][name],
+                    **_long_launches(name, test_driver_long,
+                                     test_driver_debug, test_driver_shapes),
                     'test_driver_eval': test_driver_eval['launches'][name],
                     'test_driver_clip': clip_run['launches'][name],
                     'text_augment_train': text_augment['launches'][name],

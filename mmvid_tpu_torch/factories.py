@@ -432,8 +432,19 @@ def get_dataset(args, tokenizer):
     if args.dataset in ('vox', 'mmvoxceleb'):
         return VoxDataset(args.image_text_folder, attr_mode=args.attr_mode,
                           return_neg=args.negvc, **common)
-    if args.dataset in ('mp4_text', 'iper', 'shape', 'shape_attr'):
+    if args.dataset == 'iper':
+        from mmvid_tpu_torch.data.iper import IPERDataset
+        return IPERDataset(args.image_text_folder, slow=args.slow, **common)
+    if args.dataset == 'shape':
+        return TextVideoDataset(args.image_text_folder, **common)
+    if args.dataset == 'shape_attr':
+        from mmvid_tpu_torch.data.shapes import ShapeAttrDataset
+        return ShapeAttrDataset(args.image_text_folder,
+                                attr_mode=args.attr_mode,
+                                return_neg=args.negvc, **common)
+    if args.dataset == 'mp4_text':
         raise NotImplementedError(
-            f'--dataset {args.dataset} is not ported yet (ROADMAP.md '
-            'queue A, item 4)')
+            '--dataset mp4_text is not ported yet: TextMP4Dataset decodes '
+            'MP4 through OpenCV (cv2), which the port does not use '
+            '(ROADMAP.md queue A, item A4)')
     raise NotImplementedError(args.dataset)

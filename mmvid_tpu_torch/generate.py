@@ -88,7 +88,12 @@ def parse_args(argv=None):
     p.add_argument('--which_transformer', default='openai_clip_visual')
     p.add_argument('--vae_path', default=None,
                    help='taming VQGAN .ckpt, for a dalle.pt without '
-                        'vae.model.* weights')
+                        'vae.model.* weights (the checkpoint\'s own VQGAN '
+                        'takes precedence)')
+    p.add_argument('--cvae_path', default=None,
+                   help='taken as the root generate.py takes it: a cvae '
+                        'is built only from a dalle.pt that holds one, '
+                        'and its weights replace the file\'s')
     p.add_argument('--fixed_language_model', default=None)
     p.add_argument('--text_emb_bottleneck', default=None)
     p.add_argument('--insert_sep', action='store_true')
@@ -137,7 +142,10 @@ def load_model(args):
                                        device=args.device)
     model = factories.get_dalle(args, vae, cvae, dtype=dtype,
                                 device=args.device)
-    if args.vae_path:
+    # the checkpoint's VQGAN replaces --vae_path's, as in the root
+    # generate.py (:128-130)
+    if args.vae_path and not any(k.startswith('vae.model.')
+                                 for k in weights):
         weights.update({f'vae.model.{k}': v for k, v in
                         factories.taming_vqgan_state(args.vae_path).items()})
     load_weights(model, weights)

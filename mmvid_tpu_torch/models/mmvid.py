@@ -4,7 +4,8 @@ loss and batched mask-predict generation.
 
 Counterpart of ``mmvid_tpu/models/mmvid.py``: tokenization, the
 visual-control pipeline, ``loss`` (MSM / REL / VID, with the frozen VQGANs
-tokenizing targets and VID negatives inside it) and ``generate_images``.
+tokenizing targets and VID negatives inside it), ``generate_images`` (with
+the long-video modes' preserved slots) and ``generate_images_debug``.
 PyTorch runs eagerly, so there is no trace cache.
 """
 
@@ -26,6 +27,7 @@ from mmvid_tpu_torch.models.sampler import (
     arrange_preserve_tokens,
     build_spec,
     mask_predict,
+    mask_predict_trace,
     preserve_layout,
 )
 from mmvid_tpu_torch.models.vqgan import VQGanVAE
@@ -255,17 +257,8 @@ class MMVIDBert(nn.Module):
                                    preserve is not None)
         spec = build_spec(mp_config, N, steps=mask_predict_steps,
                           dynamic=dynamic)
-        visual_tokens = None
-        if cfg.num_visuals > 0:
-            if visual is not None:
-                visual_tokens = self.prepare_visual_tokens(
-                    generator, visual, erase_visual=erase_visual,
-                    erase_visual_half=True, vc_mode=vc_mode,
-                    face_mode=face_mode)
-            else:
-                visual_tokens = self.fully_masked_visual(text.shape[0],
-                                                         text.device)
-        control_emb = self.core.control_embedding(text, visual_tokens)
+        control_emb = self._control(generator, text, visual, erase_visual,
+                                    vc_mode, face_mode)
         ptoks = None
         if preserve is not None:
             ptoks = arrange_preserve_tokens(cfg, preserve, long_mode,
@@ -275,6 +268,47 @@ class MMVIDBert(nn.Module):
         if not decode:
             return None, img_seq
         return self.decode_video(img_seq), img_seq
+
+    def _control(self, generator, text, visual, erase_visual, vc_mode,
+                 face_mode):
+        """The control embedding of the sampling calls: the visual control
+        through :meth:`prepare_visual_tokens` (a fully [MASK] one without
+        ``visual``)."""
+        visual_tokens = None
+        if self.cfg.num_visuals > 0:
+            if visual is not None:
+                visual_tokens = self.prepare_visual_tokens(
+                    generator, visual, erase_visual=erase_visual,
+                    erase_visual_half=True, vc_mode=vc_mode,
+                    face_mode=face_mode)
+            else:
+                visual_tokens = self.fully_masked_visual(text.shape[0],
+                                                         text.device)
+        return self.core.control_embedding(text, visual_tokens)
+
+    @torch.no_grad()
+    def generate_images_debug(self, generator, text, *, visual=None,
+                              erase_visual=False, vc_mode=None,
+                              face_mode=None, mask_predict_steps=0,
+                              mp_config=None):
+        """PNAG debug sampling: the fixed-length trace sampler
+        (:func:`mask_predict_trace`) -> (videos [B, T, H, W, 3], img_seq
+        [B, T*n], step_decodes [S, B, T, H, W, 3], step_keeps [S, B, T*n]
+        bool), one decoded video and keep mask a round.  Each round's
+        frames decode in a call of their own: all S rounds' at once (2560
+        frames at the flagship's batch 16) do not fit on the card, and
+        each frame decodes alone, so the frames are the same."""
+        cfg = self.cfg
+        mp_config = mp_config or DEFAULT_MP_CONFIG
+        pmask, N = preserve_layout(cfg, 'long', 1, False)
+        spec = build_spec(mp_config, N, steps=mask_predict_steps,
+                          dynamic=False)
+        control_emb = self._control(generator, text, visual, erase_visual,
+                                    vc_mode, face_mode)
+        trace, keeps, final = mask_predict_trace(self.core, control_emb,
+                                                 generator, spec, pmask)
+        step_decodes = torch.stack([self.decode_video(t) for t in trace])
+        return step_decodes[-1], final, step_decodes, keeps
 
     @torch.no_grad()
     def decode_video(self, img_seq):

@@ -13,12 +13,15 @@ resamples the re-masked slots.  ``lax.while_loop`` becomes a Python loop.
 * On a CUDA tensor each round's sampling is the fused sample-head kernel
   (``ops/sample_head.py``); ``spec.deterministic`` (a test hook) samples
   by argmax from the full logits instead, as JAX does.
+* ``mask_predict_trace`` (the PNAG debug grid) runs the same rounds at one
+  beam without the dynamic stop and keeps every round's tokens and keep
+  mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,12 +161,16 @@ def chain_beam_updates(Y, I_tok, keep_all, Y_new_all, I_new_all, S_all):
 @torch.no_grad()
 def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
                  preserve_mask: np.ndarray,
-                 preserve_tokens: Optional[torch.Tensor] = None):
+                 preserve_tokens: Optional[torch.Tensor] = None,
+                 trace: Optional[List] = None):
     """Run batched mask-predict.
 
     core: BertCore; control_emb [B, C, D]; generator: torch.Generator on
     control_emb's device; preserve_mask [N_total] static bool;
     preserve_tokens [B, N_total] (read where preserve_mask is True).
+    ``trace``: a list that gets (tokens [B, N_total], keep mask [B,
+    N_total]) after the first pass and after each round (one beam, no
+    dynamic stop: :func:`mask_predict_trace`).
     Returns tokens [B, N_total] int64.
     """
     cfg = core.cfg
@@ -216,6 +223,8 @@ def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
     I_tok = torch.where(pmask[None], preserve_tokens, I_new)
     # preserved slots never resample: pin their confidence high
     Y = torch.where(pmask[None], torch.inf, Y)
+    if trace is not None:
+        trace.append((I_tok, pmask[None].expand(b, -1)))
 
     def beams_round(Y, I_tok, t):
         J = spec.beams
@@ -238,9 +247,9 @@ def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
         Y_new, I_new = sample(head_in, spec.temp_sched[t])
         S_all = ((torch.sigmoid(rel) + torch.sigmoid(vid)) * 0.5
                  ).reshape(J, b)
-        return chain_beam_updates(Y, I_tok, keep_all,
-                                  Y_new.reshape(J, b, -1),
-                                  I_new.reshape(J, b, -1), S_all)
+        return keep_all, chain_beam_updates(
+            Y, I_tok, keep_all, Y_new.reshape(J, b, -1),
+            I_new.reshape(J, b, -1), S_all)
 
     Smax = torch.zeros((b,), dtype=torch.float32, device=dev)
     tmax = torch.zeros((b,), dtype=torch.long, device=dev)
@@ -251,7 +260,7 @@ def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
             active = (t - tmax) <= spec.patience
             if not bool(active.any()):
                 break
-        S_best, Y_best, I_best = beams_round(Y, I_tok, t)
+        keep_all, (S_best, Y_best, I_best) = beams_round(Y, I_tok, t)
         if spec.dynamic:
             Y = torch.where(active[:, None], Y_best, Y)
             I_tok = torch.where(active[:, None], I_best, I_tok)
@@ -261,4 +270,22 @@ def mask_predict(core, control_emb, generator, spec: MaskPredictSpec,
             Imax = torch.where(improved[:, None], I_tok, Imax)
         else:
             Y, I_tok = Y_best, I_best
+        if trace is not None:
+            trace.append((I_tok, keep_all[0]))
     return Imax if spec.dynamic else I_tok
+
+
+def mask_predict_trace(core, control_emb, generator, spec: MaskPredictSpec,
+                       preserve_mask: np.ndarray,
+                       preserve_tokens: Optional[torch.Tensor] = None):
+    """:func:`mask_predict` at one beam, every round run (no dynamic
+    stop), for the PNAG debug grid: returns (tokens_per_step [S, B, N],
+    keep_masks_per_step [S, B, N] bool, final tokens [B, N]), S =
+    ``spec.Tmax``; step 0's keep mask is the preserve mask, a False marks
+    a slot that round re-masked."""
+    steps = []
+    final = mask_predict(core, control_emb, generator,
+                         dataclasses.replace(spec, beams=1, dynamic=False),
+                         preserve_mask, preserve_tokens, trace=steps)
+    return (torch.stack([tok for tok, _ in steps]),
+            torch.stack([keep for _, keep in steps]), final)

@@ -25,14 +25,23 @@ does: ``--eval_metric fvd``, ``prd`` or ``fvd_prd`` through
 the TF-Hub variables; random weights only with
 ``MMVID_ALLOW_RANDOM_I3D=1``), ``clip`` through ``evaluate_clip`` with the
 scorer of ``--openai_clip_model_path``; the artifacts go to
-``<log_root>/<name><suffix>/metrics``.  ``--eval_mode long`` is not ported
-yet (ROADMAP.md queue A, item A3).
+``<log_root>/<name><suffix>/metrics``.  ``--eval_mode long`` (the root
+``test.py``:188-205) samples the first batch as a long video,
+``--long_mode long`` (``--t_repeat`` windows overlapping by
+``--t_overlap`` frames), ``interp`` (``--t_repeat`` - 1 doubling levels)
+or ``interp_real`` (the batch's own clips interpolated), through
+``utils.viz.visualize_long`` into ``<log_root>/<name><suffix>/long``;
+``--save_codebook`` writes the video's VQGAN ids to
+``codebook_long.npy`` beside it.  An ART-V checkpoint takes the mode's
+calls and ignores their preserved frames, as JAX's ``generate_images``
+does (``**unused``): every window is a fresh sample.
 
 A checkpoint of a fixed-LM model (``--fixed_language_model roberta-large``,
 the text_augment recipe) samples from its captions' RoBERTa features
 (``factories.get_fixed_language_model``, weights from ``ROBERTA_PATH``);
-``--eval_mode eval`` raises for it, since JAX's evaluation never builds
-the language model (ROADMAP.md queue A, item A9).
+``--eval_mode eval`` and ``long`` raise for it, since JAX's evaluation and
+long videos feed text ids and never build the language model (ROADMAP.md
+queue A, item A9).
 """
 
 from __future__ import annotations
@@ -51,8 +60,9 @@ def main(argv=None):
 
 def main_worker(args):
     """Sample as ``args`` say; returns the samples directory and the
-    seconds ``visualize_train`` took (``{'sample_dir', 'sample_s'}``), or
-    with ``--eval_mode eval`` the metrics (:func:`run_eval`)."""
+    seconds ``visualize_train`` took (``{'sample_dir', 'sample_s'}``),
+    with ``--eval_mode eval`` the metrics (:func:`run_eval`), with
+    ``--eval_mode long`` :func:`run_long`'s record."""
     from mmvid_tpu_torch import factories
     from mmvid_tpu_torch.data.loader import DataLoader, infinite_batches
     from mmvid_tpu_torch.generate import HPARAM_KEYS
@@ -75,10 +85,6 @@ def main_worker(args):
             'accepts all speculative drafts — outputs would be garbage. '
             'Unset it, or pass --bench_unsafe if you really are '
             'benchmarking through this CLI.')
-    if args.eval_mode == 'long':
-        raise NotImplementedError(
-            '--eval_mode long is not ported yet (ROADMAP.md queue A, item '
-            'A3)')
     refuse_multi_device(args)
     device = resolve_device(args.device)
 
@@ -102,11 +108,12 @@ def main_worker(args):
     for k in HPARAM_KEYS:
         if hparams.get(k) is not None:
             setattr(args, k, hparams[k])
-    if args.fixed_language_model is not None and args.eval_mode == 'eval':
+    if (args.fixed_language_model is not None
+            and args.eval_mode in ('eval', 'long')):
         raise NotImplementedError(
-            '--eval_mode eval of a fixed-LM model: JAX\'s evaluation feeds '
-            'text ids and never builds the language model (ROADMAP.md '
-            'queue A, item A9)')
+            f'--eval_mode {args.eval_mode} of a fixed-LM model: JAX\'s '
+            'evaluation and long videos feed text ids and never build the '
+            'language model (ROADMAP.md queue A, item A9)')
     if args.spec:
         if not args.ar:
             raise SystemExit('--spec requires --ar (speculative decode '
@@ -161,6 +168,8 @@ def main_worker(args):
         if args.eval_mode == 'eval':
             return run_eval(args, model, tokenizer,
                             infinite_batches(loader), device)
+        if args.eval_mode == 'long':
+            return run_long(args, model, tokenizer, loader, device, log_dir)
         return _visualize(args, model, tokenizer, loader, device, log_dir,
                           encode)
     finally:
@@ -170,21 +179,55 @@ def main_worker(args):
             os.environ['MMVID_ARTV_SPEC'] = flag
 
 
-def _visualize(args, model, tokenizer, loader, device, log_dir,
-               encode=None):
-    """The sampling grids of the first batch (reference visualize_test);
-    ``encode``: the fixed language model's, whose features of the
-    captions are the text."""
+def _first_batch(args, tokenizer, loader):
+    """The loader's first batch, with ``--description`` as every caption
+    if given."""
     from mmvid_tpu_torch.data.loader import infinite_batches
-    from mmvid_tpu_torch.train import VIZ_SALT, step_generator
-    from mmvid_tpu_torch.utils.viz import visualize_train
-
     batch = next(infinite_batches(loader))
     if args.description is not None:
         batch['text'] = tokenizer.tokenize(
             [args.description] * args.batch_size, args.text_seq_len,
             truncate_text=True)
         batch['description'] = [args.description] * args.batch_size
+    return batch
+
+
+def run_long(args, model, tokenizer, loader, device, log_dir):
+    """``--eval_mode long`` as the root ``test.py`` runs it (:188-205): the
+    first batch through ``visualize_long`` at the first
+    ``--mask_predict_steps``; with ``--save_codebook`` the video's ids
+    (``model.get_image_tokens``) in ``codebook_long.npy``.  Returns
+    ``{'long_dir', 'video' [B, F, H, W, 3] on the host, 'long_s'}``, the
+    seconds ``visualize_long`` took."""
+    from mmvid_tpu_torch.train import VIZ_SALT, step_generator
+    from mmvid_tpu_torch.utils.viz import video_tokens, visualize_long
+
+    batch = _first_batch(args, tokenizer, loader)
+    out_dir = str(log_dir / 'long')
+    t = time.perf_counter()
+    video = visualize_long(
+        model, batch, step_generator(args.seed, 0, VIZ_SALT, device),
+        out_dir, long_mode=args.long_mode, t_repeat=args.t_repeat,
+        t_overlap=args.t_overlap,
+        mask_predict_steps=args.mask_predict_steps[0],
+        mp_config=args.mp_config)
+    long_s = time.perf_counter() - t
+    if args.save_codebook:
+        np.save(str(log_dir / 'codebook_long.npy'),
+                video_tokens(model, video).cpu().numpy())
+    print(f'wrote {video.shape[1]}-frame videos to {out_dir}')
+    return {'long_dir': out_dir, 'video': video, 'long_s': long_s}
+
+
+def _visualize(args, model, tokenizer, loader, device, log_dir,
+               encode=None):
+    """The sampling grids of the first batch (reference visualize_test);
+    ``encode``: the fixed language model's, whose features of the
+    captions are the text."""
+    from mmvid_tpu_torch.train import VIZ_SALT, step_generator
+    from mmvid_tpu_torch.utils.viz import visualize_train
+
+    batch = _first_batch(args, tokenizer, loader)
     if encode is not None:
         batch['text'] = encode(batch['description'])
     webpage = None

@@ -1,13 +1,22 @@
-"""Sample visualization (reference utils/utils_train.py:391-1217).
+"""Sample visualization (reference utils/utils_train.py:391-1654).
 
-The port's copy of ``render_visual_prompt`` and ``visualize_train`` from
-``mmvid_tpu/utils/viz.py``: per-sample grids (real / reconstruction / N
-generated variants / counterfactual-control samples) as PNGs + a caption
-txt, and optional HTML rows.  Where JAX splits a key before each sampling
-call, the port passes one ``torch.Generator`` through the calls in the
-same order.  ``save_pnag_debug_grid`` (``--debug``), ``test_mode='shapes'``
-and the long / interp / interp_real modes are not ported yet
-(ROADMAP.md).
+The port's copy of ``mmvid_tpu/utils/viz.py``: per-sample grids (real /
+reconstruction / N generated variants / counterfactual-control samples)
+as PNGs + a caption txt, and optional HTML rows; the PNAG debug grids
+(``debug``), the shapes recipe's per-slot rows (``test_mode='shapes'``);
+and the three long-video modes:
+
+* ``long``   - sliding-window extrapolation preserving the last t_overlap
+  frames' tokens per chunk (utils_train.py:1337-1373)
+* ``interp`` - hierarchical binary interpolation, alternate frames
+  preserved, doubling length per level (utils_train.py:1374-1431)
+* ``interp_real`` - interpolate a real video's tokens (:1433-1527)
+
+Where JAX splits a key before each sampling call, the port passes one
+``torch.Generator`` through the calls in the same order.  The VQGAN
+decodes and encodes the long videos ``FRAME_CHUNK`` frames a call: each
+frame is independent, so the frames are those of one call, and one call
+over thousands of frames does not fit on the card.
 """
 
 from __future__ import annotations
@@ -82,6 +91,51 @@ def _host(x) -> np.ndarray:
     return x.float().cpu().numpy()
 
 
+# frames a VQGAN call takes in the long modes: one batch of 16
+# eight-frame clips
+FRAME_CHUNK = 128
+
+
+def decode_frames(model, ids) -> np.ndarray:
+    """ids [F, n] -> frames [F, H, W, 3] in [0, 1] on the host."""
+    return np.concatenate([_host(model.vae.decode(c))
+                           for c in ids.split(FRAME_CHUNK)])
+
+
+def video_tokens(model, video) -> torch.Tensor:
+    """``model.get_image_tokens`` of video [B, F, H, W, 3] in [0, 1] (host
+    or device) -> ids [B, F*n] on the model's device."""
+    dev = next(model.parameters()).device
+    video = torch.as_tensor(np.asarray(video), dtype=torch.float32)
+    b = video.shape[0]
+    flat = video.reshape((-1,) + video.shape[2:])
+    toks = torch.cat([model.get_image_tokens(c.to(dev))
+                      for c in flat.split(FRAME_CHUNK)])
+    return toks.reshape(b, -1)
+
+
+def save_pnag_debug_grid(model, path: str, real_frames: np.ndarray,
+                         step_decodes: np.ndarray, step_keeps: np.ndarray):
+    """The reference's debug grid (utils_train.py:578-590 +
+    dalle_bert.py:694-700): row 0 = real frames, then per refinement step a
+    'masked input' row (previous decode blended with the re-mask overlay at
+    0.7/0.4) and the step's decode row.  real_frames/step_decodes in [0,1];
+    step_keeps [S, T*n] bool for ONE sample."""
+    cfg = model.cfg
+    n = cfg.image_fmap_size
+    scale = cfg.image_size // n
+    rows = [tile_video_row(real_frames), tile_video_row(step_decodes[0])]
+    for s in range(1, step_decodes.shape[0]):
+        remask = (~step_keeps[s]).reshape(cfg.num_targets, n, n)
+        overlay = np.kron(remask.astype(np.float32),
+                          np.ones((scale, scale), np.float32))[..., None]
+        masked_img = np.clip(step_decodes[s - 1] * 0.7 + overlay * 0.4,
+                             0, 1)
+        rows.append(tile_video_row(masked_img))
+        rows.append(tile_video_row(step_decodes[s]))
+    save_image_array(path, tile_grid(rows))
+
+
 @torch.no_grad()
 def visualize_train(model, batch: Dict, generator: torch.Generator,
                     out_dir: str, iteration: int, *,
@@ -105,15 +159,15 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
     With a visual control the grid rows lead with the control frames,
     occluded per vc_mode/rand_visual so the viewer sees what the model saw
     (render_visual_prompt, reference utils_train.py:456-520); the chosen
-    face_mode drives the matching token corruption.  ``debug`` and
-    ``test_mode='shapes'`` raise NotImplementedError (ROADMAP.md)."""
-    if debug:
-        raise NotImplementedError('--debug step grids '
-                                  '(save_pnag_debug_grid) are not ported '
-                                  'yet: ROADMAP.md queue A')
-    if test_mode == 'shapes':
-        raise NotImplementedError("test_mode='shapes' is not ported yet: "
-                                  'ROADMAP.md queue A')
+    face_mode drives the matching token corruption.  debug=True
+    additionally writes per-step PNAG grids to <out_dir>/<iter>_pnag/
+    (reference --debug, utils_train.py:578-590).
+
+    test_mode='shapes' (the shapes evaluation recipe, reference
+    utils_train.py:1160-1196, gated at :1030): for each of the 3 visual
+    control slots, swap ONLY that slot with the loader-provided negative
+    (batch['visual_neg']) and render a per-slot counterfactual row
+    sampled at mask_predict_steps1."""
     os.makedirs(out_dir, exist_ok=True)
     dev = next(model.parameters()).device
     text = torch.as_tensor(batch['text'], device=dev)
@@ -141,6 +195,7 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
     captions = batch.get('description', [''] * text.shape[0])
 
     recon = _host(model.recon_images(target))
+    target_h = _host(target)
     prompt = visual_recon = None
     face_mode = None
     if visual is not None:
@@ -154,6 +209,18 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
             mask_predict_steps=steps_list[j % len(steps_list)],
             dynamic=True, mp_config=mp_config)
         rows.append((_host(videos), prompt))
+
+    if debug:
+        pnag_dir = os.path.join(out_dir, f'{iteration:07d}_pnag')
+        os.makedirs(pnag_dir, exist_ok=True)
+        _, _, step_decodes, step_keeps = model.generate_images_debug(
+            generator, text, visual=visual, erase_visual=rand_visual,
+            vc_mode=vc_mode, face_mode=face_mode,
+            mask_predict_steps=steps_list[0], mp_config=mp_config)
+        for i in range(text.shape[0]):
+            save_pnag_debug_grid(
+                model, os.path.join(pnag_dir, f'{i:02d}.png'), target_h[i],
+                _host(step_decodes[:, i]), step_keeps[:, i].cpu().numpy())
 
     if counterfactual and visual is not None:
         # counterfactual: the NEIGHBOUR sample's control
@@ -173,12 +240,30 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
             mp_config=mp_config)
         rows.append((_host(videos), None))
 
+    if (test_mode == 'shapes' and visual is not None
+            and batch.get('visual_neg') is not None):
+        # reference utils_train.py:1160-1196: swap each of the 3 control
+        # slots with its loader-provided negative, one row per slot
+        visual_neg = torch.as_tensor(np.asarray(batch['visual_neg']),
+                                     dtype=torch.float32,
+                                     device=dev)[:visual.shape[0]]
+        for kk in range(min(3, visual.shape[1])):
+            cf_visual = visual.clone()
+            cf_visual[:, kk] = visual_neg[:, kk]
+            cf_prompt, cf_face = render_visual_prompt(
+                _host(cf_visual), vc_mode=vc_mode, rand_visual=rand_visual)
+            videos, _ = model.generate_images(
+                generator, text, visual=cf_visual, vc_mode=vc_mode,
+                face_mode=cf_face, erase_visual=rand_visual,
+                mask_predict_steps=mask_predict_steps1, dynamic=True,
+                mp_config=mp_config)
+            rows.append((_host(videos), cf_prompt))
+
     def _row(i, frames, vis):
         if vis is None:
             return tile_video_row(frames)
         return tile_video_row(np.concatenate([vis[i], frames], axis=0))
 
-    target_h = _host(target)
     visual_h = _host(visual) if visual is not None else None
     for i in range(text.shape[0]):
         grid_rows = [_row(i, target_h[i], visual_h),
@@ -197,3 +282,168 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
     if webpage is not None:
         webpage.add_header(f'iteration {iteration}')
         webpage.save()
+
+
+def generate_long_video(model, generator, text, visual=None, *,
+                        t_repeat: int = 10, t_overlap: int = 1,
+                        mask_predict_steps: int = 0, mp_config=None):
+    """Sliding-window extrapolation (utils_train.py:1337-1373): each chunk
+    preserves the previous chunk's last t_overlap frames' tokens and appends
+    the novel tail.  Returns [B, T + (t_repeat-1)(T-t_overlap), H, W, 3]
+    on the host."""
+    videos, seq = model.generate_images(
+        generator, text, visual=visual,
+        mask_predict_steps=mask_predict_steps, dynamic=False,
+        mp_config=mp_config)
+    chunks = [_host(videos)]
+    for _ in range(1, t_repeat):
+        videos, seq = model.generate_images(
+            generator, text, visual=visual,
+            mask_predict_steps=mask_predict_steps, dynamic=False,
+            preserve=seq, t_overlap=t_overlap, long_mode='long',
+            mp_config=mp_config)
+        chunks.append(_host(videos)[:, t_overlap:])
+    return np.concatenate(chunks, axis=1)
+
+
+def generate_interpolated_video(model, generator, text, visual=None, *,
+                                levels: int = 1, mask_predict_steps: int = 0,
+                                mp_config=None):
+    """Hierarchical binary interpolation (utils_train.py:1374-1431):
+    each level doubles temporal density — the source frames are preserved
+    at the even slots of a num_targets-frame window and the odd slots are
+    re-sampled.  Returns [B, T * 2^levels, H, W, 3] on the host."""
+    cfg = model.cfg
+    t = cfg.num_targets
+    n_tok = cfg.image_seq_len
+    b = text.shape[0]
+    _, seq = model.generate_images(
+        generator, text, visual=visual,
+        mask_predict_steps=mask_predict_steps, dynamic=False,
+        mp_config=mp_config, decode=False)
+
+    for _ in range(levels):
+        s = seq.shape[1] // n_tok           # current frame count
+        if s % (t // 2):
+            raise ValueError(f'interp needs a frame count ({s}) divisible '
+                             f'by num_targets/2 ({t // 2})')
+        grid = seq.reshape(b, s, n_tok)
+        windows = []
+        for w in range(s // (t // 2)):
+            src = grid[:, w * (t // 2):(w + 1) * (t // 2)]
+            # the preserve layout reads the FIRST T/2 frames of the buffer
+            # and pins them at even slots (sampler.arrange_preserve_tokens)
+            src_full = torch.cat([src, torch.zeros_like(src)],
+                                 dim=1).reshape(b, -1)
+            _, out = model.generate_images(
+                generator, text, visual=visual,
+                mask_predict_steps=mask_predict_steps, dynamic=False,
+                preserve=src_full, long_mode='interp',
+                mp_config=mp_config, decode=False)
+            windows.append(out)
+        seq = torch.cat(windows, dim=1)
+
+    total = seq.shape[1] // n_tok
+    frames = decode_frames(model, seq.reshape(b * total, n_tok))
+    return frames.reshape((b, total) + frames.shape[1:])
+
+
+def generate_interp_real_video(model, generator, text, source_tokens,
+                               visual=None, *, t_repeat: int = 2,
+                               mask_predict_steps: int = 0, mp_config=None):
+    """Interpolate a REAL video's tokens (utils_train.py:1433-1527).
+
+    Unlike plain interp's disjoint windows, interp_real slides a window of
+    T/2 source frames with stride T/4 (overlapping), generates T frames per
+    window (sources preserved at even slots), keeps the first T/2 output
+    frames per window (the last window keeps T-1), and repeats per level.
+    Level t length: last_tt*T/2 + T - 1 where
+    last_tt = (curr_len - T/2) // (T/4).  Returns [B, final_len, H, W, 3]
+    on the host.
+    """
+    cfg = model.cfg
+    t_full = cfg.num_targets
+    n_tok = cfg.image_seq_len
+    if t_full % 4:
+        raise ValueError('interp_real needs num_targets divisible by 4, '
+                         f'not {t_full}')
+    b = text.shape[0]
+    grid = source_tokens.reshape(b, -1, n_tok)
+
+    for _level in range(1, t_repeat):
+        curr_len = grid.shape[1]
+        if curr_len < t_full // 2:
+            raise ValueError(f'interp_real needs at least {t_full // 2} '
+                             f'source frames, not {curr_len}')
+        last_tt = (curr_len - t_full // 2) // (t_full // 4)
+        outs = []
+        for tt in range(last_tt + 1):
+            lo = (t_full // 4) * tt
+            src = grid[:, lo:lo + t_full // 2]
+            src_full = torch.cat([src, torch.zeros_like(src)],
+                                 dim=1).reshape(b, -1)
+            _, out = model.generate_images(
+                generator, text, visual=visual,
+                mask_predict_steps=mask_predict_steps, dynamic=False,
+                preserve=src_full, long_mode='interp_real',
+                mp_config=mp_config, decode=False)
+            out_grid = out.reshape(b, t_full, n_tok)
+            keep = (out_grid[:, :t_full - 1] if tt == last_tt
+                    else out_grid[:, :t_full // 2])
+            outs.append(keep)
+        grid = torch.cat(outs, dim=1)
+
+    total = grid.shape[1]
+    frames = decode_frames(model, grid.reshape(b * total, n_tok))
+    return frames.reshape((b, total) + frames.shape[1:])
+
+
+@torch.no_grad()
+def visualize_long(model, batch: Dict, generator: torch.Generator,
+                   out_dir: str, *, long_mode: str = 'long',
+                   t_repeat: int = 10, t_overlap: int = 1,
+                   mask_predict_steps: int = 0, mp_config=None,
+                   webpage: Optional[HTML] = None) -> np.ndarray:
+    """Driver for the three long-video modes (utils_train.py:1220-1654):
+    writes ``long_{i}.png`` (the frames in a row) for each sample, and the
+    page's rows when ``webpage`` is given; returns the videos [B, F, H, W,
+    3] on the host."""
+    os.makedirs(out_dir, exist_ok=True)
+    dev = next(model.parameters()).device
+    text = torch.as_tensor(np.asarray(batch['text']), device=dev).long()
+    visual = (torch.as_tensor(np.asarray(batch['visual']),
+                              dtype=torch.float32, device=dev)
+              if batch.get('visual') is not None
+              and model.cfg.num_visuals > 0 else None)
+
+    if long_mode == 'long':
+        video = generate_long_video(
+            model, generator, text, visual, t_repeat=t_repeat,
+            t_overlap=t_overlap, mask_predict_steps=mask_predict_steps,
+            mp_config=mp_config)
+    elif long_mode == 'interp':
+        # reference runs t_repeat levels where level 0 is the base
+        # generation, so t_repeat-1 doubling passes (utils_train.py:1374)
+        video = generate_interpolated_video(
+            model, generator, text, visual, levels=max(t_repeat - 1, 1),
+            mask_predict_steps=mask_predict_steps, mp_config=mp_config)
+    elif long_mode == 'interp_real':
+        source = model.get_image_tokens(torch.as_tensor(
+            np.asarray(batch['target']), dtype=torch.float32, device=dev))
+        video = generate_interp_real_video(
+            model, generator, text, source, visual,
+            t_repeat=max(t_repeat, 2),
+            mask_predict_steps=mask_predict_steps, mp_config=mp_config)
+    else:
+        raise NotImplementedError(long_mode)
+
+    captions = batch.get('description', [''] * len(video))
+    for i in range(video.shape[0]):
+        save_image_array(os.path.join(out_dir, f'long_{i}.png'),
+                         tile_video_row(video[i]))
+        if webpage is not None:
+            name = webpage.save_media(f'long_{i}.gif', video[i])
+            webpage.add_media_row([(name, captions[i])])
+    if webpage is not None:
+        webpage.save()
+    return video

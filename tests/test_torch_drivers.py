@@ -321,17 +321,22 @@ def test_test_driver_samples_latest_checkpoint(run, data_tree):
     _grids(out['sample_dir'])
 
 
-def test_test_driver_refusals(run, data_tree):
+def test_test_driver_refusals(run, data_tree, text_augment_run,
+                              roberta_dir, monkeypatch):
     """--spec on a mask-predict checkpoint (its hparams say ar False, as
-    they override --ar in JAX), an eval mode not ported."""
+    they override --ar in JAX); --eval_mode long of a fixed-LM checkpoint
+    (JAX's long videos feed text ids and never build the LM, ROADMAP
+    A9)."""
     logs, _ = run
     with pytest.raises(SystemExit, match='requires --ar'):
         ptest.main_worker(_test_args(data_tree, logs, 'tiny',
                                      ['--spec', '4']))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ptest.main_worker(_test_args(data_tree, logs, 'tiny',
-                                     ['--eval_mode', 'long']))
     assert 'MMVID_ARTV_SPEC' not in os.environ
+    lm_logs, lm_run, _ = text_augment_run
+    monkeypatch.setenv('ROBERTA_PATH', roberta_dir)
+    with pytest.raises(NotImplementedError, match='long of a fixed-LM'):
+        ptest.main_worker(_test_args(data_tree, lm_logs, 'x', [
+            '--dalle_path', str(lm_run), '--eval_mode', 'long']))
 
 
 @pytest.fixture(scope='module')

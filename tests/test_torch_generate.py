@@ -300,6 +300,45 @@ def test_generate_main_writes_pngs(tmp_path, vae_in_dalle):
     assert Image.open(pngs[0]).size == (2 * 32, 32)   # 2 frames in a row
 
 
+def test_checkpoint_vqgan_takes_precedence_over_vae_path(tmp_path):
+    """A dalle.pt that holds its own VQGAN, given a different
+    ``--vae_path``, decodes with the checkpoint's, as the root
+    ``generate.py`` does (its ``get_vae_model`` loads the file, then the
+    checkpoint's VQGAN replaces it); ``--cvae_path`` parses and, as there,
+    changes nothing."""
+    hparams = {'dim': 64, 'text_seq_len': 12, 'num_targets': 2,
+               'num_visuals': 0, 'image_size': 32,
+               'which_transformer': 'custom:64:2:2'}
+    args = SimpleNamespace(**hparams, insert_sep=False,
+                           use_separate_visual_emb=False,
+                           fixed_language_model=None,
+                           text_emb_bottleneck=None)
+    model = factories.get_dalle(
+        args, factories.get_vae_model(args, device='cpu'), device='cpu')
+    factories.init_weights(model, torch.Generator().manual_seed(0))
+    torch.save({'iter': 1, 'hparams': hparams,
+                'weights': model.state_dict()}, tmp_path / 'dalle.pt')
+    other = factories.get_vae_model(args, device='cpu')
+    factories.init_weights(other, torch.Generator().manual_seed(1))
+    torch.save({'state_dict': other.model.state_dict()},
+               tmp_path / 'vae.ckpt')
+    base = ['--dalle_path', str(tmp_path / 'dalle.pt'), '--device', 'cpu',
+            '--no-bf16']
+    loaded, _ = generate.load_model(generate.parse_args(base + [
+        '--vae_path', str(tmp_path / 'vae.ckpt'),
+        '--cvae_path', str(tmp_path / 'absent.ckpt')]))
+    alone, _ = generate.load_model(generate.parse_args(base))
+    assert loaded.cvae is None
+    want = model.vae.model.state_dict()
+    for k, v in loaded.vae.model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    assert not torch.equal(other.model.decoder.conv_in.weight,
+                           want['decoder.conv_in.weight'])
+    ids = torch.randint(0, 1024, (2, loaded.cfg.image_seq_len),
+                        generator=torch.Generator().manual_seed(2))
+    assert torch.equal(loaded.vae.decode(ids), alone.vae.decode(ids))
+
+
 def test_generate_main_artv_checkpoint(tmp_path):
     """A dalle.pt whose hparams say ``ar`` loads as ART-V (one visual
     block of pad ids, as get_dalle raises num_visuals to 1) and writes
