@@ -58,11 +58,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the fp32 mask alone; two launches a call; timed with the compact mask
    and with the fp32 mask, beside its plain version (and SDPA's bf16
    time, as context only).
-   Then attention's backward (``FusedAttention``: the kernel's forward,
-   the fp32 recompute of JAX's XLA VJP in torch ops) against autograd
-   through the plain version, B16 H12 D64 at L 565 and 629, mask_prev and
-   causal, fp32 and bf16, on the packed views (ATTN_BWD_TOL); timed beside
-   ``F.scaled_dot_product_attention``'s forward and backward.
+   Then attention's backward kernels (bf16 on wgmma, fp32 on the CUDA
+   cores; ``FusedAttention``: the forward kernel with its row statistics,
+   then the backward kernels) at B16 H12 D64, L 565 and 629 mask_prev and
+   causal, L 626 causal, L 516, B48 L 565 bf16 and the tiny D32, on the
+   packed views: through autograd against the plain version, the kernels
+   alone against ``attention_backward`` (ATTN_BWD_TOL), two calls
+   bitwise equal; timed beside the plain version and, at L 565 / 629 and
+   B48, ``F.scaled_dot_product_attention``'s forward and backward in the
+   same dtype.
 4. sample-head kernels vs their plain version: exact at temp 0 for Y
    given the chosen token (bf16 W and a genuinely fp32 W), token
    histograms in distribution (TV bounds); at temp 1 every route against
@@ -102,7 +106,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    baseline's (chi^2 and TV, 800 lanes, CUDA generators); then the tiny
    training builds (flagship 3 steps, ART-V 1) on the card and on the CPU
    from the same weights, batch and draws, TF32 off: ids, losses and
-   parameters agree, launch counts a step exact.
+   parameters agree, launch counts a step exact (the attention backward
+   kernels once a backward call), the backward kernels on each step's
+   own inputs against their plain version.
 10. flagship path: 6 prompts at batch 4, launch counts, output checks,
     determinism by seed; then ``breakdown.measure`` of a batch of 16;
     then the flagship in fp32, the released recipes' precision: one batch
@@ -142,9 +148,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 16. training at full width, batch 16: the flagship's step through
     ``breakdown.measure_train`` (every loss finite; launches a step
     exact: attention 72, nearest code 2, and 36 calls of attention's
-    backward; the VQGAN unchanged), then 8 steps on a fixed batch with
-    fixed draws at a constant lr (the loss falls); then one ART-V step
-    (attention 12, nearest code 1, backward 12).
+    backward, each one launch of its kernels, held against their plain
+    version on the step's own inputs; the VQGAN unchanged), then 8 steps
+    on a fixed batch with fixed draws at a constant lr (the loss falls);
+    then one ART-V step (attention 12, nearest code 1, backward 12).
 17. evaluation at full width: the flagship (bf16, 20 rounds) at batch
     16 through ``eval.evaluate.evaluate`` over 64 samples, random I3D
     (MMVID_ALLOW_RANDOM_I3D=1): launch counts exact, embeddings finite,
@@ -160,9 +167,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
     type, a random VQGAN checkpoint as ``--vae_path``; ``--auto_resume``
     to 8 under the profiler; 3 steps of ``text_and_mask/train.sh``'s
     flags (vox, a cvae): finite losses, the resumed start, the VQGAN
-    unchanged, the files written, attention's backward calls exact, the
-    kernels launched; step ms, loader wait, idle share, save seconds and
-    bytes, peak memory.
+    unchanged, the files written, attention's backward calls and kernel
+    launches exact (the kernels on the run's own inputs against their
+    plain version), the kernels launched; step ms, loader wait, idle
+    share, save seconds and bytes, peak memory.
 19. the test driver (``mmvid_tpu_torch.test.main_worker``) on
     ``text_to_video/test.sh``'s flags, sampling the training run's latest
     checkpoint: videos finite in [0, 1], the grid written, the kernels
@@ -317,14 +325,30 @@ DECODE_DEEP_TOL_B64 = 7.5e-2
 # grid-step probe vs plain, fp32 outputs of bf16 products summed in
 # another order
 PROBE_TOL = 1e-4
-# attention's backward (FusedAttention, the kernel's forward and
-# attention_backward's fp32 recompute) vs autograd through
-# attention_reference on the same packed views: |got - want| <= tol * (1 +
-# |want|) elementwise.  Both compute the same fp32 products in another
-# order; bf16 gradients are rounded from them, so a last-bit difference
-# can flip one rounding (one bf16 ulp, 2^-8 relative).  On the H100 at
-# this script's shapes and seeds: at most 4.0e-7 in fp32, 2.6e-3 in bf16
+# attention's backward (FusedAttention: the forward kernel, then the
+# backward kernels) vs autograd through attention_reference on the same
+# packed views, and the backward kernels vs attention_backward:
+# |got - want| <= tol * (1 + |want|) elementwise.  Both compute the same
+# fp32 function in another order; bf16 gradients are rounded from it, so a
+# last-bit difference can flip one rounding (one bf16 ulp, 2^-8
+# relative).  On the H100 at this script's shapes and seeds, the kernels:
+# at most 2.7e-6 in fp32, 5.1e-3 in bf16 (a flip at |x| in [2, 4)); the
+# training runs' captured calls, their cotangents at unit RMS, 3.5e-5
+# (text_augment's fp32 step) and 6.2e-3 (the driver's, which vary from
+# run to run)
 ATTN_BWD_TOL = {'float32': 1e-4, 'bfloat16': 1e-2}
+# attention's backward kernels vs attention_backward, normwise: for each
+# of dq, dk, dv, ||got - want|| / ||want|| within this, beside
+# ATTN_BWD_TOL's elementwise check (which is absolute where |want| is
+# small, and in bf16 allows a quarter of a typical |dq| at B16 L565).
+# Rounding the same fp32 value to bf16 twice differs by at most one ulp,
+# 2^-7 of |x|, on the elements where a last-bit difference flips it; a
+# systematic error of a percent or more is beyond this limit
+# (phase_attention_backward's planted faults must fail the two checks).  On the
+# H100 at this script's shapes and seeds, the training runs' captured
+# calls included: at most 2.7e-6 in fp32 (text_augment's step), 2.6e-4
+# in bf16; the fault dq 2^-6 too large reads 1.55e-2
+ATTN_BWD_NORM_TOL = {'float32': 1e-5, 'bfloat16': 2e-3}
 # the tiny fp32 training steps on the card vs the CPU, TF32 off: every
 # parameter within this after 3 Adam steps, except the key projection's
 # bias, whose gradient is exactly 0 (softmax cancels a constant added to
@@ -405,6 +429,14 @@ def reset_counts():
     for mod in KERNELS.values():
         mod.launches = 0
     KERNELS['attention'].backward_calls = 0
+    KERNELS['attention'].backward_launches = 0
+
+
+def backward_launches() -> int:
+    """The attention backward kernels' launches since the last reset (one
+    a backward call on the card)."""
+    from mmvid_tpu_torch.breakdown import KERNELS
+    return KERNELS['attention'].backward_launches
 
 
 def read_counts():
@@ -733,103 +765,202 @@ def _packed_grads(fn, qkv, cot, mask):
     return torch.autograd.grad(fn(q, k, v, mask), x, cot)[0]
 
 
+# attention's backward kernels' shapes in phase_attention_backward: (B, L,
+# H, D, mask kind, mask_prev rows, dtypes): the flagship's L565 and
+# text+mask's L629 (mask_prev and causal), ART-V's causal L626,
+# text_augment's L516 (fp32, its recipe's precision, and bf16), the
+# training driver's batch 48 (bf16, --bf16), the tiny models' D32
+ATTN_BWD_SHAPES = (
+    (16, 565, 12, 64, 'mask_prev', (51, 52), ('float32', 'bfloat16')),
+    (16, 629, 12, 64, 'mask_prev', (115, 116), ('float32', 'bfloat16')),
+    (16, 565, 12, 64, 'causal', None, ('float32', 'bfloat16')),
+    (16, 629, 12, 64, 'causal', None, ('float32', 'bfloat16')),
+    (16, 626, 12, 64, 'causal', None, ('float32', 'bfloat16')),
+    (16, 516, 12, 64, 'mask_prev', (2, 3), ('float32', 'bfloat16')),
+    (48, 565, 12, 64, 'mask_prev', (51, 52), ('bfloat16',)),
+    (3, 139, 2, 32, 'mask_prev', (9, 10), ('float32', 'bfloat16')))
+# the shapes timed beside SDPA's forward and backward (the others: the
+# kernel and the plain version)
+ATTN_BWD_SDPA_SHAPES = ((16, 565), (16, 629), (48, 565))
+
+
+def attention_backward_bound(b, l, h, d, dtype):
+    """(bound ms, what bounds it, the bf16 kernel's own products' bound)
+    of one backward call: the bytes of q, k, v, the cotangent, the
+    forward's output (and its rest in bf16) read once, the mask and the
+    row statistics, dq, dk, dv written once; the operations the function
+    needs, the five products' 10 B H L^2 D, at the peak of the inputs'
+    type (fp32 or bf16), as the forward's bound counts its four.  The
+    third value counts, for bf16, the three more products of the kernel's
+    hi/lo split (P and dS against their partner twice), 16 B H L^2 D, at
+    the bf16 peak; None for fp32."""
+    bf16 = dtype == 'bfloat16'
+    item = 2 if bf16 else 4
+    tensors = 9 if bf16 else 8
+    nbytes = tensors * b * l * h * d * item + l * l * 4 + b * h * l * 4
+    bms, by = bound(nbytes, 10 * b * h * l * l * d, 'bf16' if bf16 else
+                    'fp32')
+    split = bound(nbytes, 16 * b * h * l * l * d, 'bf16')[0] if bf16 else None
+    return bms, by, split
+
+
+def _bwd_errors(got, want) -> tuple:
+    """(max |got - want| / (1 + |want|), the largest of ||got - want|| /
+    ||want||) over a tuple of gradients."""
+    rel = max(((x.float() - w.float()).abs() / (1 + w.float().abs())
+               ).max().item() for x, w in zip(got, want))
+    norm = max(((x.float() - w.float()).norm()
+                / w.float().norm().clamp_min(1e-30)).item()
+               for x, w in zip(got, want))
+    return rel, norm
+
+
+def _bwd_ok(rel, norm, dtype) -> bool:
+    return rel <= ATTN_BWD_TOL[dtype] and norm <= ATTN_BWD_NORM_TOL[dtype]
+
+
+def _unit_rms(g):
+    """The cotangent g rescaled to a root mean square of 1 (in g's dtype):
+    the backward is linear in g, so this holds a training step's tiny
+    cotangents at the scale ATTN_BWD_TOL was read at."""
+    rms = g.float().pow(2).mean().sqrt()
+    return (g.float() / rms).to(g.dtype) if rms > 0 else g
+
+
 def phase_attention_backward():
-    """Attention's backward (``ops.attention.FusedAttention``: the
-    kernel's forward, then the fp32 recompute of JAX's XLA VJP in torch
-    ops) against autograd through ``attention_reference`` on the card, on
-    the packed strided q, k, v views: B16 H12 D64 at L565 and L629 (the
-    flagship's and text+mask's), mask_prev and causal, fp32 and bf16,
-    within ATTN_BWD_TOL.  Times, on the flagship's training shape (bf16,
-    L565 mask_prev): the backward alone, the kernel's forward, the plain
-    forward and backward, and ``F.scaled_dot_product_attention``'s
-    forward and backward on the same float mask; the backward's bound:
-    the larger of its bytes over the memory rate and its fp32 operations
-    (10 B H L^2 D, the recompute's products) over the fp32 peak, and the
-    bf16 peak's beside it."""
+    """Attention's backward on the card: the kernels of both routes (bf16
+    on wgmma, csrc/attention_bwd_sm90.cu; fp32 on the CUDA cores,
+    csrc/attention_bwd_fp32_sm90.cu) at ATTN_BWD_SHAPES, on the packed
+    strided q, k, v views: through ``FusedAttention`` (the forward kernel
+    with its statistics, then the backward kernels once) against autograd
+    through ``attention_reference``, d qkv within ATTN_BWD_TOL; the
+    kernels alone (``attention_backward_kernel``) against their plain
+    version ``attention_backward`` on the same inputs within ATTN_BWD_TOL,
+    two calls equal bit for bit.  Times each route at each shape (the
+    backward alone, given the forward's output and statistics) beside the
+    plain version, and at ATTN_BWD_SDPA_SHAPES beside
+    ``F.scaled_dot_product_attention``'s forward and backward in the same
+    dtype on the same float mask, the forward kernel with and without the
+    statistics; the bound (``attention_backward_bound``).  Returns the
+    kernels line's rows, by dtype."""
     import torch
     from mmvid_tpu_torch.models.clip import build_attention_mask
     from mmvid_tpu_torch.ops import attention as A
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    b, h, d = 16, 12, 64
-    scale = d ** -0.5
-
-    def plain(q, k, v, mask):
-        return A.attention_reference(q, k, v, mask, scale)
-
-    errs = {}
-    for l, kind, idx in ((565, 'mask_prev', (51, 52)),
-                         (629, 'mask_prev', (115, 116)),
-                         (565, 'causal', None), (629, 'causal', None)):
+    rows = {'float32': {'shapes': {}}, 'bfloat16': {'shapes': {}}}
+    for b, l, h, d, kind, idx, dtypes in ATTN_BWD_SHAPES:
         mask = build_attention_mask(l, kind, index=idx, device='cuda')
-        for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device='cuda').manual_seed(l)
+        scale = d ** -0.5
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            g = torch.Generator(device='cuda').manual_seed(l + b)
             qkv = torch.randn((b, l, 3 * h * d), generator=g,
                               device='cuda').to(dtype)
             cot = torch.randn((b, l, h, d), generator=g,
                               device='cuda').to(dtype)
-            before = A.launches
+            before, bwd = A.launches, A.backward_launches
             got = _packed_grads(A.fused_attention_blhd, qkv, cot, mask)
-            launched = A.launches - before
-            want = _packed_grads(plain, qkv, cot, mask)
+            launched = (A.launches - before, A.backward_launches - bwd)
+            want = _packed_grads(lambda q, k, v, m: A.attention_reference(
+                q, k, v, m, scale), qkv, cot, mask)
+            fn_rel, fn_norm = _bwd_errors((got,), (want,))
+            del got, want
+            q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+                       for i in range(3))
+            out, lse, out_lo = A._launch(q, k, v, mask, scale, False,
+                                         with_lse=True)
+            args = (q, k, v, mask, scale, cot, out, lse, out_lo)
+            kern = A.attention_backward_kernel(*args)
+            again = A.attention_backward_kernel(*args)
+            plain = A.attention_backward(q, k, v, mask, scale, cot)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            err = diff.max().item()
-            rel = (diff / (1 + want.float().abs())).max().item()
-            name = str(dtype).split('.')[-1]
-            tol = ATTN_BWD_TOL[name]
-            print(f'[attention bwd] B={b} L={l} H={h} D={d} packed {kind} '
-                  f'{name}: d qkv max abs err {err:.3e}, max err / (1 + '
-                  f'|plain|) {rel:.3e} (tol {tol}); forward kernel '
-                  f'launches {launched}', flush=True)
-            if not rel <= tol:
-                fail(f'attention backward L={l} {kind} {name}: {rel} > '
-                     f'{tol}')
-            if launched != 1:
-                fail(f'attention backward: the forward launched the kernel '
-                     f'{launched} times, not once')
-            errs[(l, kind, name)] = rel
-            del got, want, qkv, cot
+            rel, norm = _bwd_errors(kern, plain)
+            err = max((x.float() - w.float()).abs().max().item()
+                      for x, w in zip(kern, plain))
+            same = all(torch.equal(x, y) for x, y in zip(kern, again))
+            tol, norm_tol = ATTN_BWD_TOL[name], ATTN_BWD_NORM_TOL[name]
+            # planted faults, which the checks must refuse: dq 2^-6 too
+            # large (a systematic error, for the normwise check), and one
+            # key's dk and dv zeroed (a lost mask column, for the
+            # elementwise one): batch 0, head 0's key of the largest |dv|
+            j = plain[2][0, :, 0].float().norm(dim=-1).argmax()
+            dk_j, dv_j = kern[1].clone(), kern[2].clone()
+            dk_j[0, j, 0] = 0
+            dv_j[0, j, 0] = 0
+            controls = {c: _bwd_errors(grads, plain) for c, grads in (
+                ('dq_scaled', (kern[0] * (1 + 2 ** -6), *kern[1:])),
+                ('key_zeroed', (kern[0], dk_j, dv_j)))}
+            del kern, again, plain, dk_j, dv_j
+            ms = cuda_time_ms(lambda: A.attention_backward_kernel(*args))
+            plain_ms = cuda_time_ms(lambda: A.attention_backward(
+                q, k, v, mask, scale, cot), calls=5, reps=3)
+            bms, by, bms_split = attention_backward_bound(b, l, h, d, name)
+            row = {'max_abs_err': err, 'max_rel_err': rel,
+                   'max_norm_rel_err': norm,
+                   'function_max_rel_err': fn_rel,
+                   'function_max_norm_rel_err': fn_norm,
+                   'controls': controls, 'bitwise_repeat': same,
+                   'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bms,
+                   'bound_by': by, 'bound_split_products_ms': bms_split}
+            if (b, l) in ATTN_BWD_SDPA_SHAPES and kind == 'mask_prev':
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                              for t in (q, k, v))
+                mt, ct = mask.to(dtype), cot.transpose(1, 2)
 
-    # times on the flagship's training shape
-    l, idx = 565, (51, 52)
-    mask = build_attention_mask(l, 'mask_prev', index=idx, device='cuda')
-    g = torch.Generator(device='cuda').manual_seed(7)
-    qkv = torch.randn((b, l, 3 * h * d), generator=g,
-                      device='cuda').bfloat16()
-    cot = torch.randn((b, l, h, d), generator=g, device='cuda').bfloat16()
-    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
-               for i in range(3))
-    bwd_ms = cuda_time_ms(lambda: A.attention_backward(q, k, v, mask, scale,
-                                                       cot))
-    with torch.no_grad():
-        fwd_ms = cuda_time_ms(lambda: A.fused_attention_blhd(q, k, v, mask))
-    plain_ms = cuda_time_ms(lambda: _packed_grads(plain, qkv, cot, mask))
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    mt, ct = mask.to(torch.bfloat16), cot.transpose(1, 2)
+                def sdpa():
+                    o = torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mt)
+                    return torch.autograd.grad(o, (qt, kt, vt), ct)
 
-    def sdpa():
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mt)
-        return torch.autograd.grad(out, (qt, kt, vt), ct)
-
-    sdpa_ms = cuda_time_ms(sdpa)
-    nbytes = 7 * b * l * h * d * 2 + l * l * 4
-    flops = 10 * b * h * l * l * d
-    bms, by = bound(nbytes, flops, 'fp32')
-    bms_bf16, _ = bound(nbytes, flops, 'bf16')
-    row = {'max_abs_err': max(errs.values()), 'errs': {
-        f'L{l_}_{k_}_{n_}': e for (l_, k_, n_), e in errs.items()},
-        'ms': bwd_ms, 'forward_kernel_ms': fwd_ms,
-        'plain_fwd_bwd_ms': plain_ms, 'sdpa_fwd_bwd_ms': sdpa_ms,
-        'bound_ms': bms, 'bound_by': by, 'bound_bf16_ms': bms_bf16}
-    print(f'[attention bwd] B={b} L={l} H={h} D={d} bf16 packed mask_prev: '
-          f'backward (recompute) {bwd_ms:.4f} ms, kernel forward '
-          f'{fwd_ms:.4f} ms, plain forward+backward {plain_ms:.4f} ms, sdpa '
-          f'forward+backward {sdpa_ms:.4f} ms; bound {bms:.4f} ms ({by}, '
-          f'fp32 products), {bms_bf16:.4f} ms at the bf16 peak', flush=True)
-    return row
+                with torch.no_grad():
+                    row['forward_kernel_ms'] = cuda_time_ms(
+                        lambda: A._launch(q, k, v, mask, scale, False))
+                    row['forward_kernel_stats_ms'] = cuda_time_ms(
+                        lambda: A._launch(q, k, v, mask, scale, False,
+                                          with_lse=True))
+                row['library_ms'] = cuda_time_ms(sdpa)
+                del qt, kt, vt
+            key = f'B{b}_L{l}_H{h}_D{d}_{kind}'
+            rows[name]['shapes'][key] = row
+            print(f'[attention bwd] {key} {name}: kernels vs plain max abs '
+                  f'err {err:.3e}, max err / (1 + |plain|) {rel:.3e}, '
+                  f'through FusedAttention {fn_rel:.3e} (tol {tol}); '
+                  f'normwise {norm:.3e}, through FusedAttention '
+                  f'{fn_norm:.3e} (tol {norm_tol}); planted faults, which '
+                  'must fail: ' + ', '.join(
+                      f'{c} {cr:.3e} / {cn:.3e}'
+                      for c, (cr, cn) in controls.items())
+                  + f'; two calls equal {same}; launches (forward, '
+                  f'backward) {launched}; kernel {ms:.4f} ms, plain '
+                  f'{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}'
+                  + (f'; the split\'s products at the bf16 peak '
+                     f'{bms_split:.4f}' if bms_split else '') + ')'
+                  + (f', sdpa forward+backward {row["library_ms"]:.4f} ms, '
+                     f'forward kernel {row["forward_kernel_ms"]:.4f} ms, '
+                     f'with statistics {row["forward_kernel_stats_ms"]:.4f} '
+                     f'ms' if 'library_ms' in row else ''), flush=True)
+            if not (_bwd_ok(rel, norm, name) and _bwd_ok(fn_rel, fn_norm,
+                                                          name)):
+                fail(f'attention backward {key} {name}: {rel} / {fn_rel} > '
+                     f'{tol} or {norm} / {fn_norm} > {norm_tol}')
+            for c, (cr, cn) in controls.items():
+                if _bwd_ok(cr, cn, name):
+                    fail(f'attention backward {key} {name}: the planted '
+                         f'fault {c} passed the checks ({cr}, {cn})')
+            if not same:
+                fail(f'attention backward {key} {name}: two calls differ')
+            if launched != (1, 1):
+                fail(f'attention backward {key} {name}: launches (forward, '
+                     f'backward) {launched}, not (1, 1)')
+            del qkv, cot, q, k, v, out, lse, out_lo, args
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        r['max_abs_err'] = max(x['max_abs_err'] for x in r['shapes'].values())
+        r['max_rel_err'] = max(x['max_rel_err'] for x in r['shapes'].values())
+        r['max_norm_rel_err'] = max(x['max_norm_rel_err']
+                                    for x in r['shapes'].values())
+    return rows
 
 
 def _set_attn_int8(on: bool):
@@ -1731,21 +1862,25 @@ def phase_tiny_train():
     n_diff = int((ids[0] != ids[1]).sum())
     runs = []
     reset_counts()
-    for model, dev in zip(models, ('cpu', 'cuda')):
-        state = training.create_train_state(model, tc)
-        step = training.make_train_step(model, tc)
-        to = (lambda t: t.to(dev)) if dev == 'cuda' else (lambda t: t)
-        mv = lambda d: {k: (to(v) if torch.is_tensor(v) else
-                            {kk: to(vv) for kk, vv in v.items()})
-                        for k, v in d.items()}
-        losses = []
-        for i in range(3):
-            state, m = step(state, {k: to(v) for k, v in batch.items()},
-                            None, draws=mv(draws[i]))
-            losses.append(m['loss'].item())
-        runs.append((state, losses))
+    with _LaunchCapture(BACKWARD_SITES) as cap:
+        for model, dev in zip(models, ('cpu', 'cuda')):
+            state = training.create_train_state(model, tc)
+            step = training.make_train_step(model, tc)
+            to = (lambda t: t.to(dev)) if dev == 'cuda' else (lambda t: t)
+            mv = lambda d: {k: (to(v) if torch.is_tensor(v) else
+                                {kk: to(vv) for kk, vv in v.items()})
+                            for k, v in d.items()}
+            losses = []
+            for i in range(3):
+                state, m = step(state, {k: to(v) for k, v in batch.items()},
+                                None, draws=mv(draws[i]))
+                losses.append(m['loss'].item())
+            runs.append((state, losses))
     counts = read_counts()
+    bl = backward_launches()
     want = expected(attention=3 * 3 * cfg.clip.layers * 2, codebook=3 * 2)
+    # the card's backward calls: 3 forwards x the layers, a step
+    want_bl = 3 * 3 * cfg.clip.layers
     loss_gap = max(abs(a - b) for a, b in zip(runs[0][1], runs[1][1]))
     gap, key_gap = _param_gap(runs[0][0].params, runs[1][0].params,
                               cfg.dim, 3 * tc.learning_rate)
@@ -1755,14 +1890,17 @@ def phase_tiny_train():
           f'{TRAIN_LOSS_TOL}); parameters max gap {gap:.3e} (tol '
           f'{TRAIN_PARAM_TOL}), key biases {key_gap:.3e} (bound '
           f'{9 * tc.learning_rate:.1e}); launches {counts} (expected '
-          f'{want})', flush=True)
+          f'{want}), attention backward kernel launches {bl} (expected '
+          f'{want_bl})', flush=True)
     if n_diff or not loss_gap <= TRAIN_LOSS_TOL:
         fail('tiny training step on the card disagrees with the CPU')
     if not (gap <= TRAIN_PARAM_TOL and key_gap <= 9 * tc.learning_rate):
         fail('tiny training step: parameters on the card disagree with '
              'the CPU')
-    if counts != want:
-        fail(f'tiny training launches {counts} != {want}')
+    if counts != want or bl != want_bl:
+        fail(f'tiny training launches {counts}, backward {bl} != {want}, '
+             f'{want_bl}')
+    check_captured('tiny train', cap, {'attention_backward': bl})
 
     models = [factories.artv_train(tiny=True, dtype=torch.float32,
                                    device=dev, seed=5)[0]
@@ -1773,12 +1911,14 @@ def phase_tiny_train():
     batch = breakdown.train_batch(models[0], 2, 'cpu')
     out = []
     reset_counts()
-    for model, dev in zip(models, ('cpu', 'cuda')):
-        state = training.create_train_state(model, tca)
-        state, m = training.make_train_step(model, tca)(
-            state, {k: v.to(dev) for k, v in batch.items()}, None)
-        out.append((state, m['loss'].item()))
+    with _LaunchCapture(BACKWARD_SITES) as cap:
+        for model, dev in zip(models, ('cpu', 'cuda')):
+            state = training.create_train_state(model, tca)
+            state, m = training.make_train_step(model, tca)(
+                state, {k: v.to(dev) for k, v in batch.items()}, None)
+            out.append((state, m['loss'].item()))
     counts = read_counts()
+    bl = backward_launches()
     want = expected(attention=models[0].cfg.clip.layers, codebook=1)
     gap, key_gap = _param_gap(out[0][0].params, out[1][0].params,
                               models[0].cfg.dim, tca.learning_rate)
@@ -1786,13 +1926,16 @@ def phase_tiny_train():
     print(f'[tiny train] ART-V fp32, 1 step card vs CPU: loss {out[1][1]} '
           f'(CPU {out[0][1]}), gap {loss_gap:.3e}; parameters max gap '
           f'{gap:.3e}, key biases {key_gap:.3e}; launches {counts} '
-          f'(expected {want})', flush=True)
+          f'(expected {want}), attention backward kernel launches {bl} '
+          f'(expected {models[0].cfg.clip.layers})', flush=True)
     if not (loss_gap <= TRAIN_LOSS_TOL and gap <= TRAIN_PARAM_TOL
             and key_gap <= 3 * tca.learning_rate):
         fail('tiny ART-V training step on the card disagrees with the CPU')
     torch.backends.cudnn.allow_tf32 = True
-    if counts != want:
-        fail(f'tiny ART-V training launches {counts} != {want}')
+    if counts != want or bl != models[0].cfg.clip.layers:
+        fail(f'tiny ART-V training launches {counts}, backward {bl} != '
+             f'{want}, {models[0].cfg.clip.layers}')
+    check_captured('tiny train ART-V', cap, {'attention_backward': bl})
 
 
 SPEC_KS = (1, 4, 8)
@@ -2599,7 +2742,9 @@ def _train_report(tag, res):
           f'frames/s, peak memory {res["peak_memory_bytes"]} B, device idle '
           f'{res["idle_share"]:.4f}; losses {res["losses"]}; launches a '
           f'step {res["launches_per_step"]}, attention backward calls a '
-          f'step {res["attention_backward_calls_per_step"]}', flush=True)
+          f'step {res["attention_backward_calls_per_step"]} (kernel '
+          f'launches {res["attention_backward_launches_per_step"]})',
+          flush=True)
     print(f'[{tag}] breakdown {json.dumps(res)}', flush=True)
 
 
@@ -2613,6 +2758,10 @@ def _check_train(tag, path, res):
     calls = res['attention_backward_calls_per_step']
     if calls != TRAIN_BACKWARD_CALLS[path]:
         fail(f'{tag}: attention backward calls a step {calls} != '
+             f'{TRAIN_BACKWARD_CALLS[path]}')
+    bl = res['attention_backward_launches_per_step']
+    if bl != TRAIN_BACKWARD_CALLS[path]:
+        fail(f'{tag}: attention backward kernel launches a step {bl} != '
              f'{TRAIN_BACKWARD_CALLS[path]}')
 
 
@@ -2637,9 +2786,13 @@ def phase_train():
     print(f'[train] flagship training build in '
           f'{time.perf_counter() - t0:.2f} s', flush=True)
     vae = [p.detach().clone() for p in model.vae.parameters()]
-    res = breakdown.measure_train(model, 'train', breakdown.BATCH)
+    with _LaunchCapture(BACKWARD_SITES) as cap:
+        res = breakdown.measure_train(model, 'train', breakdown.BATCH)
     _train_report('train', res)
     _check_train('train', 'train', res)
+    res['checked'] = check_captured(
+        'train', cap, {'attention_backward': res[
+            'attention_backward_launches_per_step']})
 
     cfg = model.cfg
     tc = breakdown.train_config('train', lr_scheduler='none')
@@ -2670,10 +2823,14 @@ def phase_train():
     torch.cuda.empty_cache()
 
     model = breakdown.build_train('train_artv')
-    res_artv = breakdown.measure_train(model, 'train_artv', breakdown.BATCH,
-                                       steps=1)
+    with _LaunchCapture(BACKWARD_SITES) as cap:
+        res_artv = breakdown.measure_train(model, 'train_artv',
+                                           breakdown.BATCH, steps=1)
     _train_report('train artv', res_artv)
     _check_train('train artv', 'train_artv', res_artv)
+    res_artv['checked'] = check_captured(
+        'train artv', cap, {'attention_backward': res_artv[
+            'attention_backward_launches_per_step']})
     del model
     torch.cuda.empty_cache()
     return res, res_artv
@@ -2948,7 +3105,9 @@ def phase_train_driver(batch: int = 48):
     finite losses, the resumed start iteration, the frozen VQGAN
     unchanged in the checkpoints, checkpoint and grid files written,
     attention's backward calls exact (36 a step: 12 layers x 3
-    forwards, no remat), the kernels launched."""
+    forwards, no remat), the kernels launched, each run's backward kernel
+    held against its plain version on its first inputs at each shape
+    (:func:`check_captured`)."""
     import tempfile
 
     import torch
@@ -2991,12 +3150,14 @@ def phase_train_driver(batch: int = 48):
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        record = driver.main_worker(args)
-        torch.cuda.synchronize()
+        with _LaunchCapture(BACKWARD_SITES) as cap:
+            record = driver.main_worker(args)
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         counts = read_counts()
         calls = breakdown.KERNELS['attention'].backward_calls
+        bl = backward_launches()
         losses = _driver_losses(run_dir)
         step_ms, wait_ms = _steady(record)
         save = next(r for r in record['iters'] if 'save_s' in r)
@@ -3010,14 +3171,17 @@ def phase_train_driver(batch: int = 48):
               f'(and weights/last); final save '
               f'{record["final_save"]["s"]:.3f} s; sample grids '
               f'{viz_s:.2f} s; peak memory {peak} B; losses {losses}; '
-              f'launches {counts}, attention backward calls {calls}; '
+              f'launches {counts}, attention backward calls {calls} '
+              f'(kernel launches {bl}); '
               f'each iteration\'s wait and step '
               f'{[(r["wait_s"], r["step_s"]) for r in record["iters"]]}',
               flush=True)
         want_calls = _backward_calls(args, DRIVER_ITERS)
-        if calls != want_calls:
-            fail(f'train driver: attention backward calls {calls} != '
-                 f'{want_calls}')
+        if calls != want_calls or bl != want_calls:
+            fail(f'train driver: attention backward calls {calls}, kernel '
+                 f'launches {bl} != {want_calls}')
+        checked = check_captured('train driver', cap,
+                                 {'attention_backward': bl})
         for name in ('attention', 'codebook', 'sample_head'):
             if counts[name] <= 0:
                 fail(f'train driver: {name} launched no time')
@@ -3076,10 +3240,12 @@ def phase_train_driver(batch: int = 48):
             '--log_every', '1', '--bf16']
         margs = process_args(train=True, argv=margv)
         reset_counts()
-        rec3 = driver.main_worker(margs)
-        torch.cuda.synchronize()
+        with _LaunchCapture(BACKWARD_SITES) as mcap:
+            rec3 = driver.main_worker(margs)
+            torch.cuda.synchronize()
         mcounts = read_counts()
         mcalls = breakdown.KERNELS['attention'].backward_calls
+        mbl = backward_launches()
         mlosses = _driver_losses(os.path.join(logs, margs.name))
         mstep, mwait = _steady(rec3)
         print(f'[train driver] text+mask (vox, {margs.attr_mode}, cvae) '
@@ -3087,9 +3253,12 @@ def phase_train_driver(batch: int = 48):
               f'{mwait:.3f} ms (iterations 1-{DRIVER_MASK_ITERS - 1}); '
               f'losses {mlosses}; launches {mcounts}, attention backward '
               f'calls {mcalls}', flush=True)
-        if mcalls != _backward_calls(margs, DRIVER_MASK_ITERS):
+        if not (mcalls == mbl == _backward_calls(margs, DRIVER_MASK_ITERS)):
             fail(f'train driver text+mask: attention backward calls '
-                 f'{mcalls} != {_backward_calls(margs, DRIVER_MASK_ITERS)}')
+                 f'{mcalls}, kernel launches {mbl} != '
+                 f'{_backward_calls(margs, DRIVER_MASK_ITERS)}')
+        mchecked = check_captured('train driver text+mask', mcap,
+                                  {'attention_backward': mbl})
         for name in ('attention', 'codebook'):
             if mcounts[name] <= 0:
                 fail(f'train driver text+mask: {name} launched no time')
@@ -3099,9 +3268,13 @@ def phase_train_driver(batch: int = 48):
                'idle_share': idle['idle_share'],
                'save_s': save['save_s'], 'save_bytes': save['save_bytes'],
                'peak_memory_bytes': peak, 'launches': counts,
-               'attention_backward_calls': calls, 'loader_alone': alone,
+               'attention_backward_calls': calls,
+               'attention_backward_launches': bl, 'checked': checked,
+               'loader_alone': alone,
                'text_mask': {'batch': margs.batch_size, 'step_ms': mstep,
-                             'loader_wait_ms': mwait, 'launches': mcounts}}
+                             'loader_wait_ms': mwait, 'launches': mcounts,
+                             'attention_backward_launches': mbl,
+                             'checked': mchecked}}
         print(f'[train driver] {json.dumps(res)}', flush=True)
         return res, run_dir, tmp
     except BaseException:
@@ -3230,6 +3403,9 @@ CAPTURE_SITES = (
     ('attention', 'mmvid_tpu_torch.models.clip', 'fused_attention_blhd'),
     ('sample_head', 'mmvid_tpu_torch.models.sampler', 'fused_sample_head'),
     ('codebook', 'mmvid_tpu_torch.models.vqgan', 'nearest_codebook_indices'))
+# where FusedAttention.backward calls the backward kernels' wrapper
+BACKWARD_SITES = (('attention_backward', 'mmvid_tpu_torch.ops.attention',
+                   'attention_backward_kernel'),)
 # the noise seed of the sample head's check on captured inputs
 CAPTURE_SEED = 20260516
 
@@ -3252,6 +3428,11 @@ def _copy_qkv(q, k, v):
 def _copy_inputs(kernel, a, kw):
     """A copy of a wrapper call's inputs that later calls cannot change."""
     from mmvid_tpu_torch.ops import attention as A
+    if kernel == 'attention_backward':
+        q, k, v, mask, scale, g, out, lse, out_lo = a
+        return (*_copy_qkv(q, k, v), mask.clone(), scale, g.clone(),
+                out.clone(), lse.clone(),
+                None if out_lo is None else out_lo.clone())
     if kernel == 'attention':
         q, k, v, mask = (tuple(a) + (None,))[:4]
         if isinstance(mask, A.AttentionMask):
@@ -3269,6 +3450,8 @@ def _copy_inputs(kernel, a, kw):
 
 
 def _shape_key(kernel, a) -> tuple:
+    if kernel == 'attention_backward':
+        return tuple(a[0].shape), str(a[0].dtype)
     if kernel == 'attention':
         return (tuple(a[0].shape), str(a[0].dtype),
                 len(a) < 4 or a[3] is None)
@@ -3280,18 +3463,20 @@ def _shape_key(kernel, a) -> tuple:
 
 class _LaunchCapture:
     """Installed (``with``) over the names the models call the kernels'
-    wrappers by (CAPTURE_SITES): keeps a copy of the inputs of the first
-    call at each shape a phase's run gives a kernel on the card, so that
-    :func:`check_captured` can hold the kernel against its plain version
-    at the shapes the run gave it, after the run's counts are read."""
+    wrappers by (``sites``: CAPTURE_SITES, or BACKWARD_SITES in training):
+    keeps a copy of the inputs of the first call at each shape a phase's
+    run gives a kernel on the card, so that :func:`check_captured` can
+    hold the kernel against its plain version at the shapes the run gave
+    it, after the run's counts are read."""
 
-    def __init__(self):
+    def __init__(self, sites=CAPTURE_SITES):
+        self.sites = sites
         self.calls = {}   # (kernel, *shape key) -> inputs
 
     def __enter__(self):
         import importlib
         self.orig = []
-        for kernel, mod_name, name in CAPTURE_SITES:
+        for kernel, mod_name, name in self.sites:
             mod = importlib.import_module(mod_name)
             fn = getattr(mod, name)
             self.orig.append((mod, name, fn))
@@ -3318,6 +3503,10 @@ def _capture_name(kernel: str, key) -> str:
         (b, l, h, d), dtype, no_mask = key
         return (f'attention B{b} L{l} H{h} D{d} {dtype.split(".")[-1]}'
                 f'{" no mask" if no_mask else ""}')
+    if kernel == 'attention_backward':
+        (b, l, h, d), dtype = key
+        return (f'attention_backward B{b} L{l} H{h} D{d} '
+                f'{dtype.split(".")[-1]}')
     if kernel == 'sample_head':
         (m, d), dtype = key
         return f'sample_head M{m} D{d} W {dtype.split(".")[-1]}'
@@ -3332,23 +3521,39 @@ def check_captured(tag: str, cap: _LaunchCapture, counts: dict) -> dict:
     seed, tokens equal on HEAD_TOKEN_SHARE of rows and Y within
     HEAD_Y_REL_TOL (HEAD_Y_REL_TOL_FP32 for fp32 W) on those; nearest-code
     ids within CODE_GAP_TOL of the best score (the ids differing from
-    plain printed).  Fails beyond them, or where a kernel the run
-    launched (``counts``) left no inputs.  Returns the errors by kernel
-    and shape."""
+    plain printed); attention's backward kernels against
+    ``attention_backward`` within ATTN_BWD_TOL * (1 + |plain|) and
+    ATTN_BWD_NORM_TOL normwise, on the captured cotangent rescaled to unit
+    RMS (``_unit_rms``; a step's own is tiny).  Fails
+    beyond them, or where a kernel the run launched (``counts``) left no
+    inputs.  Returns the errors by kernel and shape."""
     import torch
     from mmvid_tpu_torch.ops import attention as A
     from mmvid_tpu_torch.ops import codebook as C
     from mmvid_tpu_torch.ops import sample_head as S
     from mmvid_tpu_torch.ops.precision import fp32_exact
 
-    for kernel, _, _ in CAPTURE_SITES:
+    for kernel, _, _ in cap.sites:
         if counts[kernel] > 0 and not any(key[0] == kernel
                                           for key in cap.calls):
             fail(f'{tag}: {kernel} launched but no call of its was captured')
     res = {}
     with fp32_exact(), torch.no_grad():
         for (kernel, *key), inp in cap.calls.items():
-            if kernel == 'attention':
+            if kernel == 'attention_backward':
+                q, k, v, mask, scale, g = inp[:6]
+                g = _unit_rms(g)
+                got = A.attention_backward_kernel(q, k, v, mask, scale, g,
+                                                  *inp[6:])
+                want = A.attention_backward(q, k, v, mask, scale, g)
+                dtype = str(q.dtype).split('.')[-1]
+                rel, norm = _bwd_errors(got, want)
+                tol = ATTN_BWD_TOL[dtype]
+                ok = _bwd_ok(rel, norm, dtype)
+                row = {'max_rel_err': rel, 'max_norm_rel_err': norm,
+                       'tol': tol, 'norm_tol': ATTN_BWD_NORM_TOL[dtype]}
+                del got, want
+            elif kernel == 'attention':
                 q, k, v, mask = inp
                 bf16p = A.bf16_probs()
                 got = A.fused_attention_blhd(q, k, v, mask)
@@ -3803,11 +4008,13 @@ def phase_text_augment(tmp: str, roberta: str):
     try:
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        record = train_driver.main_worker(args)
-        torch.cuda.synchronize()
+        with _LaunchCapture(BACKWARD_SITES) as cap:
+            record = train_driver.main_worker(args)
+            torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         counts = read_counts()
         calls = breakdown.KERNELS['attention'].backward_calls
+        bl = backward_launches()
         losses = _driver_losses(run_dir)
         step_ms, wait_ms = _steady(record)
         train_lm = list(lm_calls)
@@ -3817,7 +4024,8 @@ def phase_text_augment(tmp: str, roberta: str):
               f'1-{TEXT_AUGMENT_ITERS - 1}, to the loss read), the LM '
               f'{lm_ms:.3f} ms of it ({lm_ms / step_ms:.4f}), loader wait '
               f'{wait_ms:.3f} ms; losses {losses}; LM calls {train_lm}; '
-              f'launches {counts}, attention backward calls {calls}; peak '
+              f'launches {counts}, attention backward calls {calls} '
+              f'(kernel launches {bl}); peak '
               f'memory {peak} B; {card()}', flush=True)
         if len(train_lm) != TEXT_AUGMENT_ITERS or any(
                 n != args.batch_size for n, _ in train_lm):
@@ -3825,9 +4033,12 @@ def phase_text_augment(tmp: str, roberta: str):
                  f'{args.batch_size} captions a step')
         if sorted(losses) != list(range(TEXT_AUGMENT_ITERS)):
             fail(f'text_augment: iterations logged {sorted(losses)}')
-        if calls != _backward_calls(args, TEXT_AUGMENT_ITERS):
-            fail(f'text_augment: attention backward calls {calls} != '
+        if not (calls == bl == _backward_calls(args, TEXT_AUGMENT_ITERS)):
+            fail(f'text_augment: attention backward calls {calls}, kernel '
+                 f'launches {bl} != '
                  f'{_backward_calls(args, TEXT_AUGMENT_ITERS)}')
+        checked = check_captured('text_augment', cap,
+                                 {'attention_backward': bl})
         for name in ('attention', 'codebook'):
             if counts[name] <= 0:
                 fail(f'text_augment: {name} launched no time')
@@ -3877,6 +4088,7 @@ def phase_text_augment(tmp: str, roberta: str):
     return {'step_ms': step_ms, 'lm_ms': lm_ms, 'loader_wait_ms': wait_ms,
             'lm_share': lm_ms / step_ms, 'peak_memory_bytes': peak,
             'launches': counts, 'attention_backward_calls': calls,
+            'attention_backward_launches': bl, 'checked': checked,
             'test_frames_s': frames_s, 'test_launches': tcounts}
 
 
@@ -4528,6 +4740,31 @@ def _fp32_head_entry(route, flagship_fp32, driver_launches):
                 'launches']['sample_head'], **driver_launches}}
 
 
+def _backward_entry(dtype, rows, launches_by_path):
+    """The kernels line's entry of one route of attention's backward
+    (B1-bwd: JAX's XLA VJP of the kernel, ``_fused_attention_bwd``, which
+    reaches no pallas_call): its numbers at the flagship's training shape
+    (B16 H12 D64 L565 mask_prev, packed views) and at every shape of
+    ``phase_attention_backward``; its launches on the main path of its
+    dtype (bf16: the flagship's training step; fp32: the text_augment
+    recipe's training run, fp32 as every released train.sh) and on the
+    others."""
+    r = rows[dtype]
+    at = r['shapes']['B16_L565_H12_D64_mask_prev']
+    bf16 = dtype == 'bfloat16'
+    return {'name': 'attention_backward' + ('' if bf16 else '_fp32'),
+            'route': 'cuda',
+            'source': 'mmvid_tpu_torch/csrc/attention_bwd_'
+                      + ('sm90.cu' if bf16 else 'fp32_sm90.cu'),
+            'replaces': 'mmvid_tpu/ops/attention.py:126',
+            'launches': next(iter(launches_by_path.values())),
+            'max_abs_err': r['max_abs_err'], 'max_rel_err': r['max_rel_err'],
+            'max_norm_rel_err': r['max_norm_rel_err'],
+            **{k: at[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                  'library_ms')},
+            'shapes': r['shapes'], 'launches_by_path': launches_by_path}
+
+
 def _long_launches(name, long_runs, debug, shapes):
     """The launches of kernel ``name`` in the test driver's long-video
     runs (one a mode), its ``--debug`` run and its shapes run."""
@@ -4665,17 +4902,6 @@ def main():
             entry['at_flagship_L565'] = attention[(565, False)]
             entry['bf16_probs'] = {'L629': attention[(629, True)],
                                    'L565': attention[(565, True)]}
-            # B1-bwd: JAX's XLA VJP of the kernel (no pallas_call), torch
-            # ops here; its calls in the profiled training steps
-            entry['backward'] = {
-                'route': 'torch ops (fp32 recompute)',
-                'source': 'mmvid_tpu_torch/ops/attention.py',
-                'replaces': 'mmvid_tpu/ops/attention.py:126',
-                'calls_per_step': {
-                    'train': train['attention_backward_calls_per_step'],
-                    'train_artv': train_artv[
-                        'attention_backward_calls_per_step']},
-                **attention_bwd}
         if name == 'attention_int8':
             # MMVID_ATTN_INT8=1; the int8-serving path's launches (two a
             # call: the operand pass and the attention); the body at
@@ -4724,6 +4950,19 @@ def main():
                     'text_augment_test': text_augment['test_launches'][
                         name]}))
         if name == 'attention':
+            kernels.append(_backward_entry(
+                'bfloat16', attention_bwd, {
+                    'train': train['attention_backward_launches_per_step'],
+                    'train_artv': train_artv[
+                        'attention_backward_launches_per_step'],
+                    'train_driver': train_driver[
+                        'attention_backward_launches'],
+                    'train_driver_text_mask': train_driver['text_mask'][
+                        'attention_backward_launches']}))
+            kernels.append(_backward_entry(
+                'float32', attention_bwd, {
+                    'text_augment_train': text_augment[
+                        'attention_backward_launches']}))
             kernels.append(_fp32_attention_entry(
                 attention_fp32, attention_clip, flagship_fp32, {
                     'test_driver': test_driver['launches'][name],

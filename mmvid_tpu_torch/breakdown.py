@@ -35,7 +35,7 @@ rematerialised), batch 16 of synthetic text ids and uniform frames from
 ``np.random.RandomState(0)``: one warm-up step, then 5 timed steps on the
 host clock ending in a sync; peak device memory over them; one profiled
 step (device time by kind, idle share, the kernels' launches and
-attention's backward calls a step).
+attention's backward calls and backward kernel launches a step).
 
 ``chip_smoke.py`` builds its models and times its batches with
 :func:`build`, :func:`inputs` and :func:`measure`.  Usage (needs a CUDA
@@ -83,6 +83,8 @@ KINDS = (
     ('attention kernel, int8', ('attention_int8_wgmma',
                                 'int8_operands_kernel')),
     ('attention kernel, tensor cores', ('attention_fwd_kernel_wgmma',)),
+    ('attention backward, CUDA cores', ('attention_bwd_fp32_',)),
+    ('attention backward, tensor cores', ('attention_bwd_',)),
     ('attention kernel, CUDA cores', ('attention_fwd_kernel',)),
     ('sample-head kernel', ('sample_head_kernel', 'sample_head_tf32_')),
     ('nearest-code kernel', ('nearest_code_',)),
@@ -263,14 +265,15 @@ def _measure(model, path, batch, steps, reps, warm):
 
 def profile_run(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the port's kernels'
-    launches in it and attention's backward calls
-    (``FusedAttention.backward``), its device events, device time by
+    launches in it, attention's backward calls
+    (``FusedAttention.backward``) and its kernels' launches
+    (``attention.backward_launches``), its device events, device time by
     kind and of the TOP_KERNELS largest kernels by name, the device's
     busy time and the call's host-side span (ms), and the idle share (the
     part of the span covered by no device activity)."""
     for mod in KERNELS.values():
         mod.launches = 0
-    attention.backward_calls = 0
+    attention.backward_calls = attention.backward_launches = 0
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
@@ -280,6 +283,7 @@ def profile_run(fn) -> dict:
             torch.cuda.synchronize()
     launches = {name: mod.launches for name, mod in KERNELS.items()}
     backward_calls = attention.backward_calls
+    backward_launches = attention.backward_launches
     # the profiler's raw events (times in ns): prof.events() builds a
     # Python object tree of every host op first, which takes minutes for a
     # batch of half a million launches (the gate-off ART-V path)
@@ -295,6 +299,7 @@ def profile_run(fn) -> dict:
     span = window.duration_ns()
     return {'launches': launches,
             'attention_backward_calls': backward_calls,
+            'attention_backward_launches': backward_launches,
             'device_events': len(dev),
             'device_ms_by_kind': {k: v / 1e6 for k, v in sorted(
                 by_kind.items(), key=lambda kv: -kv[1])},
@@ -404,8 +409,8 @@ def measure_train(model, path: str = 'train', batch: int = BATCH,
     ``videos_s``, ``frames_s``, the last step's ``loss`` and every timed
     step's (``losses``); on the card also the peak memory over the timed
     steps and, with ``profiled``, one more step under the profiler
-    (launches and attention's backward calls a step, device time by
-    kind, idle share), on the recipe's
+    (launches, attention's backward calls and backward kernel launches
+    a step, device time by kind, idle share), on the recipe's
     config (:func:`train_config`)."""
     cfg = model.cfg
     dev = next(model.parameters()).device
@@ -446,6 +451,8 @@ def measure_train(model, path: str = 'train', batch: int = BATCH,
         res['launches_per_step'] = prof.pop('launches')
         res['attention_backward_calls_per_step'] = prof.pop(
             'attention_backward_calls')
+        res['attention_backward_launches_per_step'] = prof.pop(
+            'attention_backward_launches')
         res.update(prof)
     return res
 

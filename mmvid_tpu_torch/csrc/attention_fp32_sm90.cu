@@ -61,6 +61,9 @@
 // issued instructions; the rest is the softmax, the copies' waits, and
 // the last partial wave of blocks.
 //
+// With grad on (lse given) the epilogue also writes each row's log-sum-exp
+// in base 2, the backward's (csrc/attention_bwd_fp32_sm90.cu) statistics.
+//
 // A key >= L gets logit -inf; a query row >= L computes on zero q and row
 // q0's mask and is never stored.  A first tile that the mask wholly masks
 // (-1e9) is forgotten when a later tile raises the row max (alpha = 0), as
@@ -144,7 +147,8 @@ attention_fwd_kernel_fp32_sm90(
     float* __restrict__ out, int L, long long sqb, long long sql,
     long long sqh, long long skb, long long skl, long long skh,
     long long svb, long long svl, long long svh, long long sob,
-    long long sol, long long soh, float scale) {
+    long long sol, long long soh, float* __restrict__ lse, int lse_ld,
+    float scale) {
   using T = Fp32Tile<D, R>;
   constexpr int kDPT = D / kCols;     // output dims a thread
   constexpr int kChunks = D / 4;      // 16-byte chunks of a q, k, v row
@@ -358,13 +362,19 @@ attention_fwd_kernel_fp32_sm90(
     const int row = q0 + rg + kRowGroups * i;
     if (row < L)
       *reinterpret_cast<VecD*>(ob + row * sol + cg * kDPT) = vdiv(o[i], l);
+    // the row's log-sum-exp in base 2 for the backward (grad on): P =
+    // 2^(log2(e) (scale q.k + mask) - lse)
+    if (lse != nullptr && cg == 0 && row < L)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * lse_ld + row] =
+          fmaf(m_run[i], kLog2e, log2f(l));
   }
 }
 
 template <int D, int R, bool kBf16Probs>
 cudaError_t launch(int dev, const void* q, const void* k, const void* v,
-                   const float* mask, void* out, int B, int L, int H,
-                   const long long* st, float scale, cudaStream_t stream) {
+                   const float* mask, void* out, float* lse, int lse_ld,
+                   int B, int L, int H, const long long* st, float scale,
+                   cudaStream_t stream) {
   using T = Fp32Tile<D, R>;
   auto* kernel = attention_fwd_kernel_fp32_sm90<D, R, kBf16Probs>;
   // the shared-memory attribute, set at the first launch on each device
@@ -380,7 +390,7 @@ cudaError_t launch(int dev, const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), mask, static_cast<float*>(out), L, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], scale);
+      st[11], lse, lse_ld, scale);
   return cudaGetLastError();
 }
 
@@ -408,19 +418,20 @@ int fp32_tile_rows(int B, int L, int H, int sms) {
 
 template <int D, bool kBf16Probs>
 cudaError_t launch_rows(int rows, int dev, const void* q, const void* k,
-                        const void* v, const float* mask, void* out, int B,
-                        int L, int H, const long long* st, float scale,
+                        const void* v, const float* mask, void* out,
+                        float* lse, int lse_ld, int B, int L, int H,
+                        const long long* st, float scale,
                         cudaStream_t stream) {
   switch (rows) {
     case 8:
-      return launch<D, 8, kBf16Probs>(dev, q, k, v, mask, out, B, L, H, st,
-                                      scale, stream);
+      return launch<D, 8, kBf16Probs>(dev, q, k, v, mask, out, lse, lse_ld,
+                                      B, L, H, st, scale, stream);
     case 6:
-      return launch<D, 6, kBf16Probs>(dev, q, k, v, mask, out, B, L, H, st,
-                                      scale, stream);
+      return launch<D, 6, kBf16Probs>(dev, q, k, v, mask, out, lse, lse_ld,
+                                      B, L, H, st, scale, stream);
     case 4:
-      return launch<D, 4, kBf16Probs>(dev, q, k, v, mask, out, B, L, H, st,
-                                      scale, stream);
+      return launch<D, 4, kBf16Probs>(dev, q, k, v, mask, out, lse, lse_ld,
+                                      B, L, H, st, scale, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -442,15 +453,16 @@ cudaError_t sm_count(int* dev, int* sms) {
 
 cudaError_t launch_at(int rows, int dev, int head_dim, bool bf16_probs,
                       const void* q, const void* k, const void* v,
-                      const float* mask, void* out, int B, int L, int H,
-                      const long long* strides, float scale,
-                      cudaStream_t stream) {
+                      const float* mask, void* out, float* lse, int lse_ld,
+                      int B, int L, int H, const long long* strides,
+                      float scale, cudaStream_t stream) {
   if (head_dim != 64 && head_dim != 32) return cudaErrorInvalidValue;
   using Launch = decltype(&launch_rows<64, false>);
   const Launch fns[2][2] = {{launch_rows<32, false>, launch_rows<32, true>},
                             {launch_rows<64, false>, launch_rows<64, true>}};
-  return fns[head_dim == 64][bf16_probs](rows, dev, q, k, v, mask, out, B, L,
-                                         H, strides, scale, stream);
+  return fns[head_dim == 64][bf16_probs](rows, dev, q, k, v, mask, out, lse,
+                                         lse_ld, B, L, H, strides, scale,
+                                         stream);
 }
 
 }  // namespace
@@ -458,17 +470,19 @@ cudaError_t launch_at(int rows, int dev, int head_dim, bool bf16_probs,
 // fp32 q, k, v, out with the C entry's arguments (csrc/attention.cu); the
 // caller has checked 16-byte aligned bases of q, k, v and the mask, and
 // batch, row and head strides that are multiples of 4.  The tile by
-// shape (fp32_tile_rows).
+// shape (fp32_tile_rows).  lse: null, or [B, H, lse_ld] fp32 that takes
+// each row's log-sum-exp in base 2 (the backward's row statistics).
 cudaError_t attention_fp32(int head_dim, bool bf16_probs, const void* q,
                            const void* k, const void* v, const float* mask,
-                           void* out, int B, int L, int H,
-                           const long long* strides, float scale,
+                           void* out, float* lse, int lse_ld, int B, int L,
+                           int H, const long long* strides, float scale,
                            cudaStream_t stream) {
   int dev = 0, sms = 0;
   const cudaError_t err = sm_count(&dev, &sms);
   if (err != cudaSuccess) return err;
   return launch_at(fp32_tile_rows(B, L, H, sms), dev, head_dim, bf16_probs,
-                   q, k, v, mask, out, B, L, H, strides, scale, stream);
+                   q, k, v, mask, out, lse, lse_ld, B, L, H, strides, scale,
+                   stream);
 }
 
 }  // namespace mmvid
@@ -498,6 +512,7 @@ extern "C" int mmvid_attention_fp32_at(int rows, int head_dim,
   const cudaError_t err = mmvid::sm_count(&dev, &sms);
   if (err != cudaSuccess) return err;
   return mmvid::launch_at(rows, dev, head_dim, bf16_probs != 0, q, k, v,
-                          static_cast<const float*>(mask), out, B, L, H,
-                          strides, scale, static_cast<cudaStream_t>(stream));
+                          static_cast<const float*>(mask), out, nullptr, 0, B,
+                          L, H, strides, scale,
+                          static_cast<cudaStream_t>(stream));
 }

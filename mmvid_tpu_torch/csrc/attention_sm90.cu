@@ -67,6 +67,11 @@
 // heads (a cluster, multicast bulk copies) was slower: the pair of blocks
 // waits for each other.
 //
+// With grad on (lse and out_lo given) the epilogue also writes each row's
+// log-sum-exp in base 2 and the rest of the fp32 output, bf16(O - bf16(O)):
+// the backward's (csrc/attention_bwd_sm90.cu) statistics, one store of a
+// float a row and one more of the output's size (6% at B16 L565).
+//
 // A key >= L gets logit -inf and zero K/V rows; a query row >= L computes
 // on a valid mask row and is never stored.  A first tile that the mask
 // wholly masks (-1e9) is forgotten when a later tile raises the row max
@@ -74,7 +79,7 @@
 
 #include <atomic>
 
-#include "sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace mmvid {
 namespace {
@@ -169,78 +174,6 @@ __device__ __forceinline__ void stage_mask_row(uint32_t dst,
   bulk_copy(dst + 4 * r * kMaskStride, mask + idx, bytes, bar);
 }
 
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers, B MN-major in
-// shared memory (transposed)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 32] += A[64 x 16] . B[16 x 32], as wgmma_rs_n64
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n32(d, a, db);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // S = Q . K^T for one warpgroup's 64 rows and a 64-key tile, issued and
 // committed (not waited for)
 template <int D>
@@ -315,11 +248,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32],
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // P as wgmma A fragments, one per 16-key step: S's accumulator fragments
 // 2kk and 2kk + 1 are A's (rows g, g + 8; keys 2t, 2t + 8 of the step).
 // p_lo = bf16(P - P_hi) unless kBf16Probs.
@@ -327,18 +255,15 @@ template <bool kBf16Probs>
 __device__ __forceinline__ void pack_probs(const float (&sc)[32],
                                            uint32_t (&p_hi)[4][4],
                                            uint32_t (&p_lo)[4][4]) {
+  if constexpr (kBf16Probs) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float a = sc[8 * kk + 2 * e], c = sc[8 * kk + 2 * e + 1];
-      p_hi[kk][e] = pack_bf16x2(a, c);
-      if (!kBf16Probs) {
-        const __nv_bfloat162 hi =
-            *reinterpret_cast<const __nv_bfloat162*>(&p_hi[kk][e]);
-        p_lo[kk][e] = pack_bf16x2(a - __low2float(hi), c - __high2float(hi));
-      }
-    }
+      for (int e = 0; e < 4; ++e)
+        p_hi[kk][e] = pack_bf16x2(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+  } else {
+    pack_split(sc, p_hi, p_lo);
+  }
 }
 
 // O += P . V over a 64-key tile (V at vt), issued and committed
@@ -365,7 +290,8 @@ attention_fwd_kernel_wgmma(
     __nv_bfloat16* __restrict__ out, int L, long long sqb, long long sql,
     long long sqh, long long skb, long long skl, long long skh,
     long long svb, long long svl, long long svh, long long sob,
-    long long sol, long long soh, float scale_log2) {
+    long long sol, long long soh, float* __restrict__ lse,
+    __nv_bfloat16* __restrict__ out_lo, int lse_ld, float scale_log2) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
@@ -494,6 +420,12 @@ attention_fwd_kernel_wgmma(
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.f / l;
+    // the row's log-sum-exp in base 2 for the backward (grad on): the
+    // logits x = log2(e) (scale q.k + mask) give P = 2^(x - lse)
+    const int row = r0 + 8 * r;
+    if (lse != nullptr && t == 0 && row < L)
+      lse[(static_cast<long long>(b) * gridDim.y + h) * lse_ld + row] =
+          m_run[r] + log2f(l);
   }
   __nv_bfloat16* ob = out + b * sob + h * soh;
 #pragma unroll
@@ -502,9 +434,20 @@ attention_fwd_kernel_wgmma(
     if (row < L) {
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
-        const uint32_t val = pack_bf16x2(o[4 * i + 2 * r] * inv[r],
-                                         o[4 * i + 2 * r + 1] * inv[r]);
-        *reinterpret_cast<uint32_t*>(ob + row * sol + 8 * i + 2 * t) = val;
+        const float x0 = o[4 * i + 2 * r] * inv[r];
+        const float x1 = o[4 * i + 2 * r + 1] * inv[r];
+        const uint32_t val = pack_bf16x2(x0, x1);
+        const long long at = row * sol + 8 * i + 2 * t;
+        *reinterpret_cast<uint32_t*>(ob + at) = val;
+        // with grad on, the fp32 output's rest, bf16(x - bf16(x)), at the
+        // same place of out_lo (out's layout): the backward's delta = g .
+        // O reads out + out_lo, about 16 bits of O
+        if (out_lo != nullptr) {
+          const __nv_bfloat162 hi =
+              *reinterpret_cast<const __nv_bfloat162*>(&val);
+          *reinterpret_cast<uint32_t*>(out_lo + b * sob + h * soh + at) =
+              pack_bf16x2(x0 - __low2float(hi), x1 - __high2float(hi));
+        }
       }
     }
   }
@@ -512,8 +455,9 @@ attention_fwd_kernel_wgmma(
 
 template <int D, bool kBf16Probs>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* mask, void* out, int B, int L, int H,
-                   const long long* st, float scale, cudaStream_t stream) {
+                   const float* mask, void* out, float* lse, void* out_lo,
+                   int lse_ld, int B, int L, int H, const long long* st,
+                   float scale, cudaStream_t stream) {
   auto* kernel = attention_fwd_kernel_wgmma<D, kBf16Probs>;
   constexpr int smem = Tile<D>::kSmem;
   // the shared-memory attribute, set at the first launch on each device
@@ -535,7 +479,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask,
       static_cast<__nv_bfloat16*>(out), L, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale * kLog2e);
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], lse,
+      static_cast<__nv_bfloat16*>(out_lo), lse_ld, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -543,23 +488,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // bf16 q, k, v, out with the C entry's arguments (csrc/attention.cu); the
 // caller has checked 16-byte aligned bases and row/head/batch strides.
+// lse: null, or [B, H, lse_ld] fp32 that takes each row's log-sum-exp in
+// base 2; out_lo: null, or bf16 in out's layout that takes the rest of
+// the fp32 output (the backward's row statistics and delta's O).
 cudaError_t attention_wgmma(int head_dim, bool bf16_probs, const void* q,
                             const void* k, const void* v, const float* mask,
-                            void* out, int B, int L, int H,
-                            const long long* strides, float scale,
-                            cudaStream_t stream) {
+                            void* out, float* lse, void* out_lo, int lse_ld,
+                            int B, int L, int H, const long long* strides,
+                            float scale, cudaStream_t stream) {
   if (head_dim == 64)
-    return bf16_probs
-               ? launch<64, true>(q, k, v, mask, out, B, L, H, strides, scale,
-                                  stream)
-               : launch<64, false>(q, k, v, mask, out, B, L, H, strides,
-                                   scale, stream);
+    return bf16_probs ? launch<64, true>(q, k, v, mask, out, lse, out_lo,
+                                         lse_ld, B, L, H, strides, scale,
+                                         stream)
+                      : launch<64, false>(q, k, v, mask, out, lse, out_lo,
+                                          lse_ld, B, L, H, strides, scale,
+                                          stream);
   if (head_dim == 32)
-    return bf16_probs
-               ? launch<32, true>(q, k, v, mask, out, B, L, H, strides, scale,
-                                  stream)
-               : launch<32, false>(q, k, v, mask, out, B, L, H, strides,
-                                   scale, stream);
+    return bf16_probs ? launch<32, true>(q, k, v, mask, out, lse, out_lo,
+                                         lse_ld, B, L, H, strides, scale,
+                                         stream)
+                      : launch<32, false>(q, k, v, mask, out, lse, out_lo,
+                                          lse_ld, B, L, H, strides, scale,
+                                          stream);
   return cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,8 @@
 """Full-sequence self-attention: the plain PyTorch version and the wrapper
-of the hand-written CUDA kernels (``csrc/attention.cu``'s entry: bf16 on
+of the hand-written CUDA kernels (``csrc/attention.cu``'s entries: bf16 on
 the tensor cores in ``csrc/attention_sm90.cu``, fp32 on the CUDA cores in
-``csrc/attention_fp32_sm90.cu``).
+``csrc/attention_fp32_sm90.cu``; their backward in
+``csrc/attention_bwd_sm90.cu`` and ``csrc/attention_bwd_fp32_sm90.cu``).
 
 Counterpart of ``mmvid_tpu/ops/attention.py``.  Both versions compute
 ``softmax(q * scale @ k^T + mask) @ v`` per (batch, head) with fp32 logits,
@@ -20,14 +21,22 @@ Dispatch rule of :func:`fused_attention_blhd`: a CPU tensor goes to
 
 Gradients: with grad enabled and an input that requires grad, the call
 goes through :class:`FusedAttention`, the counterpart of JAX's
-``custom_vjp`` (``_fused_attention_fwd`` / ``_fused_attention_bwd``): its
-forward is the same dispatch (the kernel on the card), it saves only q,
-k, v and the mask, and its backward, :func:`attention_backward`,
-recomputes the fp32 logits and softmax from them with torch ops, as JAX's
-backward is the XLA VJP of ``_attention_xla``.  The mask takes no
+``custom_vjp`` (``_fused_attention_fwd`` / ``_fused_attention_bwd``).  On
+the CPU its forward is the plain version, it saves only q, k, v and the
+mask, and its backward, :func:`attention_backward`, recomputes the fp32
+logits and softmax from them with torch ops, as JAX's backward is the XLA
+VJP of ``_attention_xla``.  On the card its forward is the kernel, which
+also writes each row's log-sum-exp ([B, H, L] fp32) and, for bf16, the
+rest of its fp32 output (bf16, [B, L, H, D]); it saves those and its
+output beside q, k, v and the mask (no [B, H, L, L] tensor), and its
+backward is the backward kernel pair of ``csrc/attention.cu``'s
+``mmvid_attention_bwd`` (:func:`attention_backward_kernel`: bf16 on the
+tensor cores in ``csrc/attention_bwd_sm90.cu``, fp32 on the CUDA cores in
+``csrc/attention_bwd_fp32_sm90.cu``), or raises.  The mask takes no
 gradient.  The quantized variants refuse grad: the int8 one is serving
 only (C1), and ``MMVID_ATTN_BF16=1`` rounds the probabilities that the
-fp32 recompute does not, so its gradients would not be the forward's.
+backward's fp32 softmax does not, so its gradients would not be the
+forward's.
 JAX refuses both flags in training only under ``MMVID_PALLAS_ATTN=1``,
 the only place it reads them; the port's card path always runs the
 kernel, so it refuses them whenever grad is on, on either device.
@@ -49,15 +58,31 @@ launches = 0
 # FusedAttention backward calls since the last reset, on either device
 # (breakdown.measure_train reads them a training step)
 backward_calls = 0
+# Launches of the backward kernels since the last reset: one a backward
+# call on the card (its two launches, the query pass and the key pass)
+backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-# mmvid_attention_fwd's argument types (csrc/attention.cu); the fp32
-# kernel's entry at a given tile takes the same, the tile's rows in the
-# dtype's place
+# the fp32 kernel's entry at a given tile (csrc/attention_fp32_sm90.cu's
+# mmvid_attention_fp32_at)
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
              + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+# mmvid_attention_fwd's (csrc/attention.cu): the same with the backward's
+# statistics (lse, out_lo and lse's row stride) after out
+_FWD_ARGTYPES = (_ARGTYPES[:8] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                 + _ARGTYPES[8:])
+# mmvid_attention_bwd's
+_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+# the row statistics' row stride is L rounded up to a whole key tile
+_STAT_TILE = 64
+# the fp32 backward's key pass writes dq's partials, one [B, H, L, D] a
+# block of this many keys (kBlock, csrc/attention_bwd_fp32_sm90.cu)
+_FP32_BWD_KEY_BLOCK = 128
 _fn = None
+_bwd_fn = None
 
 
 class AttentionMask(NamedTuple):
@@ -109,10 +134,20 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.library().mmvid_attention_fwd
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _FWD_ARGTYPES
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _build.library().mmvid_attention_bwd
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def fp32_tile_rows(b: int, l: int, h: int) -> int:
@@ -223,24 +258,101 @@ def attention_backward(q, k, v, mask, scale, g):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def stats_stride(l: int) -> int:
+    """The row stride of the kernels' [B, H, stride] row statistics: L
+    rounded up to a whole 64-key tile, so that the backward's key pass
+    reads a tile's statistics whole."""
+    return -(-l // _STAT_TILE) * _STAT_TILE
+
+
+def _fits_kernel(t, chunk: int) -> bool:
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % chunk == 0 for st in t.stride()[:3]))
+
+
+def attention_backward_kernel(q, k, v, mask, scale, g, out, lse,
+                              out_lo=None):
+    """(dq, dk, dv) in q's dtype, contiguous [B, L, H, D]: the backward
+    kernels (``mmvid_attention_bwd``; bf16: a query pass writes each row's
+    delta = g . O and dq, a key pass dk and dv; fp32: delta, then a key
+    pass writes dk, dv and dq's partials a block of keys, then dq their
+    ordered sum) on CUDA tensors, from
+    the forward kernel's output ``out``, row statistics ``lse`` ([B, H,
+    stats_stride(L)] fp32, base 2) and, for bf16, ``out_lo``, the rest of
+    its fp32 output (O = out + out_lo).  The function of
+    :func:`attention_backward`, which is its plain version.  Raises on
+    what the kernels do not take, before any launch."""
+    global backward_launches
+    _check_cuda_args(q, k, v, mask)
+    b, l, h, d = q.shape
+    chunk = 8 if q.dtype == torch.bfloat16 else 4
+    # autograd may hand a cotangent of any strides (an expanded zero, say)
+    if g.dtype != q.dtype or g.shape != q.shape or g.device != q.device:
+        raise ValueError(f'cotangent {g.device}/{g.dtype}/{tuple(g.shape)} '
+                         f'does not match q')
+    if not _fits_kernel(g, chunk):
+        g = g.contiguous()
+    ld = stats_stride(l)
+    if (out.dtype != q.dtype or out.shape != q.shape
+            or not _fits_kernel(out, chunk)):
+        raise ValueError('out: the forward kernel\'s output, [B, L, H, D] '
+                         "in q's dtype")
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, ld)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f'lse: fp32 [B, H, {ld}] on q\'s device')
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 != (out_lo is not None) or (bf16 and (
+            out_lo.dtype != q.dtype or out_lo.stride() != out.stride()
+            or out_lo.shape != out.shape or not _fits_kernel(out_lo, 8))):
+        raise ValueError("out_lo: bf16 q's forward rest, in out's layout; "
+                         'none for fp32')
+    dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty_like(lse)
+    scratch = None if bf16 else torch.empty(
+        -(-l // _FP32_BWD_KEY_BLOCK) * b * h * l * d, dtype=torch.float32,
+        device=q.device)
+    ts = (q, k, v, out, g, dq, dk, dv)
+    ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in ts),
+                                 out_lo.data_ptr() if bf16 else None)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in ts for s in t.stride()[:3]))
+    rc = _bwd_kernel()(_DTYPE_CODES[q.dtype], d, ptrs, mask.data_ptr(),
+                       lse.data_ptr(), delta.data_ptr(),
+                       None if bf16 else scratch.data_ptr(), b, l, h, ld,
+                       strides, float(scale), _build.stream_handle(q.device))
+    _build.check(rc, 'attention backward kernel launch')
+    backward_launches += 1
+    return dq, dk, dv
+
+
 class FusedAttention(torch.autograd.Function):
-    """:func:`fused_attention_blhd` with a backward: the forward is the
-    dispatch (the kernel for CUDA tensors, the plain version on the CPU),
-    the backward :func:`attention_backward`."""
+    """:func:`fused_attention_blhd` with a backward: on the CPU the plain
+    forward and :func:`attention_backward`; on the card the forward kernel
+    (with the row statistics) and :func:`attention_backward_kernel`."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, scale):
-        ctx.save_for_backward(q, k, v, mask)
         ctx.scale = scale
+        if q.device.type == 'cuda':
+            out, lse, out_lo = _launch(q, k, v, mask, scale, False,
+                                       with_lse=True)
+            ctx.save_for_backward(q, k, v, mask, out, lse, out_lo)
+            return out
+        ctx.save_for_backward(q, k, v, mask)
         return _dispatch(q, k, v, mask, scale, None, False, False)
 
     @staticmethod
     def backward(ctx, g):
         global backward_calls
         backward_calls += 1
-        q, k, v, mask = ctx.saved_tensors
-        return (*attention_backward(q, k, v, mask, ctx.scale, g), None,
-                None)
+        saved = ctx.saved_tensors
+        if g.device.type == 'cuda':
+            grads = attention_backward_kernel(*saved[:4], ctx.scale, g,
+                                              *saved[4:])
+        else:
+            grads = attention_backward(*saved, ctx.scale, g)
+        return (*grads, None, None)
 
 
 def fused_attention_blhd(q, k, v, mask=None):
@@ -273,8 +385,6 @@ def fused_attention_blhd(q, k, v, mask=None):
 
 
 def _dispatch(q, k, v, mask, scale, compact, int8, bf16_p):
-    global launches
-    b, l, h, d = q.shape
     if q.device.type == 'cpu':
         if int8:
             return attention_int8.attention_int8_reference(q, k, v, mask,
@@ -283,16 +393,34 @@ def _dispatch(q, k, v, mask, scale, compact, int8, bf16_p):
     if q.device.type != 'cuda':
         raise ValueError(f'no {"int8 " if int8 else ""}attention path for '
                          f'device {q.device}')
-    _check_cuda_args(q, k, v, mask, int8)
     if int8:
+        _check_cuda_args(q, k, v, mask, int8)
         return attention_int8.launch(q, k, v, mask, scale, compact)
+    return _launch(q, k, v, mask, scale, bf16_p)
+
+
+def _launch(q, k, v, mask, scale, bf16_p, with_lse=False):
+    """The forward kernel on CUDA tensors; with ``with_lse`` (out, lse,
+    out_lo): also each row's log-sum-exp in base 2, [B, H,
+    stats_stride(L)] fp32, and for bf16 the rest of the fp32 output,
+    bf16(O - out), in out's layout (None for fp32): the backward's row
+    statistics and the O of its delta."""
+    global launches
+    _check_cuda_args(q, k, v, mask)
+    b, l, h, d = q.shape
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, stats_stride(l)), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
+    out_lo = (torch.empty_like(out) if with_lse and q.dtype == torch.bfloat16
+              else None)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     rc = _kernel()(_DTYPE_CODES[q.dtype], d, int(bf16_p), q.data_ptr(),
                    k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                   out.data_ptr(), b, l, h, strides, float(scale),
-                   _build.stream_handle(q.device))
+                   out.data_ptr(), None if lse is None else lse.data_ptr(),
+                   None if out_lo is None else out_lo.data_ptr(),
+                   0 if lse is None else lse.shape[-1], b, l, h, strides,
+                   float(scale), _build.stream_handle(q.device))
     _build.check(rc, 'attention kernel launch')
     launches += 1
-    return out
+    return (out, lse, out_lo) if with_lse else out

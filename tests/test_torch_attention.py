@@ -55,9 +55,11 @@ def _bf16_qkv(seed, b, l, h, d):
             [jnp.asarray(x).astype(jnp.bfloat16) for x in xs])
 
 
-def kernel_emulation(q, k, v, mask, bf16_probs=False):
+def kernel_emulation(q, k, v, mask, bf16_probs=False, fp32_out=False):
     """The tensor-core kernel's arithmetic on the CPU: q, k, v bf16 [B, L,
-    H, D], mask fp32 [L, L] -> bf16 [B, L, H, D].  Query tiles of 128 rows,
+    H, D], mask fp32 [L, L] -> bf16 [B, L, H, D] (``fp32_out``: the fp32
+    output before its rounding, of which the kernel writes the rest for
+    the backward when grad is on).  Query tiles of 128 rows,
     key tiles of 64 (keys >= L: zero K/V rows, logit -inf), S = Q.K^T in
     fp32 from bf16 operands, logits in base 2 (scale and mask times
     log2(e)), an online softmax, P.V with fp32 sums from bf16 P_hi and
@@ -91,7 +93,8 @@ def kernel_emulation(q, k, v, mask, bf16_probs=False):
                 o = o + (p - p_hi).bfloat16().float() @ vt
             m = mx
         out[:, :, r0:r0 + 128] = o / lsum[..., None]
-    return out.permute(0, 2, 1, 3).bfloat16()
+    out = out.permute(0, 2, 1, 3)
+    return out if fp32_out else out.bfloat16()
 
 
 def _qkv(seed, b=2, l=139, h=2, d=32):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    ATTN_BWD_NORM_TOL,
     ATTN_BWD_TOL,
     ATTN_TOL,
     FP32_TILE_ROWS,
@@ -204,8 +205,9 @@ def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
     backward, so on the card a call with grad enabled and an input that
     requires grad raises (serving only) and launches nothing; under
     no_grad they run.  The attention kernel has one since training came
-    (ops.attention.FusedAttention): with grad it launches its forward and
-    gives autograd's gradients through the plain version."""
+    (ops.attention.FusedAttention): with grad it launches its forward,
+    then its backward kernels once, within ATTN_BWD_TOL of autograd
+    through the plain version."""
     if int8_flag:
         monkeypatch.setenv('MMVID_ATTN_INT8', '1')
     else:
@@ -215,13 +217,16 @@ def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
                            ).bfloat16() for _ in range(3))
     q.requires_grad_(True)
     counts = (A.launches, A8.launches, Q.launches)
+    bwd = A.backward_launches
     if int8_flag:
         with pytest.raises(RuntimeError, match='serving only'):
             A.fused_attention_blhd(q, k, v)
+        assert A.backward_launches == bwd
     else:
         cot = torch.randn((2, 37, 2, 64), generator=g, device=cuda_device
                           ).bfloat16()
         got = torch.autograd.grad(A.fused_attention_blhd(q, k, v), q, cot)[0]
+        assert A.backward_launches == bwd + 1
         want = torch.autograd.grad(A.attention_reference(
             q, k, v, torch.zeros((37, 37), device=cuda_device), 0.125),
             q, cot)[0]
@@ -253,10 +258,11 @@ def test_kernels_refuse_grad(cuda_device, monkeypatch, int8_flag):
                                         (565, 'causal', None),
                                         (629, 'causal', None)])
 def test_attention_backward_matches_plain(cuda_device, dtype, l, kind, idx):
-    """Attention's backward (FusedAttention: the kernel's forward, the
-    fp32 recompute) against autograd through attention_reference, on the
-    packed strided views, B16 H12 D64 (chip_smoke.phase_attention_backward's
-    shapes): d qkv within ATTN_BWD_TOL * (1 + |plain|)."""
+    """Attention's backward (FusedAttention: the forward kernel with its
+    row statistics, then the backward kernels) against autograd through
+    attention_reference, on the packed strided views, B16 H12 D64
+    (chip_smoke.phase_attention_backward's shapes): d qkv within
+    ATTN_BWD_TOL * (1 + |plain|); one forward and one backward launch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     b, h, d = 16, 12, 64
     mask = build_attention_mask(l, kind, index=idx, device=cuda_device)
@@ -264,14 +270,114 @@ def test_attention_backward_matches_plain(cuda_device, dtype, l, kind, idx):
     qkv = torch.randn((b, l, 3 * h * d), generator=g,
                       device=cuda_device).to(dtype)
     cot = torch.randn((b, l, h, d), generator=g, device=cuda_device).to(dtype)
-    before = A.launches
+    before, bwd = A.launches, A.backward_launches
     got = _packed_grads(A.fused_attention_blhd, qkv, cot, mask)
-    assert A.launches == before + 1
+    assert (A.launches, A.backward_launches) == (before + 1, bwd + 1)
     want = _packed_grads(lambda q, k, v, m: A.attention_reference(
         q, k, v, m, d ** -0.5), qkv, cot, mask)
     err = ((got.float() - want.float()).abs()
            / (1 + want.float().abs())).max().item()
     assert err <= ATTN_BWD_TOL[str(dtype).split('.')[-1]], err
+
+
+def _backward_inputs(device, b, l, h, d, dtype, kind, idx, seed):
+    """q, k, v packed views, the mask, the cotangent, and the forward
+    kernel's output and statistics (ops.attention._launch with_lse)."""
+    q, k, v = _packed_qkv(torch.Generator(device=device).manual_seed(seed),
+                          device, b, l, h, d, dtype)
+    mask = build_attention_mask(l, kind, index=idx, device=device)
+    cot = torch.randn((b, l, h, d), generator=torch.Generator(
+        device=device).manual_seed(seed + 1), device=device).to(dtype)
+    out, lse, out_lo = A._launch(q, k, v, mask, d ** -0.5, False,
+                                 with_lse=True)
+    return q, k, v, mask, cot, out, lse, out_lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('b,l,h,d,kind,idx', [
+    (2, 29, 2, 32, 'mask_prev', (9, 10)),
+    (2, 130, 2, 64, 'mask_prev', (100, 101)),   # a wholly masked first tile
+    (3, 139, 2, 32, 'causal', None),
+    (1, 1, 2, 64, 'causal', None),
+    (2, 516, 12, 64, 'mask_prev', (3, 4)),
+    (16, 626, 12, 64, 'causal', None)])
+def test_attention_backward_kernel_matches_plain(cuda_device, dtype, b, l, h,
+                                                 d, kind, idx):
+    """The backward kernels against attention_backward (their plain
+    version) on the same packed views, D 32 and 64, ragged L: dq, dk, dv
+    within ATTN_BWD_TOL * (1 + |plain|) and, where L > 1 (at L 1 dq and dk
+    are 0 up to rounding), ATTN_BWD_NORM_TOL normwise; two calls equal bit
+    for bit; one backward launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask, cot, out, lse, out_lo = _backward_inputs(
+        cuda_device, b, l, h, d, dtype, kind, idx, l + d)
+    before = A.backward_launches
+    got = A.attention_backward_kernel(q, k, v, mask, d ** -0.5, cot, out,
+                                      lse, out_lo)
+    again = A.attention_backward_kernel(q, k, v, mask, d ** -0.5, cot, out,
+                                        lse, out_lo)
+    assert A.backward_launches == before + 2
+    want = A.attention_backward(q, k, v, mask, d ** -0.5, cot)
+    tol = ATTN_BWD_TOL[str(dtype).split('.')[-1]]
+    norm_tol = ATTN_BWD_NORM_TOL[str(dtype).split('.')[-1]]
+    for x, y, w in zip(got, again, want):
+        assert x.dtype == dtype and x.shape == (b, l, h, d)
+        assert torch.equal(x, y)
+        err = ((x.float() - w.float()).abs()
+               / (1 + w.float().abs())).max().item()
+        assert err <= tol, err
+        if l > 1:
+            norm = ((x.float() - w.float()).norm()
+                    / w.float().norm()).item()
+            assert norm <= norm_tol, norm
+
+
+@pytest.mark.cuda
+def test_attention_backward_kernel_rejects_bad_inputs(cuda_device):
+    """What the backward kernels do not take raises before a launch: a
+    head dim other than 32 or 64, statistics of the wrong shape, bf16
+    without the forward's output rest, fp32 with one, a cotangent of
+    another dtype, fp16."""
+    q, k, v, mask, cot, out, lse, out_lo = _backward_inputs(
+        cuda_device, 2, 37, 2, 64, torch.bfloat16, 'causal', None, 5)
+    before = A.backward_launches
+    bad = [(q, k, v, mask, 0.125, cot, out, lse[..., :37], out_lo),
+           (q, k, v, mask, 0.125, cot, out, lse, None),
+           (q, k, v, mask, 0.125, cot.float(), out, lse, out_lo),
+           (q.half(), k.half(), v.half(), mask, 0.125, cot.half(),
+            out.half(), lse, out_lo.half())]
+    f32 = [t.float() for t in (q, k, v)]
+    bad.append((*f32, mask, 0.125, cot.float(), out.float(), lse, out_lo))
+    q16 = torch.zeros((2, 37, 2, 16), device=cuda_device)
+    bad.append((q16, q16, q16, mask, 0.25, q16, q16,
+                torch.zeros((2, 2, 64), device=cuda_device), None))
+    for args in bad:
+        with pytest.raises(ValueError):
+            A.attention_backward_kernel(*args)
+    assert A.backward_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+def test_attention_saves_no_square_tensor_on_the_card(cuda_device, dtype):
+    """On the card FusedAttention saves q, k, v, the mask, its output, the
+    [B, H, L] row statistics and (bf16) the output's rest: no [B, H, L, L]
+    tensor outlives the forward."""
+    b, l, h, d = 2, 37, 2, 64
+    q, k, v = _packed_qkv(torch.Generator(device=cuda_device).manual_seed(4),
+                          cuda_device, b, l, h, d, dtype)
+    q.requires_grad_(True)
+    mask = build_attention_mask(l, 'causal', device=cuda_device)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
+        A.fused_attention_blhd(q, k, v, mask)
+    want = [(b, l, h, d)] * (5 if dtype == torch.bfloat16 else 4) + [
+        (l, l), (b, h, A.stats_stride(l))]
+    assert sorted(saved) == sorted(want)
 
 
 @pytest.mark.cuda
@@ -281,7 +387,8 @@ def test_train_step_launch_counts(cuda_device):
     forward again) and the nearest-code kernel twice (the targets, the
     warped frame); ART-V's tiny build its layers and once: the per-block
     counts of chip_smoke.TRAIN_LAUNCHES; attention's backward once a block
-    a forward (chip_smoke.TRAIN_BACKWARD_CALLS)."""
+    a forward (chip_smoke.TRAIN_BACKWARD_CALLS), each call one launch of
+    the backward kernels."""
     from mmvid_tpu_torch import breakdown, factories, training
     from mmvid_tpu_torch.breakdown import KERNELS
 
@@ -295,6 +402,7 @@ def test_train_step_launch_counts(cuda_device):
         for mod in KERNELS.values():
             mod.launches = 0
         KERNELS['attention'].backward_calls = 0
+        KERNELS['attention'].backward_launches = 0
         state, m = step(state, data,
                         torch.Generator(device=cuda_device).manual_seed(0))
         assert torch.isfinite(m['loss'])
@@ -305,6 +413,8 @@ def test_train_step_launch_counts(cuda_device):
         assert {n: mod.launches for n, mod in KERNELS.items()} == want
         assert KERNELS['attention'].backward_calls == (
             TRAIN_BACKWARD_CALLS[path] // 12 * model.cfg.clip.layers)
+        assert KERNELS['attention'].backward_launches == (
+            KERNELS['attention'].backward_calls)
 
 
 @pytest.mark.cuda
