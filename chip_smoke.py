@@ -170,7 +170,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
     unchanged, the files written, attention's backward calls and kernel
     launches exact (the kernels on the run's own inputs against their
     plain version), the kernels launched; step ms, loader wait, idle
-    share, save seconds and bytes, peak memory.
+    share, save seconds and bytes, peak memory.  Then data parallelism
+    (``mmvid_tpu_torch/parallel/``): the same training flags over NCCL
+    at world size 1 (``--multiprocessing_distributed``'s rank in this
+    process for iterations 0-2, resumed for 3 under the profiler, then
+    resumed for 4 through the driver's own spawn), each iteration's
+    metrics equal to the one-device run's, bit for bit; both steps' ms,
+    peak memory, NCCL's device time in the profiled iteration.  Then two
+    ranks pinned to the one card over gloo (asked for: NCCL refuses two
+    ranks on a device): the flagship's training step at global batch 48,
+    24 a rank, against the one-rank step at 48 on the same weights and
+    generator, in fp32 (TF32 off) and in bf16 compute, within
+    ``DDP_TOL`` at step 1 (the loss and its terms, grad_norm, the reduced
+    gradient normwise); the ranks' parameters bit-identical after 3
+    steps; the planted naive DDP (per-rank means averaged) out of the
+    fp32 tolerance; each rank's launches those of 3 training steps (B1
+    72, B3 2, B1-bwd 36 a step) and its captured backward held against
+    the plain version at batch 24.  (``phase_train_ddp_cards``, which
+    needs several cards and is not run here, takes the driver over NCCL
+    on every visible card against one card.)
 19. the test driver (``mmvid_tpu_torch.test.main_worker``) on
     ``text_to_video/test.sh``'s flags, sampling the training run's latest
     checkpoint: videos finite in [0, 1], the grid written, the kernels
@@ -3138,7 +3156,7 @@ def phase_train_driver(batch: int = 48):
             '--log_root', logs, '--iters', str(DRIVER_ITERS),
             '--save_every_n_steps', str(DRIVER_SAVE_EVERY),
             '--sample_every', str(DRIVER_SAVE_EVERY), '--log_every', '1',
-            '--bf16', '--batch_size', str(batch)]
+            '--bf16', '--batch_size', str(batch), '--deterministic']
         args = process_args(train=True, argv=argv)
         run_dir = os.path.join(logs, args.name)
         alone = loader_alone(args)
@@ -3268,6 +3286,9 @@ def phase_train_driver(batch: int = 48):
                'idle_share': idle['idle_share'],
                'save_s': save['save_s'], 'save_bytes': save['save_bytes'],
                'peak_memory_bytes': peak, 'launches': counts,
+               'metrics': {**_driver_metrics(record),
+                           **_driver_metrics(rec2)},
+               'step_s': [r['step_s'] for r in record['iters']],
                'attention_backward_calls': calls,
                'attention_backward_launches': bl, 'checked': checked,
                'loader_alone': alone,
@@ -3280,6 +3301,532 @@ def phase_train_driver(batch: int = 48):
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+
+
+# Data parallelism (``mmvid_tpu_torch/parallel/``).  The training driver
+# over NCCL at world size 1: iterations 0-5 in this process, 6 resumed
+# under the profiler, 7 resumed through --multiprocessing_distributed's
+# spawn, against phase_train_driver's one-device run of the same flags
+# (0-5, resumed 6-7), iteration by iteration (a one-rank sum changes no
+# value: exactly equal)
+DDP_NCCL_ITERS = (DRIVER_ITERS, DRIVER_ITERS + 1, DRIVER_RESUME_ITERS)
+DDP_ALL_REDUCE_CALLS = 5
+# two ranks on the one card over gloo (asked for: NCCL refuses two ranks
+# on one device), the flagship's training step at global batch 48
+DDP_RANKS, DDP_BATCH, DDP_STEPS = 2, 48, 3
+# The two-rank step against the one-rank step at batch 48, step 1, on the
+# same weights and generator: the relative gaps of the loss and of each of
+# its terms, of grad_norm, and the reduced gradient's normwise gap
+# (through Adam's first moment, 0.1 x the clipped gradient).  Written with
+# the predicted readings before the run that reads them:
+# * fp32 (train.sh's own precision; TF32 off in the ranks): each row's
+#   arithmetic is the one-rank step's and only the batch's sums run in
+#   another order: about 1e-7 for the losses and grad_norm, 1e-6 for the
+#   gradient;
+# * bf16 compute: each rank's weight gradients round to bf16 before the
+#   ranks' fp32 sum, about 2^-9 an element: the gradient about 3e-3
+#   normwise, grad_norm 1e-4, the losses 1e-6 (the forward rows are the
+#   one-rank step's).
+DDP_TOL = {'float32': {'loss': 1e-5, 'grad_norm': 1e-5, 'gradient': 1e-4},
+           'bfloat16': {'loss': 1e-3, 'grad_norm': 2e-3, 'gradient': 2e-2}}
+# The planted fault, a naive DDP (every normaliser a rank's own count, the
+# ranks' mean losses averaged), must leave the fp32 tolerances: predicted
+# about 3e-3 on the gradient normwise and 2e-5 on the loss (this
+# configuration at the tiny size on the CPU read 2.96e-3 and 2.0e-5).  At
+# random init the ranks' halves of the batch pull alike, so bf16's
+# rounding of the gradient would hide it: the fault runs in fp32.
+DDP_METRICS = ('loss', 'loss_msm', 'loss_rel', 'loss_vid')
+DDP_TIMEOUT_S = 900
+
+
+def _driver_metrics(record) -> dict:
+    """iteration -> the metrics a driver run logged there."""
+    return {r['iter']: r['metrics'] for r in record['iters']
+            if 'metrics' in r}
+
+
+def _all_reduce_ms(dp, shapes) -> dict:
+    """``dp.all_reduce_`` over fp32 tensors of the trainable parameters'
+    ``shapes``, as the step sums its gradients: ms a call (CUDA events
+    around DDP_ALL_REDUCE_CALLS calls after a warm-up), the values, the
+    bytes and the tensors."""
+    import torch
+    ts = [torch.ones(shape, device=dp.device) for shape in shapes]
+    dp.all_reduce_(ts)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(DDP_ALL_REDUCE_CALLS):
+        dp.all_reduce_(ts)
+    end.record()
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in ts)
+    return {'ms': start.elapsed_time(end) / DDP_ALL_REDUCE_CALLS,
+            'values': n, 'bytes': 4 * n, 'tensors': len(ts)}
+
+
+def _nccl_ms(prof, annotation: str) -> dict:
+    """NCCL's device time inside the ``annotation`` windows of a finished
+    profile, the windows' span (ms) and the NCCL kernels' names."""
+    from torch.autograd import DeviceType
+
+    from mmvid_tpu_torch import breakdown
+    events = prof.profiler.kineto_results.events()
+    wins = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+            if e.name() == annotation and e.device_type() == DeviceType.CPU]
+    nccl = [d for d in breakdown.device_events(events, annotation)
+            if 'nccl' in d[2].lower()]
+    return {'nccl_ms': sum(breakdown.busy_ns(nccl, lo, hi)
+                           for lo, hi in wins) / 1e6,
+            'span_ms': sum(hi - lo for lo, hi in wins) / 1e6,
+            'windows': len(wins),
+            'nccl_kernels': sorted({d[2] for d in nccl})}
+
+
+def phase_train_ddp_nccl(tmp: str, one_device: dict):
+    """The training driver over NCCL at world size 1, on
+    phase_train_driver's flags (``text_to_video/train.sh``, ``--bf16``,
+    batch 48, ``--deterministic``), tree and VQGAN: the rank that
+    ``--multiprocessing_distributed`` spawns run in this process
+    (``mesh.init`` and ``main_worker``, as ``train.spawned_rank`` runs
+    them) for iterations 0-5, resumed for iteration 6 under the profiler,
+    then ``train.launch`` with ``--multiprocessing_distributed
+    --auto_resume`` (one spawned rank a visible GPU) for iteration 7
+    (DDP_NCCL_ITERS).  Gates: every iteration's metrics equal
+    ``one_device``'s (iteration -> metrics of phase_train_driver's run)
+    exactly, the last's logged line equal; the resumed starts;
+    attention's backward launches exact and the kernels launched.
+    Reports both steps' ms (and each iteration's), the peak memory, the
+    gradient all-reduce's ms a step (CUDA events over ``dp.all_reduce_``
+    on the core's shapes) and NCCL's device time in the profiled
+    iteration (none at world size 1: a one-rank all-reduce launches no
+    kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmvid_tpu_torch import train as driver
+    from mmvid_tpu_torch import training
+    from mmvid_tpu_torch.config import process_args
+    from mmvid_tpu_torch.parallel import mesh
+
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    logs = os.path.join(tmp, 'ddp_logs')
+    argv = recipe_argv('text_to_video', 'train.sh', {
+        '--image_text_folder': os.path.join(tmp, 'vox_text'),
+        '--vae_path': os.path.join(tmp, 'vae.ckpt')}) + [
+        '--log_root', logs, '--log_every', '1', '--bf16',
+        '--batch_size', str(DDP_BATCH), '--deterministic',
+        '--save_every_n_steps', '100000', '--sample_every', '100000',
+        '--multiprocessing_distributed']
+
+    def args_for(iters, *extra):
+        store = os.path.join(tmp, f'ddp_store_{iters}')
+        return process_args(train=True, argv=argv + [
+            '--iters', str(iters), '--dist_url', f'file://{store}', *extra])
+
+    a0 = args_for(DDP_NCCL_ITERS[0])
+    run_dir = os.path.join(logs, a0.name)
+    shapes = []
+    create = training.create_train_state
+
+    def create_and_see(model, tc):   # the trainable parameters' shapes
+        state = create(model, tc)
+        shapes[:] = [p.shape for p in state.params.values()]
+        return state
+
+    dp = mesh.init('nccl', torch.device('cuda', 0), 0, 1, a0.dist_url)
+    try:
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        training.create_train_state = create_and_see
+        try:
+            rec = driver.main_worker(a0, dp)
+        finally:
+            training.create_train_state = create
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        bl = backward_launches()
+        reduce = _all_reduce_ms(dp, shapes)
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(run_dir, 'weights',
+                                   str(DDP_NCCL_ITERS[0])))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rec_p = driver.main_worker(
+                args_for(DDP_NCCL_ITERS[1], '--auto_resume'), dp)
+            torch.cuda.synchronize()
+    finally:
+        mesh.shutdown()
+    shutil.rmtree(os.path.join(run_dir, 'weights', str(DDP_NCCL_ITERS[1])))
+    torch.cuda.empty_cache()
+    nccl = _nccl_ms(prof, 'mmvid_train_iter')
+    del prof
+    t0 = time.perf_counter()
+    driver.launch(args_for(DDP_NCCL_ITERS[2], '--auto_resume'))
+    spawn_s = time.perf_counter() - t0
+    got = _driver_metrics(rec)
+    got.update(_driver_metrics(rec_p))
+    logged = _driver_losses(run_dir)
+    shutil.rmtree(os.path.join(run_dir, 'weights'))
+    step_ms, wait_ms = _steady(rec)
+    res = {'batch': DDP_BATCH, 'step_ms': step_ms, 'loader_wait_ms': wait_ms,
+           'one_device_step_ms': one_device['step_ms'],
+           'peak_memory_bytes': peak,
+           'one_device_peak_memory_bytes': one_device['peak_memory_bytes'],
+           'launches': counts, 'attention_backward_launches': bl,
+           'profiled_iteration': nccl, 'gradient_all_reduce': reduce,
+           'spawned_resume_s': spawn_s,
+           'step_s': [r['step_s'] for r in rec['iters']],
+           'one_device_step_s': one_device['step_s'],
+           'starts': [rec['start_iter'], rec_p['start_iter']]}
+    print(f'[train ddp nccl] world size 1 over NCCL at batch {DDP_BATCH}: '
+          f'step {step_ms:.2f} ms (iterations 1-{DDP_NCCL_ITERS[0] - 1}; '
+          f'the one-device driver {one_device["step_ms"]:.2f} ms), loader '
+          f'wait {wait_ms:.3f} ms; peak memory {peak} B (one device '
+          f'{one_device["peak_memory_bytes"]} B); the gradient\'s '
+          f'all-reduce {reduce["ms"]:.3f} ms a step ({reduce["bytes"]} B '
+          f'in {reduce["tensors"]} tensors); the profiled iteration '
+          f'{nccl["span_ms"]:.3f} ms, NCCL kernels {nccl["nccl_ms"]:.3f} '
+          f'ms of it ({nccl["nccl_kernels"]}); the spawned resume '
+          f'{spawn_s:.2f} s (the process, the model and one step); each '
+          f'iteration\'s step {res["step_s"]} s (one device '
+          f'{one_device["step_s"]}); launches {counts}, '
+          f'attention backward launches {bl}; metrics {got}; logged '
+          f'losses {logged}', flush=True)
+    print(f'[train ddp nccl] {json.dumps(res)}', flush=True)
+    want = one_device['metrics']
+    for it in range(DDP_NCCL_ITERS[1]):
+        if got.get(it) != want.get(it):
+            fail(f'train ddp nccl: iteration {it} metrics {got.get(it)} != '
+                 f'the one-device run\'s {want.get(it)}')
+    last = DDP_NCCL_ITERS[2] - 1
+    if sorted(logged) != list(range(DDP_NCCL_ITERS[2])) or \
+            f'{logged[last]:.4f}' != f'{want[last]["loss"]:.4f}':
+        fail(f'train ddp nccl: the spawned resume logged {logged}, the '
+             f'one-device run {want.get(last)} at iteration {last}')
+    if res['starts'] != [0, DDP_NCCL_ITERS[0]]:
+        fail(f'train ddp nccl: starts {res["starts"]}')
+    if bl != _backward_calls(a0, DDP_NCCL_ITERS[0]):
+        fail(f'train ddp nccl: attention backward launches {bl} != '
+             f'{_backward_calls(a0, DDP_NCCL_ITERS[0])}')
+    for name in ('attention', 'codebook'):
+        if counts[name] <= 0:
+            fail(f'train ddp nccl: {name} launched no time')
+    return res
+
+
+def _naive_ddp(device, group=None):
+    """The planted fault: a DataParallel whose every normaliser is the
+    rank's own count, so the gradients' sum over the ranks descends the
+    mean of the ranks' mean losses, as a naive DDP does."""
+    from mmvid_tpu_torch.parallel import mesh
+
+    class NaiveDDP(mesh.DataParallel):
+        def total(self, t):
+            return t.detach() * self.world
+
+    return NaiveDDP(device, group)
+
+
+def _ddp_gaps(a, b) -> dict:
+    """(metrics, flat first moment) a against b: the relative gap of each
+    metric and the moment's normwise gap."""
+    import torch
+    (ma, mua), (mb, mub) = a, b
+    gaps = {k: abs(ma[k] - mb[k]) / abs(mb[k]) for k in DDP_METRICS
+            + ('grad_norm',)}
+    gaps['gradient'] = (torch.linalg.vector_norm(mua - mub)
+                        / torch.linalg.vector_norm(mub)).item()
+    return gaps
+
+
+def _ddp_out_of_tol(gaps, dtype) -> list:
+    tol = DDP_TOL[dtype]
+    return [k for k, v in gaps.items()
+            if v > tol['loss' if k in DDP_METRICS else k]]
+
+
+def _ddp_hold(dp, dtype_name: str, planted: bool) -> dict:
+    """One rank of phase_train_ddp_gloo: the flagship's training build in
+    ``dtype_name`` from seed 0 (a spread codebook), the recipe's
+    TrainConfig at a constant lr, the global batch 48 of
+    ``breakdown.train_batch``, this rank's rows.  Step 1 on the ranks; with
+    ``planted`` then steps 2-3 (launches counted, attention's backward
+    captured and held against its plain version), the ranks' parameters
+    compared bit for bit (all-reduced max against min), and step 1 again
+    from the same weights under the naive DDP.  Then rank 0 alone takes
+    the one-rank step at batch 48 from the same weights; it returns the
+    gaps."""
+    import torch
+    import torch.distributed as dist
+
+    from mmvid_tpu_torch import breakdown, factories, training
+    from mmvid_tpu_torch.parallel import mesh
+    dev = dp.device
+    dtype = getattr(torch, dtype_name)
+    model, _ = factories.flagship_train(dtype=dtype, device=dev, seed=0)
+    _spread_codebook([model], 3)
+    tc = breakdown.train_config('train', lr_scheduler='none')
+    data = breakdown.train_batch(model, DDP_BATCH, dev)
+    local = {k: dp.rows(v) for k, v in data.items()}
+    params = list(training.trainable_parameters(model).values())
+    init = [p.detach().clone() for p in params]
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(i)
+
+    def first_step(dpx, batch):
+        with torch.no_grad():
+            for p, q in zip(params, init):
+                p.copy_(q)
+        state = training.create_train_state(model, tc)
+        step = training.make_train_step(model, tc, dpx)
+        state, m = step(state, batch, gen(0))
+        mu = torch.cat([t.reshape(-1) for t in state.opt_state['mu'].values()])
+        return ({k: float(v) for k, v in m.items()}, mu), state, step
+
+    out = {'params': sum(p.numel() for p in params)}
+    reset_counts()
+    t0 = time.perf_counter()
+    with _LaunchCapture(BACKWARD_SITES) as cap:
+        two, state, step = first_step(dp, local)
+        if planted:
+            for i in range(1, DDP_STEPS):
+                state, _ = step(state, local, gen(i))
+        torch.cuda.synchronize()
+    out['steps_s'] = time.perf_counter() - t0
+    if planted:
+        out['launches'] = read_counts()
+        out['attention_backward_launches'] = backward_launches()
+        out['checked'] = check_captured(
+            f'train ddp rank {dp.rank}', cap,
+            {'attention_backward': out['attention_backward_launches']})
+        bits = torch.cat([p.detach().reshape(-1) for p in params]).view(
+            torch.int32)
+        hi, lo = bits.clone(), bits.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        out['bit_identical'] = torch.equal(hi, lo)
+        del bits, hi, lo
+        naive, _, _ = first_step(_naive_ddp(dev), local)
+    del state, step, cap
+    torch.cuda.empty_cache()
+    dp.barrier()
+    if dp.rank == 0:
+        one, _, _ = first_step(mesh.LOCAL, data)
+        out['metrics'] = {'two_ranks': two[0], 'one_rank': one[0]}
+        out['gaps'] = _ddp_gaps(two, one)
+        if planted:
+            out['metrics']['naive'] = naive[0]
+            out['naive_gaps'] = _ddp_gaps(naive, one)
+    del model, init, params
+    torch.cuda.empty_cache()
+    dp.barrier()
+    return out
+
+
+def _ddp_rank(rank: int, world: int, store: str, results):
+    """A rank of phase_train_ddp_gloo (a spawned process): on cuda:0 over
+    gloo, fp32 with the planted fault, then bf16; TF32 off."""
+    import traceback
+    os.environ['GLOO_SOCKET_IFNAME'] = 'lo'
+    try:
+        import torch
+
+        from mmvid_tpu_torch.ops.precision import fp32_exact
+        from mmvid_tpu_torch.parallel import mesh
+        dp = mesh.init('gloo', torch.device('cuda', 0), rank, world,
+                       f'file://{store}')
+        try:
+            with fp32_exact():
+                out = {'float32': _ddp_hold(dp, 'float32', planted=True),
+                       'bfloat16': _ddp_hold(dp, 'bfloat16', planted=False)}
+        finally:
+            mesh.shutdown()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def phase_train_ddp_gloo():
+    """Two ranks on the one card over gloo, each pinned to cuda:0 on
+    purpose (NCCL refuses two ranks on one device; the backend is asked
+    for, never fallen back to): the flagship's training step at global
+    batch 48 (24 a rank) against the one-rank step at 48 on the same
+    weights and generator, in fp32 and in bf16 compute (:func:`_ddp_hold`).
+    Gates: at step 1 every gap within ``DDP_TOL``; after 3 steps the
+    ranks' parameters bit-identical; the planted naive DDP out of the fp32
+    tolerance; each rank's launches over the 3 steps those of 3 flagship
+    training steps (B1 forward 72, B3 2, B1-bwd 36 a step, at batch 24),
+    its captured backward held against its plain version.  The times go
+    through host memory under gloo and are no scaling number."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix='mmvid_ddp_')
+    torch.cuda.empty_cache()
+    ctx = mp.get_context('spawn')
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_ddp_rank, args=(
+        r, DDP_RANKS, os.path.join(tmp, 'store'), results))
+        for r in range(DDP_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        outs = {}
+        for _ in range(DDP_RANKS):
+            r, out = results.get(timeout=DDP_TIMEOUT_S)
+            outs[r] = out
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r, out in outs.items():
+        if isinstance(out, str):
+            fail(f'train ddp gloo: rank {r} failed:\n{out}')
+    r0 = outs[0]
+    res = {'wall_s': wall, 'params': r0['float32']['params'],
+           'gradient_bytes': 4 * r0['float32']['params'],
+           'float32': {k: r0['float32'][k] for k in (
+               'metrics', 'gaps', 'naive_gaps', 'steps_s', 'launches',
+               'attention_backward_launches', 'bit_identical')},
+           'bfloat16': {k: r0['bfloat16'][k] for k in (
+               'metrics', 'gaps', 'steps_s')},
+           'rank1': {k: outs[1]['float32'][k] for k in (
+               'launches', 'attention_backward_launches', 'bit_identical',
+               'steps_s')},
+           'tol': DDP_TOL}
+    print(f'[train ddp gloo] {DDP_RANKS} ranks on cuda:0 over gloo, global '
+          f'batch {DDP_BATCH}: {res["params"]} trainable parameters, '
+          f'{res["gradient_bytes"]} B of fp32 gradient all-reduced a step; '
+          f'step 1 against the one-rank step, relative gaps: fp32 '
+          f'{res["float32"]["gaps"]}, bf16 {res["bfloat16"]["gaps"]} '
+          f'(tolerances {DDP_TOL}); the planted naive DDP (fp32) '
+          f'{res["float32"]["naive_gaps"]}; parameters bit-identical '
+          f'after {DDP_STEPS} steps: rank 0 {res["float32"]["bit_identical"]}'
+          f', rank 1 {res["rank1"]["bit_identical"]}; launches a rank over '
+          f'{DDP_STEPS} steps: {res["float32"]["launches"]} / '
+          f'{res["rank1"]["launches"]}, attention backward '
+          f'{res["float32"]["attention_backward_launches"]} / '
+          f'{res["rank1"]["attention_backward_launches"]}; {DDP_STEPS} '
+          f'fp32 steps {res["float32"]["steps_s"]:.2f} s, one bf16 step '
+          f'{res["bfloat16"]["steps_s"]:.2f} s on rank 0 (gloo through host '
+          f'memory: no scaling number); wall {wall:.1f} s', flush=True)
+    print(f'[train ddp gloo] {json.dumps(res)}', flush=True)
+    for dtype in ('float32', 'bfloat16'):
+        bad = _ddp_out_of_tol(res[dtype]['gaps'], dtype)
+        if bad:
+            fail(f'train ddp gloo: {dtype} step 1 off the one-rank step in '
+                 f'{bad}: {res[dtype]["gaps"]}')
+    if not _ddp_out_of_tol(res['float32']['naive_gaps'], 'float32'):
+        fail(f'train ddp gloo: the planted naive DDP passed the hold: '
+             f'{res["float32"]["naive_gaps"]}')
+    if not (res['float32']['bit_identical'] and
+            res['rank1']['bit_identical']):
+        fail('train ddp gloo: the ranks\' parameters differ after '
+             f'{DDP_STEPS} steps')
+    per_step = TRAIN_LAUNCHES['train']
+    want = expected(**{k: DDP_STEPS * v for k, v in per_step.items()})
+    want_bwd = DDP_STEPS * TRAIN_BACKWARD_CALLS['train']
+    for tag, o in (('rank 0', res['float32']), ('rank 1', res['rank1'])):
+        if o['launches'] != want or \
+                o['attention_backward_launches'] != want_bwd:
+            fail(f'train ddp gloo: {tag} launched {o["launches"]}, '
+                 f'backward {o["attention_backward_launches"]}; want '
+                 f'{want}, {want_bwd}')
+    return res
+
+
+DDP_CARD_ITERS = 4
+# four cards against one at iteration 0, each metric's relative gap (bf16:
+# at 12 rows a rank the GEMMs take other kernels than at 48, so the
+# forward is not the one-card forward bit for bit); the loss read 1.1e-4,
+# grad_norm 7.6e-4 under this bound on four H100s
+DDP_CARDS_TOL = 1e-3
+
+
+def _ddp_card_rank(local: int, nprocs: int, args, results):
+    """A rank of phase_train_ddp_cards: ``train.spawned_rank``, as
+    ``--multiprocessing_distributed`` spawns it; its metrics, step ms and
+    peak memory to ``results``."""
+    import torch
+
+    from mmvid_tpu_torch import train
+    rec = train.spawned_rank(local, nprocs, args)
+    results.put((local, {'metrics': _driver_metrics(rec),
+                         'step_ms': _steady(rec)[0],
+                         'peak': torch.cuda.max_memory_allocated(local)}))
+
+
+def phase_train_ddp_cards():
+    """The training driver over NCCL on every visible card (run alone, on
+    a machine of several cards: ``python -c "import chip_smoke as c;
+    c.phase_device(); c.phase_build(); c.phase_train_ddp_cards()"``),
+    ``text_to_video/train.sh``'s flags with ``--bf16 --deterministic`` at
+    global batch 48, against one rank on one card at 48: every rank's
+    metrics equal, iteration 0 within ``DDP_CARDS_TOL`` of one card's;
+    step ms and peak memory a rank (one call's reading, not a scaling
+    number)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from mmvid_tpu_torch import train
+    from mmvid_tpu_torch.config import process_args
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    tmp = tempfile.mkdtemp(prefix='mmvid_cards_')
+    try:
+        tree = write_driver_data(os.path.join(tmp, 'vox_text'), 48 * 4,
+                                 DRIVER_CLIP_FRAMES, distinct=48)
+        write_vqgan_ckpt(os.path.join(tmp, 'vae.ckpt'), 7)
+        base = recipe_argv('text_to_video', 'train.sh', {
+            '--image_text_folder': tree,
+            '--vae_path': os.path.join(tmp, 'vae.ckpt')}) + [
+            '--iters', str(DDP_CARD_ITERS), '--log_every', '1', '--bf16',
+            '--batch_size', str(DDP_BATCH), '--deterministic',
+            '--save_every_n_steps', '100000', '--sample_every', '100000']
+        args = process_args(train=True, argv=base + [
+            '--log_root', os.path.join(tmp, 'cards'),
+            '--multiprocessing_distributed',
+            '--dist_url', f'file://{tmp}/store'])
+        nprocs = train.spawn_count(args)
+        results = mp.get_context('spawn').Queue()
+        mp.start_processes(_ddp_card_rank, args=(nprocs, args, results),
+                           nprocs=nprocs, start_method='spawn')
+        ranks = dict(results.get() for _ in range(nprocs))
+        torch.cuda.reset_peak_memory_stats(0)
+        rec = train.main_worker(process_args(train=True, argv=base + [
+            '--log_root', os.path.join(tmp, 'one')]))
+        one = {'metrics': _driver_metrics(rec), 'step_ms': _steady(rec)[0],
+               'peak': torch.cuda.max_memory_allocated(0)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gaps = {i: {k: abs(ranks[0]['metrics'][i][k] - v) / abs(v)
+                for k, v in m.items()} for i, m in one['metrics'].items()}
+    same = all(r['metrics'] == ranks[0]['metrics'] for r in ranks.values())
+    res = {'ranks': nprocs, 'rank_results': ranks, 'one_card': one,
+           'relative_gaps': gaps, 'same_metrics_on_every_rank': same}
+    print(f'[train ddp cards] {nprocs} ranks over NCCL at global batch '
+          f'{DDP_BATCH}: every rank logged the same metrics: {same}; '
+          f'against one card, iteration 0\'s relative gaps {gaps[0]}; step '
+          f'{[r["step_ms"] for r in ranks.values()]} ms a rank (one card '
+          f'{one["step_ms"]:.2f} ms), peak {ranks[0]["peak"]} B a rank '
+          f'(one card {one["peak"]} B): one call, no scaling number',
+          flush=True)
+    print(f'[train ddp cards] {json.dumps(res)}', flush=True)
+    if not same or max(gaps[0].values()) > DDP_CARDS_TOL:
+        fail('train ddp cards: the ranks disagree, or differ from one card')
+    return res
 
 
 def phase_test_driver(run_dir: str, tmp: str):
@@ -4823,6 +5370,8 @@ def main():
     eval_res = timed(phase_eval)
     train_driver, run_dir, driver_tmp = timed(phase_train_driver)
     try:
+        ddp_nccl = timed(phase_train_ddp_nccl, driver_tmp, train_driver)
+        ddp_gloo = timed(phase_train_ddp_gloo)
         test_driver = timed(phase_test_driver, run_dir, driver_tmp)
         test_driver_long = timed(phase_test_driver_long, run_dir,
                                  driver_tmp)
@@ -4878,6 +5427,14 @@ def main():
                                       # the drivers' whole runs
                                       'train_driver': train_driver[
                                           'launches'][name],
+                                      # world size 1 over NCCL, its first
+                                      # 3 iterations; a gloo rank's 3 fp32
+                                      # steps at batch 24 (attention: the
+                                      # fp32 route's)
+                                      'train_driver_nccl': ddp_nccl[
+                                          'launches'][name],
+                                      'train_ddp_gloo_rank': ddp_gloo[
+                                          'float32']['launches'][name],
                                       'test_driver': test_driver[
                                           'launches'][name],
                                       **_long_launches(
@@ -4958,10 +5515,14 @@ def main():
                     'train_driver': train_driver[
                         'attention_backward_launches'],
                     'train_driver_text_mask': train_driver['text_mask'][
+                        'attention_backward_launches'],
+                    'train_driver_nccl': ddp_nccl[
                         'attention_backward_launches']}))
             kernels.append(_backward_entry(
                 'float32', attention_bwd, {
                     'text_augment_train': text_augment[
+                        'attention_backward_launches'],
+                    'train_ddp_gloo_rank': ddp_gloo['float32'][
                         'attention_backward_launches']}))
             kernels.append(_fp32_attention_entry(
                 attention_fp32, attention_clip, flagship_fp32, {

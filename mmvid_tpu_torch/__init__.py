@@ -1,7 +1,7 @@
 """mmvid_tpu_torch — the PyTorch/CUDA port of ``mmvid_tpu``.
 
-Mirrors ``mmvid_tpu``'s layout (``models/``, ``ops/``) and names, with
-PyTorch idiom inside: ``nn.Module``s, explicit devices and
+Mirrors ``mmvid_tpu``'s layout (``models/``, ``ops/``, ``parallel/``) and
+names, with PyTorch idiom inside: ``nn.Module``s, explicit devices and
 ``torch.Generator``s, Python loops.  The ops that ``mmvid_tpu`` wrote as
 Pallas kernels are hand-written CUDA kernels here (``csrc/``), each beside
 a plain PyTorch version that the CPU takes.

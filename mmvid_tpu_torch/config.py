@@ -127,14 +127,14 @@ def get_args_base() -> argparse.ArgumentParser:
 
     # ----- the JAX package's additions (not in reference) -----
     add('--mesh_shape', type=str, default=None,
-        help='comma list e.g. "dp=8", "dp=4,tp=2", "dp=2,pp=2,tp=2"; '
-             'default: all devices dp')
+        help='comma list e.g. "dp=8", "dcn=2,dp=4"; default: all devices '
+             'dp; the port trains over dcn x dp ranks (tp, pp > 1 raise)')
     add('--pp_microbatches', type=int, default=2,
         help='GPipe microbatches per step when the mesh has pp>1 '
              '(clamped to a divisor of the batch)')
     add('--seq_parallel', action='store_true',
         help='sequence-shard the residual stream over tp between blocks '
-             '(Megatron-SP style activation sharding)')
+             '(Megatron-SP style activation sharding; not ported: raises)')
     add('--bf16', action='store_true', help='bfloat16 compute policy')
     add('--profile_dir', type=str, default=None,
         help='write a profiler trace of steps 10-15 here')
@@ -148,16 +148,24 @@ def get_args_train(argv=None):
     """Training flags (reference utils/utils_args.py:321-440)."""
     p = get_args_base()
     add = p.add_argument
-    # DDP plumbing flags, accepted for CLI compatibility (one device until
-    # the port's DDP); --workers is shadowed by --num_workers in the
-    # reference's own loaders (train.py:232)
-    add('--rank', type=int, default=0)
+    # data-parallel ranks (mmvid_tpu_torch/parallel/mesh.py), the
+    # reference's DDP flags; --workers is shadowed by --num_workers in the
+    # reference's own loaders (train.py:232), --gpu_ids is accepted and
+    # unused
+    add('--rank', type=int, default=0,
+        help='this node among --world_size (its ranks are rank * GPUs + '
+             'local)')
     add('--gpu_ids', type=int, default=None)
     add('--workers', default=16, type=int)
-    add('--world_size', default=1, type=int)
-    add('--dist_url', default='tcp://localhost:10001', type=str)
-    add('--dist_backend', default='nccl', type=str)
-    add('--multiprocessing_distributed', action='store_true')
+    add('--world_size', default=1, type=int,
+        help='nodes of --multiprocessing_distributed')
+    add('--dist_url', default='tcp://localhost:10001', type=str,
+        help="the ranks' rendezvous under --multiprocessing_distributed")
+    add('--dist_backend', default='nccl', type=str,
+        help='nccl (CUDA devices) or gloo (asked for: never a fallback)')
+    add('--multiprocessing_distributed', action='store_true',
+        help='spawn one data-parallel rank a visible GPU; --batch_size '
+             'stays the global batch')
     add('--save_every_n_steps', default=5000, type=int)
     # beyond-parity: overlap the periodic checkpoint write with training (the
     # reference's torch.save blocks the loop); final/emergency saves stay

@@ -5,9 +5,14 @@ reference's DataLoader(DistributedSampler, workers) (train.py:224-234):
 the loader shards the *index space* per process
 (process_index/process_count) and feeds numpy batches.  Decoding happens
 in a thread pool (the frame core of ``data/png.py`` and zlib release the
-GIL) with a bounded prefetch queue.  One addition: ``infinite_batches``
+GIL) with a bounded prefetch queue.  Two additions: ``infinite_batches``
 can start ``start`` batches in, so a resumed run reads the batches an
-uninterrupted one would have read.
+uninterrupted one would have read; and ``shard='block'``, the training
+driver's over data-parallel ranks, gives each process its block of every
+global batch (``process_count * batch_size`` indices) where JAX's
+strided shard (``'stride'``, the default) gives it every
+``process_count``-th index, so that the ranks' batches, laid end to end
+in rank order, are the batches one process reads at the global batch.
 """
 
 from __future__ import annotations
@@ -52,7 +57,9 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, seed: int = 0, drop_last: bool = True,
                  process_index: int = 0, process_count: int = 1,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shard: str = 'stride'):
+        if shard not in ('stride', 'block'):
+            raise ValueError(f'shard {shard!r}: expected stride or block')
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -62,6 +69,7 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.prefetch = prefetch
+        self.shard = shard
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -75,6 +83,8 @@ class DataLoader:
         if self.shuffle:
             rng = random.Random(self.seed + self.epoch)
             rng.shuffle(idx)
+        if self.shard == 'block':
+            return idx
         # per-host shard (DistributedSampler equivalent); pad with
         # wrap-around so every host sees the SAME number of indices —
         # unequal shards would desync the hosts' collective step loops
@@ -85,9 +95,22 @@ class DataLoader:
         return idx[self.process_index::self.process_count]
 
     def __len__(self):
-        n = len(self._indices())
-        return n // self.batch_size if self.drop_last else \
-            -(-n // self.batch_size)
+        return len(self._batches(self._indices()))
+
+    def _batches(self, idx: List[int]) -> List[List[int]]:
+        """This process's batches of the epoch's indices ``idx`` (with
+        ``'stride'`` already its shard): its slice of each global batch
+        of ``ranks * batch_size`` indices."""
+        ranks = self.process_count if self.shard == 'block' else 1
+        g = self.batch_size * ranks
+        nb = len(idx) // g if self.drop_last else -(-len(idx) // g)
+        if ranks > 1 and len(idx) < nb * g:
+            # the last global batch padded by wrap-around, so every
+            # process reads as many batches
+            idx = (idx * -(-nb * g // len(idx)))[:nb * g]
+        lo = self.process_index * self.batch_size if ranks > 1 else 0
+        return [idx[i * g + lo:i * g + lo + self.batch_size]
+                for i in range(nb)]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self.iter_from(0)
@@ -95,10 +118,7 @@ class DataLoader:
     def iter_from(self, skip: int) -> Iterator[Dict[str, np.ndarray]]:
         """This epoch's batches after the first ``skip``, which are not
         read."""
-        idx = self._indices()
-        nb = len(self)
-        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
-                   for i in range(skip, nb)]
+        batches = self._batches(self._indices())[skip:]
         pool = ThreadPoolExecutor(self.num_workers)
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

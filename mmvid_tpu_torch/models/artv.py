@@ -78,6 +78,7 @@ from mmvid_tpu_torch.ops.artv_decode import (
 )
 from mmvid_tpu_torch.ops.precision import fp32_exact
 from mmvid_tpu_torch.ops.sample_head import gumbel
+from mmvid_tpu_torch.parallel.mesh import LOCAL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,13 +232,14 @@ def _block_mask(cfg: ArtvConfig, device) -> torch.Tensor:
     return torch.as_tensor(logits_block_mask(cfg), device=device)
 
 
-def artv_loss(core: ArtvCore, text, visual_tokens, image_tokens):
+def artv_loss(core: ArtvCore, text, visual_tokens, image_tokens, dp=LOCAL):
     """(loss, 0, 0): the weighted segment cross-entropy of the causal
     forward, text + loss_vis_weight * visual + loss_img_weight * image
     over their sum, each segment's logits restricted to its vocabulary
     range (:func:`logits_block_mask`).  text [B, text_seq_len] raw ids
     (0 = padding), visual_tokens [B, visual_seq_len] (-1 = absent),
-    image_tokens [B, target_seq_len]."""
+    image_tokens [B, target_seq_len].  Over data-parallel ranks (``dp``)
+    each segment's mean is this rank's sum over the global count."""
     cfg = core.cfg
     dev = text.device
     logits = core(text, visual_tokens, image_tokens)
@@ -258,10 +260,15 @@ def artv_loss(core: ArtvCore, text, visual_tokens, image_tokens):
     nll = -torch.log_softmax(logits, dim=-1).gather(
         -1, labels[..., None])[..., 0]
     t, c = cfg.text_seq_len, cfg.control_seq_len
+    n = dp.batch(nll.shape[0])
+
+    def mean(seg):
+        return seg.sum() / (n * seg.shape[1])
+
     zero = torch.zeros((), device=dev)
-    loss_vis = nll[:, t:c].mean() if cfg.num_visuals > 0 else zero
-    loss = (nll[:, :t].mean() + cfg.loss_vis_weight * loss_vis
-            + cfg.loss_img_weight * nll[:, c:].mean()) / (
+    loss_vis = mean(nll[:, t:c]) if cfg.num_visuals > 0 else zero
+    loss = (mean(nll[:, :t]) + cfg.loss_vis_weight * loss_vis
+            + cfg.loss_img_weight * mean(nll[:, c:])) / (
                 cfg.loss_img_weight + cfg.loss_vis_weight + 1.0)
     return loss, zero, zero
 
@@ -644,16 +651,18 @@ class ArtvModel(nn.Module):
         return torch.full((batch, self.cfg.visual_seq_len), -1,
                           dtype=torch.long, device=device)
 
-    def loss(self, generator, *, text, visual=None, target=None, **unused):
+    def loss(self, generator, *, text, visual=None, target=None, dp=LOCAL,
+             **unused):
         """(loss, 0, 0), :func:`artv_loss` on the tokenized control and
         targets (frames through the frozen VQGANs, or ids); the step's
         beta_msm scales it (1 in AR mode, as JAX's config forces).  The
-        mask-predict keywords and ``generator`` are taken and unused."""
+        mask-predict keywords and ``generator`` are taken and unused;
+        ``dp``: the data-parallel ranks, as :meth:`MMVIDBert.loss`."""
         b = text.shape[0]
         visual_tokens = self.visual_tokens(visual, b, text.device)
         if target.dim() >= 4:
             target = self.get_image_tokens(target)
-        return artv_loss(self.core, text, visual_tokens, target)
+        return artv_loss(self.core, text, visual_tokens, target, dp)
 
     @torch.no_grad()
     def prefill(self, text, visual=None):

@@ -42,6 +42,7 @@ from mmvid_tpu_torch.models.clip import (
     linear,
 )
 from mmvid_tpu_torch.ops import int8
+from mmvid_tpu_torch.parallel.mesh import LOCAL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,13 +314,14 @@ class BertCore(nn.Module):
 # models/warp.py)
 # ---------------------------------------------------------------------------
 
-def cross_entropy_masked(logits, labels, keep_gt_mask):
+def cross_entropy_masked(logits, labels, keep_gt_mask, dp=LOCAL):
     """MSM loss: the mean CE over the positions whose ground truth was
-    replaced by [MASK] (keep_gt_mask False)."""
+    replaced by [MASK] (keep_gt_mask False); over data-parallel ranks
+    (``dp``), this rank's sum over the global count."""
     nll = -torch.log_softmax(logits, dim=-1).gather(
         -1, labels[..., None])[..., 0]
     w = (~keep_gt_mask.bool()).float()
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    return (nll * w).sum() / dp.total(w.sum()).clamp_min(1.0)
 
 
 def bce_logits_none(logit, label):
@@ -328,24 +330,29 @@ def bce_logits_none(logit, label):
             + torch.log1p(torch.exp(-logit.abs())))
 
 
-def bce_logits(logit, label):
-    """Binary cross-entropy with logits, mean reduction."""
-    return bce_logits_none(logit, label).mean()
+def bce_logits(logit, label, dp=LOCAL):
+    """Binary cross-entropy with logits, mean reduction (over ranks: this
+    rank's sum over the global batch)."""
+    return bce_logits_none(logit, label).sum() / dp.batch(logit.shape[0])
 
 
-def swap_halves(x):
+def swap_halves(x, dp=LOCAL):
     """REL's negative control: the batch's two halves swapped (an odd batch
-    rolls by one)."""
+    rolls by one).  Over ranks, the global batch's: the partner of a row
+    lives on another rank, and its gradient goes back there."""
+    x = dp.exchange(x)
     b = x.shape[0]
     if b % 2 == 0:
-        return torch.cat([x[b // 2:], x[:b // 2]], dim=0)
-    return torch.roll(x, 1, dims=0)
+        x = torch.cat([x[b // 2:], x[:b // 2]], dim=0)
+    else:
+        x = torch.roll(x, 1, dims=0)
+    return dp.rows(x)
 
 
 def bert_losses(core: BertCore, *, text, visual_tokens, target_tokens,
                 target_tokens_warp=None, keep_gt_mask=None,
                 not_fully_masked=None, rel=False, vid=False,
-                rel_no_fully_masked=False, control_neg=None):
+                rel_no_fully_masked=False, control_neg=None, dp=LOCAL):
     """(loss_msm, loss_rel, loss_vid), the JAX package's ``bert_losses``.
 
     keep_gt_mask [B, target_seq_len] bool: True keeps the ground-truth
@@ -353,7 +360,10 @@ def bert_losses(core: BertCore, *, text, visual_tokens, target_tokens,
     control_neg: text_neg ids for negvc, whose negative control is
     [REL] | text_neg | [ST1][VID] with the visual segment dropped.
     ``rel_no_fully_masked``: REL and VID weighted by not_fully_masked [B]
-    (the samples whose MSM strategy kept some ground truth)."""
+    (the samples whose MSM strategy kept some ground truth).  ``dp``: the
+    data-parallel ranks (:mod:`parallel.mesh`); each returns its share of
+    the global batch's losses (this rank's sums over the global counts),
+    which sum over the ranks to the one-process losses at that batch."""
     cfg = core.cfg
     control_emb = core.control_embedding(text, visual_tokens)
     masked_target = torch.where(keep_gt_mask, target_tokens,
@@ -361,7 +371,8 @@ def bert_losses(core: BertCore, *, text, visual_tokens, target_tokens,
     target_emb = core.target_embedding(masked_target)
     logits_msm, logit_rel_pos, logit_vid_pos, _ = core.forward_full(
         control_emb, target_emb)
-    loss_msm = cross_entropy_masked(logits_msm, target_tokens, keep_gt_mask)
+    loss_msm = cross_entropy_masked(logits_msm, target_tokens, keep_gt_mask,
+                                    dp)
 
     b, dev = text.shape[0], logits_msm.device
     ones = torch.ones((b,), device=dev)
@@ -372,16 +383,16 @@ def bert_losses(core: BertCore, *, text, visual_tokens, target_tokens,
             control_neg_emb = core.control_embedding(control_neg, None,
                                                      drop_visual=True)
         else:
-            control_neg_emb = swap_halves(control_emb)
+            control_neg_emb = swap_halves(control_emb, dp)
         logit_rel_neg = core.forward_rel_logit(control_neg_emb, target_emb)
         if rel_no_fully_masked:
             nfm = not_fully_masked.float()
             loss_rel = (((bce_logits_none(logit_rel_pos, ones)
                           + bce_logits_none(logit_rel_neg, zeros)) * nfm
-                         ).sum() / nfm.sum().clamp_min(1.0))
+                         ).sum() / dp.total(nfm.sum()).clamp_min(1.0))
         else:
-            loss_rel = (bce_logits(logit_rel_pos, ones)
-                        + bce_logits(logit_rel_neg, zeros))
+            loss_rel = (bce_logits(logit_rel_pos, ones, dp)
+                        + bce_logits(logit_rel_neg, zeros, dp))
     else:
         loss_rel = zero
 
@@ -393,13 +404,14 @@ def bert_losses(core: BertCore, *, text, visual_tokens, target_tokens,
         if rel_no_fully_masked:
             # as in the JAX package: the sums over the whole batch, each
             # divided by the count of not-fully-masked samples
-            nfm_sum = not_fully_masked.float().sum().clamp_min(1.0)
+            nfm_sum = dp.total(not_fully_masked.float().sum()).clamp_min(
+                1.0)
             loss_vid = (bce_logits_none(logit_vid_pos, ones).sum() / nfm_sum
                         + bce_logits_none(logit_vid_neg, zeros).sum()
                         / nfm_sum)
         else:
-            loss_vid = (bce_logits(logit_vid_pos, ones)
-                        + bce_logits(logit_vid_neg, zeros))
+            loss_vid = (bce_logits(logit_vid_pos, ones, dp)
+                        + bce_logits(logit_vid_neg, zeros, dp))
     else:
         loss_vid = zero
     return loss_msm, loss_rel, loss_vid

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mmvid_tpu_torch.parallel.mesh import LOCAL
+
 
 def _uniform(shape, generator, device, lo=0.0, hi=1.0):
     return lo + (hi - lo) * torch.rand(shape, generator=generator,
@@ -49,10 +51,13 @@ def _random_box_mask(generator, b: int, t: int, h: int, w: int,
 
 
 def random_erase_codebook(generator, visual_tokens, cfg,
-                          erase_half: bool = False, p: float = 0.95):
+                          erase_half: bool = False, p: float = 0.95,
+                          dp=LOCAL):
     """visual_tokens [B, V*n] (no SEP).  ``erase_half`` fills the bottom
     half of every frame grid with [MASK]; otherwise one random box per
-    sample (torchvision's p=0.95, scale=(0.55, 0.85), ratio=(0.5, 2))."""
+    sample (torchvision's p=0.95, scale=(0.55, 0.85), ratio=(0.5, 2)),
+    drawn for the global batch of the data-parallel ranks ``dp`` and kept
+    for this rank's rows."""
     b = visual_tokens.shape[0]
     v, h = cfg.num_visuals, cfg.image_fmap_size
     grid = visual_tokens.reshape(b, v, h, h)
@@ -61,9 +66,10 @@ def random_erase_codebook(generator, visual_tokens, cfg,
         out[:, :, h // 2:, :] = cfg.mask_token
         return out.reshape(b, -1)
     dev = visual_tokens.device
-    box = _random_box_mask(generator, b, v, h, h, scale=(0.55, 0.85),
-                           ratio=(0.5, 2.0), device=dev)
-    do = _uniform((b,), generator, dev) < p
+    n = dp.batch(b)
+    box = dp.rows(_random_box_mask(generator, n, v, h, h, scale=(0.55, 0.85),
+                                   ratio=(0.5, 2.0), device=dev))
+    do = dp.rows(_uniform((n,), generator, dev) < p)
     out = torch.where(do[:, None, None, None] & box, cfg.mask_token, grid)
     return out.reshape(b, -1)
 

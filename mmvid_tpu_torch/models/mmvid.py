@@ -33,10 +33,13 @@ from mmvid_tpu_torch.models.sampler import (
 from mmvid_tpu_torch.models.vqgan import VQGanVAE
 from mmvid_tpu_torch.models.warp import (
     apply_warp_token_plan,
+    color_draws,
     warp,
+    warp_draws,
     warp_token_plan,
     warp_video_with_color,
 )
+from mmvid_tpu_torch.parallel.mesh import LOCAL
 
 DEFAULT_MP_CONFIG = {
     'T1_n': 10, 'T2_n': 10, 'T3_n': 30, 'N1_n': 0.9, 'N2_n': 0.1,
@@ -111,11 +114,13 @@ class MMVIDBert(nn.Module):
     @torch.no_grad()
     def prepare_visual_tokens(self, generator, visual, *, erase_visual=False,
                               erase_visual_half=False, vc_mode=None,
-                              face_mode=None, visual_aug_mode=None):
+                              face_mode=None, visual_aug_mode=None,
+                              dp=LOCAL):
         """Visual-control pipeline: frames [B, V, H, W, 3] in [0, 1] (or
         token ids [B, visual_seq_len]) -> tokenized through the cvae ->
         optional random erase (``erase_visual``) -> structured erase per
-        ``vc_mode``.  ``generator`` draws the random erasers."""
+        ``vc_mode``.  ``generator`` draws the random erasers, for the
+        global batch of the data-parallel ranks ``dp``."""
         cfg = self.cfg
         if visual is None:
             return None
@@ -125,8 +130,11 @@ class MMVIDBert(nn.Module):
                 # after the first
                 do = torch.rand((), generator=generator,
                                 device=visual.device) < 0.9
+                colors = color_draws(generator, dp.batch(visual.shape[0]),
+                                     visual.device)
                 shifted = torch.cat([visual[:, :1], warp_video_with_color(
-                    generator, visual[:, 1:])], dim=1)
+                    generator, visual[:, 1:],
+                    {k: dp.rows(v) for k, v in colors.items()})], dim=1)
                 visual = torch.where(do, shifted, visual)
             tokens = self.get_image_tokens(visual, which_vae='cvae',
                                            insert_sep=cfg.insert_sep)
@@ -140,7 +148,8 @@ class MMVIDBert(nn.Module):
             return tokens
         if erase_visual:
             tokens = random_erase_codebook(generator, tokens, cfg,
-                                           erase_half=erase_visual_half)
+                                           erase_half=erase_visual_half,
+                                           dp=dp)
         if vc_mode is not None:
             tokens = erase_codebook_face(generator, tokens, cfg, vc_mode,
                                          face_mode)
@@ -171,7 +180,8 @@ class MMVIDBert(nn.Module):
              vid_strategy_prob=(0.25, 0.25, 0.25, 0.25), pc_prob=0.0,
              erase_visual=False, erase_visual_half=False, vc_mode=None,
              face_mode=None, visual_aug_mode=None, negvc=False,
-             visual_neg=None, text_neg=None, visual_drop=None, draws=None):
+             visual_neg=None, text_neg=None, visual_drop=None, draws=None,
+             dp=LOCAL):
         """(loss_msm, loss_rel, loss_vid), the JAX package's
         ``MMVIDBert.loss``.  text: as ``generate_images`` takes it.
         target: frames [B, T, H, W, 3] in [0, 1] or
@@ -183,10 +193,18 @@ class MMVIDBert(nn.Module):
         erasers.  ``draws``, the deterministic hook: a dict that may carry
         ``keep`` and ``nfm`` (:func:`sample_msm_mask`'s outputs), ``warp``
         (:func:`models.warp.warp_draws`'s) and ``visual_drop``, used in
-        place of the generator's draws."""
+        place of the generator's draws.
+
+        ``dp``: the data-parallel ranks (:mod:`parallel.mesh`); the batch
+        is this rank's rows of the global batch.  Every draw, and every
+        hook's draw, is of the global batch's shape, and each rank keeps
+        its rows; the losses are this rank's shares (:func:`bert_losses`).
+        So the ranks take exactly the draws of one process at the global
+        batch."""
         cfg = self.cfg
         draws = draws or {}
         b, dev = text.shape[0], text.device
+        n = dp.batch(b)
         visual_drop = draws.get('visual_drop', visual_drop)
         visual_tokens = None
         if cfg.num_visuals > 0:
@@ -194,7 +212,8 @@ class MMVIDBert(nn.Module):
                 visual_tokens = self.prepare_visual_tokens(
                     generator, visual, erase_visual=erase_visual,
                     erase_visual_half=erase_visual_half, vc_mode=vc_mode,
-                    face_mode=face_mode, visual_aug_mode=visual_aug_mode)
+                    face_mode=face_mode, visual_aug_mode=visual_aug_mode,
+                    dp=dp)
                 if visual_drop is not None:
                     visual_tokens = torch.where(
                         torch.as_tensor(visual_drop, device=dev),
@@ -211,20 +230,27 @@ class MMVIDBert(nn.Module):
         else:
             keep, nfm = sample_msm_mask(generator, cfg, msm_strategy_prob,
                                         msm_bernoulli_prob, pc_prob,
-                                        batch=b, device=dev)
+                                        batch=n, device=dev)
+        keep, nfm = dp.rows(keep), dp.rows(nfm)
 
         target_warp = None
         if vid and cfg.num_targets > 1 and target_frames is not None:
-            wd = draws.get('warp')
+            wd = draws.get('warp') or warp_draws(
+                generator, n, target_frames.shape[1], vid_strategy_prob, dev)
+            # i_other stays a global row: the frame it steals may live on
+            # another rank
+            wd = {k: dp.rows(v) for k, v in wd.items()}
             if os.environ.get('MMVID_TOKEN_WARP', '1') == '1':
                 # only the modified frame is encoded again
                 mod_frame, plan = warp_token_plan(
                     generator, target_frames, vid_strategy_prob, wd)
                 target_warp = apply_warp_token_plan(
-                    target, self.get_image_tokens(mod_frame[:, None]), plan)
+                    target, self.get_image_tokens(mod_frame[:, None]), plan,
+                    source=dp.gather(target))
             else:
                 target_warp = self.get_image_tokens(warp(
-                    generator, target_frames, vid_strategy_prob, wd))
+                    generator, target_frames, vid_strategy_prob, wd,
+                    source=dp.gather(target_frames)))
 
         # negvc: the negative control drops the visual segment;
         # visual_neg is taken and unused, as in the reference
@@ -234,7 +260,7 @@ class MMVIDBert(nn.Module):
             target_tokens=target, target_tokens_warp=target_warp,
             keep_gt_mask=keep, not_fully_masked=nfm, rel=rel, vid=vid,
             rel_no_fully_masked=rel_no_fully_masked,
-            control_neg=control_neg)
+            control_neg=control_neg, dp=dp)
 
     # -- generation ----------------------------------------------------
 

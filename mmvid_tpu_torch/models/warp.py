@@ -159,13 +159,15 @@ def _assemble(grid, frame_j1, d):
 
 
 def warp(generator, video, vid_strategy_prob=(0.25, 0.25, 0.25, 0.25),
-         draws=None):
+         draws=None, source=None):
     """VID negatives of video [B, T, H, W, 3] in [0, 1]; ``draws``:
-    :func:`warp_draws`'s, else drawn from ``generator``."""
+    :func:`warp_draws`'s, else drawn from ``generator``.  ``source``: the
+    videos that ``i_other`` indexes (the global batch of data-parallel
+    ranks), ``video`` by default."""
     b, t = video.shape[:2]
     d = draws or warp_draws(generator, b, t, vid_strategy_prob,
                             video.device)
-    stolen = video[d['i_other'], d['j2']]
+    stolen = (video if source is None else source)[d['i_other'], d['j2']]
     frame = torch.where((d['strategy'] == 0)[:, None, None, None], stolen,
                         _modified_frame(video, d))
     return _assemble(video, frame, d)
@@ -184,14 +186,18 @@ def warp_token_plan(generator, video,
     return _modified_frame(video, d), d
 
 
-def apply_warp_token_plan(target_tokens, mod_tokens, plan):
+def apply_warp_token_plan(target_tokens, mod_tokens, plan, source=None):
     """target_tokens [B, T*n] (the targets, encoded), mod_tokens [B, n]
     (mod_frame, encoded) -> [B, T*n], equal to tokenizing :func:`warp`'s
-    video on the same draws."""
+    video on the same draws.  ``source``: the targets' tokens that
+    ``i_other`` indexes, as :func:`warp` takes them."""
     b, total = target_tokens.shape
     t = plan['perm'].shape[1]
     grid = target_tokens.reshape(b, t, total // t)
-    stolen = grid[plan['i_other'], plan['j2']]
+    if source is not None:
+        source = source.reshape(source.shape[0], t, total // t)
+    stolen = (grid if source is None else source)[plan['i_other'],
+                                                  plan['j2']]
     frame = torch.where((plan['strategy'] == 0)[:, None], stolen,
                         mod_tokens)
     return _assemble(grid, frame, plan).reshape(b, total)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Training driver of the port (reference train.py:47-395), on one device.
+"""Training driver of the port (reference train.py:47-395), on one device
+or data-parallel over ranks.
 
 The twin of the repository's ``train.py``, with the same CLI: the released
 ``scripts/mmvoxceleb/*/train.sh`` flags run unchanged as
@@ -23,8 +24,26 @@ stream.  ``--device cuda`` (the default) raises when there is no GPU.
 With ``--fixed_language_model roberta-large`` (the text_augment recipe)
 each step's text is the captions' RoBERTa features on the device
 (``factories.get_fixed_language_model``, weights from ``ROBERTA_PATH``).
-Multi-process DDP (``--multiprocessing_distributed``) raises: it is not
-ported yet (ROADMAP.md).
+
+Data parallelism (``parallel/mesh.py``), one process a rank:
+
+    # one rank a visible GPU, as the reference's mp.spawn (NCCL):
+    python -m mmvid_tpu_torch.train <flags> --multiprocessing_distributed
+    # ranks started by PyTorch's launcher (any number; on the CPU with
+    # --device cpu --dist_backend gloo):
+    python -m torch.distributed.run --nproc_per_node N \
+        -m mmvid_tpu_torch.train <flags>
+
+``--batch_size`` is the global batch: each rank loads ``batch_size //
+N`` (with ``--multiprocessing_distributed`` and no ``--mesh_shape``, N
+is the largest count of visible GPUs that divides the batch, as JAX's
+default dp).  ``--world_size`` nodes of ``--rank`` (each spawning its
+GPUs' ranks) meet at ``--dist_url`` over ``--dist_backend``.  The step
+computes the one-process step at the global batch (``training.
+make_train_step``); rank 0 alone writes ``args.txt``, ``log.txt``, the
+HTML page, the checkpoints, the sample grids and the profiler trace, and
+the other ranks wait for it at a barrier; a non-finite loss or a signal
+on any rank stops every rank at the same iteration.
 """
 
 from __future__ import annotations
@@ -44,7 +63,76 @@ VIZ_SALT = 0x5eed5eed
 
 def main(argv=None):
     from mmvid_tpu_torch.config import process_args
-    return main_worker(process_args(train=True, argv=argv))
+    return launch(process_args(train=True, argv=argv))
+
+
+def launch(args):
+    """Train as the flags ask: as one rank of PyTorch's launcher (its
+    environment set), one spawned rank a visible GPU
+    (``--multiprocessing_distributed``), or one process on one device.
+    Returns :func:`main_worker`'s record of this process's run (None
+    after a spawn)."""
+    from mmvid_tpu_torch.parallel import mesh
+    mesh.refuse_model_parallel(args)
+    if mesh.launched_by_env():
+        if args.multiprocessing_distributed:
+            raise ValueError('--multiprocessing_distributed spawns the '
+                             'ranks itself: not under a launcher')
+        n = int(os.environ['WORLD_SIZE'])
+        if args.mesh_shape:
+            mesh.mesh_ranks(args.mesh_shape, n)
+        return _run_rank(args, int(os.environ['RANK']), n,
+                         int(os.environ['LOCAL_RANK']), 'env://')
+    if args.multiprocessing_distributed:
+        nprocs = spawn_count(args)
+        torch.multiprocessing.spawn(spawned_rank, args=(nprocs, args),
+                                    nprocs=nprocs)
+        return None
+    return main_worker(args)
+
+
+def spawn_count(args) -> int:
+    """The ranks ``--multiprocessing_distributed`` spawns on this node:
+    one a visible GPU, or ``--mesh_shape``'s dcn * dp over the nodes'
+    GPUs, else the largest count that divides the batch (JAX's dp
+    default)."""
+    from mmvid_tpu_torch.parallel import mesh
+    dev = torch.device(args.device)
+    if dev.type != 'cuda':
+        raise RuntimeError(
+            '--multiprocessing_distributed spawns one rank a visible GPU; '
+            'on the CPU start the ranks with python -m '
+            'torch.distributed.run --nproc_per_node N and --device cpu '
+            '--dist_backend gloo')
+    resolve_device(args.device)
+    mesh.check_backend(args.dist_backend, 'cuda')
+    gpus = torch.cuda.device_count()
+    if args.mesh_shape:
+        mesh.mesh_ranks(args.mesh_shape, args.world_size * gpus)
+        return gpus
+    dp = mesh.default_dp(args.world_size * gpus, args.batch_size)
+    if dp % args.world_size:
+        raise ValueError(f'dp={dp} does not split over --world_size '
+                         f'{args.world_size} nodes')
+    return dp // args.world_size
+
+
+def spawned_rank(local: int, nprocs: int, args):
+    """One rank of ``--multiprocessing_distributed``: rank ``--rank *
+    nprocs + local`` of ``--world_size * nprocs``, on its local GPU (the
+    reference's ``main_worker(gpu, ngpus, args)``)."""
+    return _run_rank(args, args.rank * nprocs + local,
+                     args.world_size * nprocs, local, args.dist_url)
+
+
+def _run_rank(args, rank: int, world: int, local: int, init_method: str):
+    from mmvid_tpu_torch.parallel import mesh
+    dp = mesh.init(args.dist_backend, mesh.rank_device(args.device, local),
+                   rank, world, init_method)
+    try:
+        return main_worker(args, dp)
+    finally:
+        mesh.shutdown()
 
 
 def resolve_device(name: str) -> torch.device:
@@ -59,17 +147,19 @@ def resolve_device(name: str) -> torch.device:
 
 
 def refuse_multi_device(args) -> None:
-    """One process on one device: the parallel flags that ask for more
-    raise."""
-    if getattr(args, 'multiprocessing_distributed', False):
+    """One process on one device: the flags that ask for more ranks raise
+    (:func:`launch` starts them), and so do ``tp``, ``pp`` and
+    ``--seq_parallel``, which are not ported."""
+    from mmvid_tpu_torch.parallel import mesh
+    mesh.refuse_model_parallel(args)
+    if getattr(args, 'multiprocessing_distributed', False) or getattr(
+            args, 'world_size', 1) > 1:
         raise NotImplementedError(
-            '--multiprocessing_distributed: DDP is not ported yet '
-            '(ROADMAP.md, "Next, in order")')
-    spec = getattr(args, 'mesh_shape', None)
-    if spec and any(int(part.split('=')[1]) > 1
-                    for part in spec.split(',') if '=' in part):
-        raise NotImplementedError(f'--mesh_shape {spec}: the port runs on '
-                                  'one device')
+            '--multiprocessing_distributed / --world_size: one process here; '
+            'the training driver launches the ranks '
+            '(mmvid_tpu_torch.train.launch)')
+    if getattr(args, 'mesh_shape', None):
+        mesh.parse_mesh_shape(args.mesh_shape, 1)
 
 
 def step_generator(seed: int, idx: int, salt: int, device
@@ -127,18 +217,21 @@ def host_tree(model, state, idx: int) -> dict:
                           opt_state_leaves(state.opt_state).items()}}
 
 
-def main_worker(args):
-    """Train as ``args`` say; returns the run's record: ``start_iter``,
-    and for each iteration its seconds waiting for the loader
-    (``wait_s``), in the step up to its loss read (``step_s``, where
-    ``--log_every`` reads it), in saves (``save_s``, ``save_bytes``) and
-    in visualization (``viz_s``)."""
+def main_worker(args, dp=None):
+    """Train as ``args`` say, in one process on one device, or as the rank
+    ``dp`` (a ``parallel.mesh.DataParallel``, whose device it runs on);
+    returns the run's record: ``start_iter``, and for each iteration its
+    seconds waiting for the loader (``wait_s``), in the step up to its
+    loss read (``step_s``, where ``--log_every`` reads it), the logged
+    metrics (``metrics``, where it logs), in saves (``save_s``,
+    ``save_bytes``) and in visualization (``viz_s``)."""
     from mmvid_tpu_torch import factories, training
     from mmvid_tpu_torch.data.loader import (
         DataLoader,
         Subset,
         infinite_batches,
     )
+    from mmvid_tpu_torch.parallel import mesh
     from mmvid_tpu_torch.utils.checkpoint import (
         AsyncCheckpointWriter,
         load_checkpoint,
@@ -146,17 +239,24 @@ def main_worker(args):
         save_checkpoint,
     )
 
-    refuse_multi_device(args)
-    device = resolve_device(args.device)
+    if dp is None:
+        refuse_multi_device(args)
+        device = resolve_device(args.device)
+        dp = mesh.LOCAL
+    else:
+        device = dp.device
+    root = mesh.is_root()
+    say = print if root else (lambda *a, **k: None)
     log_dir = Path(args.log_root) / args.name
     log_sample_dir = log_dir / 'samples'
-    log_dir.mkdir(parents=True, exist_ok=True)
-    log_sample_dir.mkdir(exist_ok=True)
-    (log_dir / 'args.txt').write_text(
-        '\n'.join(f'{k}={v}' for k, v in sorted(vars(args).items())))
+    if root:
+        log_dir.mkdir(parents=True, exist_ok=True)
+        log_sample_dir.mkdir(exist_ok=True)
+        (log_dir / 'args.txt').write_text(
+            '\n'.join(f'{k}={v}' for k, v in sorted(vars(args).items())))
 
     webpage = None
-    if args.use_html:
+    if args.use_html and root:
         from mmvid_tpu_torch.utils.html import initialize_webpage
         webpage = initialize_webpage(
             str(log_dir / 'web'), 'MMVID-TPU: ' + args.name, False)
@@ -177,11 +277,12 @@ def main_worker(args):
         last = log_dir / 'weights' / 'last'
         if (last / 'dalle.pt').is_file():
             args.dalle_path = str(last)
-            print(f'auto_resume: restoring from {last}')
+            say(f'auto_resume: restoring from {last}')
 
     start_iter = args.start_iter or 0
     resume_opt_leaves = None
     if args.dalle_path:
+        # every rank reads the same file
         ckpt, _ = load_checkpoint(args.dalle_path)
         load_dalle_weights(model, ckpt['weights'])
         # a JAX-written dalle.pt carries iter only; the port's also the
@@ -197,24 +298,30 @@ def main_worker(args):
         keep = int(args.limit_train_batches * len(dataset))
         dataset = Subset(dataset,
                          rng.permutation(len(dataset))[:max(keep, 1)])
-    print(f'{len(dataset)} samples found')
+    say(f'{len(dataset)} samples found')
     if len(dataset) == 0:
         raise SystemExit(
             'dataset is empty after filtering (e.g. every clip shorter '
             'than the min_len=8 frame requirement) — infinite_batches '
             'would spin forever on it')
-    loader = DataLoader(dataset, batch_size=args.batch_size,
+    # --batch_size is the global batch; each rank loads its block of it
+    loader = DataLoader(dataset,
+                        batch_size=mesh.local_batch(args.batch_size,
+                                                    dp.world),
                         num_workers=min(args.num_workers, 16),
-                        seed=args.seed)
+                        seed=args.seed, process_index=dp.rank,
+                        process_count=dp.world, shard='block')
     batches = infinite_batches(loader, start=start_iter)
 
     tc = train_config(args)
-    step_fn = training.make_train_step(model, tc)
+    step_fn = training.make_train_step(model, tc, dp)
     state = training.create_train_state(model, tc)
     if resume_opt_leaves is not None:
         state.opt_state = training.opt_state_from_leaves(state.opt_state,
                                                          resume_opt_leaves)
     state.step = start_iter
+    # rank 0's parameters on every rank, as DDP starts
+    dp.broadcast_(list(state.params.values()))
 
     log_path = log_dir / 'log.txt'
     t0 = time.time()
@@ -225,24 +332,31 @@ def main_worker(args):
     # --async_ckpt: periodic saves overlap with training; emergency/final
     # saves below first wait() so weights/last is never written twice at
     # once
-    ckpt_writer = AsyncCheckpointWriter() if args.async_ckpt else None
+    ckpt_writer = AsyncCheckpointWriter() if args.async_ckpt and root \
+        else None
     record = {'start_iter': start_iter, 'iters': []}
 
     def to_device(x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
 
     def save(tag, idx, keep_last=True, wait=True):
+        """Rank 0 writes; every rank leaves once it has (or has handed
+        the write to the writer's thread)."""
         t = time.perf_counter()
-        if ckpt_writer is not None and wait:
-            ckpt_writer.wait()
-        tree = host_tree(model, state, idx)
-        if ckpt_writer is not None and not wait:
-            ckpt_writer.submit(str(log_dir), tag, tree, hparams=hparams,
-                               keep_last=keep_last)
-            return time.perf_counter() - t, None
-        path = save_checkpoint(str(log_dir), tag, tree, hparams=hparams,
-                               keep_last=keep_last)
-        return time.perf_counter() - t, os.path.getsize(path)
+        nbytes = None
+        if root:
+            if ckpt_writer is not None and wait:
+                ckpt_writer.wait()
+            tree = host_tree(model, state, idx)
+            if ckpt_writer is not None and not wait:
+                ckpt_writer.submit(str(log_dir), tag, tree, hparams=hparams,
+                                   keep_last=keep_last)
+            else:
+                nbytes = os.path.getsize(save_checkpoint(
+                    str(log_dir), tag, tree, hparams=hparams,
+                    keep_last=keep_last))
+        dp.barrier()
+        return time.perf_counter() - t, nbytes
 
     # Graceful preemption (beyond-parity; the reference restarts
     # manually): finish the in-flight step, write a resumable checkpoint,
@@ -261,11 +375,12 @@ def main_worker(args):
 
     try:
         for idx in range(start_iter, args.iters):
-            if preempted['sig'] is not None:
+            # a signal on any rank stops every rank here
+            if dp.any(preempted['sig'] is not None):
                 save(f'preempt_at_{idx}', idx)
-                print(f'signal {preempted["sig"]}: checkpoint written at '
-                      f'iter {idx}; restart with --auto_resume, or '
-                      f'--dalle_path {log_dir}/weights/last')
+                say(f'signal {preempted["sig"]}: checkpoint written at '
+                    f'iter {idx}; restart with --auto_resume, or '
+                    f'--dalle_path {log_dir}/weights/last')
                 return record
             rec = {'iter': idx}
             t_it = time.perf_counter()
@@ -286,7 +401,7 @@ def main_worker(args):
                     feed['visual_neg'] = to_device(batch['visual_neg'],
                                                    torch.float32)
 
-                if profile_dir and idx == start_iter + 10:
+                if profile_dir and root and idx == start_iter + 10:
                     profiler = torch.profiler.profile(activities=(
                         [torch.profiler.ProfilerActivity.CPU]
                         + ([torch.profiler.ProfilerActivity.CUDA]
@@ -305,9 +420,11 @@ def main_worker(args):
 
                 # failure detection (the reference has none): a
                 # non-finite loss aborts with an emergency checkpoint
-                # instead of silently corrupting the run
+                # instead of silently corrupting the run; the metrics are
+                # the global batch's, so every rank stops here
                 if idx % args.log_every == 0:
                     m = {k: float(v) for k, v in metrics.items()}
+                    rec['metrics'] = m
                     if not math.isfinite(m['loss']):
                         save(f'nan_at_{idx}', idx, keep_last=False)
                         raise FloatingPointError(
@@ -320,31 +437,34 @@ def main_worker(args):
                             f'vid {m["loss_vid"]:.4f} '
                             f'gnorm {m["grad_norm"]:.3f} '
                             f'({time.time() - t0:.1f}s)')
-                    print(line)
-                    with open(log_path, 'a') as f:
-                        f.write(line + '\n')
+                    if root:
+                        print(line)
+                        with open(log_path, 'a') as f:
+                            f.write(line + '\n')
                 rec['step_s'] = time.perf_counter() - t_it - rec['wait_s']
 
             if idx and idx % args.save_every_n_steps == 0:
                 rec['save_s'], rec['save_bytes'] = save(
                     idx, idx, wait=ckpt_writer is None)
-                if args.keep_n_checkpoints > 0:
+                if args.keep_n_checkpoints > 0 and root:
                     # safe alongside an in-flight async write: that write
                     # targets the NEWEST numeric dir, which prune
                     # (keep_n >= 1) never deletes, and 'last' is exempt
                     prune_checkpoints(str(log_dir), args.keep_n_checkpoints)
 
             if idx and idx % args.sample_every == 0 and not args.ar:
-                from mmvid_tpu_torch.utils.viz import visualize_train
                 t = time.perf_counter()
-                visualize_train(
-                    model, dict(batch, text=feed['text']),
-                    step_generator(args.seed, idx, VIZ_SALT, device),
-                    str(log_sample_dir), idx, n_sample=args.n_sample,
-                    n_per_sample=min(args.n_per_sample, 2),
-                    mask_predict_steps=args.mask_predict_steps[0],
-                    vc_mode=args.vc_mode, rand_visual=args.rand_visual,
-                    webpage=webpage, mp_config=args.mp_config)
+                if root:
+                    from mmvid_tpu_torch.utils.viz import visualize_train
+                    visualize_train(
+                        model, dict(batch, text=feed['text']),
+                        step_generator(args.seed, idx, VIZ_SALT, device),
+                        str(log_sample_dir), idx, n_sample=args.n_sample,
+                        n_per_sample=min(args.n_per_sample, 2),
+                        mask_predict_steps=args.mask_predict_steps[0],
+                        vc_mode=args.vc_mode, rand_visual=args.rand_visual,
+                        webpage=webpage, mp_config=args.mp_config)
+                dp.barrier()
                 rec['viz_s'] = time.perf_counter() - t
             record['iters'].append(rec)
     finally:
@@ -359,13 +479,9 @@ def main_worker(args):
         if ckpt_writer is not None:
             ckpt_writer.close()
 
-    t = time.perf_counter()
-    path = save_checkpoint(str(log_dir), args.iters,
-                           host_tree(model, state, args.iters),
-                           hparams=hparams)
-    record['final_save'] = {'s': time.perf_counter() - t,
-                            'bytes': os.path.getsize(path)}
-    print('training done')
+    s, nbytes = save(args.iters, args.iters)
+    record['final_save'] = {'s': s, 'bytes': nbytes}
+    say('training done')
     return record
 
 

@@ -1,8 +1,10 @@
 """The training step: optimizer, LR schedules, gradient clipping and the
 MSM/REL/VID step, in PyTorch.
 
-Counterpart of ``mmvid_tpu/training.py`` (one device; the mesh and the
-pipeline come with the parallelism port).  The step computes the loss
+Counterpart of ``mmvid_tpu/training.py``, on one device or data-parallel
+over ranks (``make_train_step(..., dp=)``, JAX's ``jit_train_step`` on a
+``dp`` / ``dcn`` mesh; its ``tp`` and ``pp`` shardings and the pipelined
+stack are not ported, ROADMAP.md A6).  The step computes the loss
 ``beta_msm * MSM + beta_rel * REL + beta_vid * VID`` (ART-V: its weighted
 segment cross-entropy, with beta_msm 1 as JAX's config forces in AR
 mode), its gradient with respect to the core's parameters (the VQGANs
@@ -22,6 +24,14 @@ out so every value is optax's:
   ``lr_scheduler_every`` steps, min scale 1e-6 / lr), a scale on the
   update fed the step's loss.
 
+Over ranks (``parallel.mesh.DataParallel``) each rank computes its share
+of the global batch's losses (its sums over the global counts), the
+gradients are summed in flat fp32 buckets after the backward, and the
+metrics are summed too: every rank updates with the global loss's
+gradient, feeds the plateau the global loss, and keeps parameters that
+are bit-identical to the other ranks'.  DDP is not used: its reducer does
+not serve ``torch.autograd.grad``, and it would average per-rank means.
+
 The optimizer's state is a flat dict: the count as a host int
 (``count``), so a step reads nothing back to the host, and tensors on
 the parameters' device (``mu`` and ``nu`` by parameter name; the
@@ -39,6 +49,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from mmvid_tpu_torch.parallel.mesh import LOCAL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,7 +337,7 @@ def refuse_serving_only(model) -> None:
                 'backward that matches its forward. Unset it for training.')
 
 
-def make_train_step(model, tc: TrainConfig):
+def make_train_step(model, tc: TrainConfig, dp=LOCAL):
     """The step: ``(state, batch, generator, draws=None) -> (state,
     metrics)``.  batch: {'text': [B, L] ids, 'target': [B, T, H, W, 3] in
     [0, 1] (or [B, N] ids), optional 'visual', 'text_neg', 'visual_neg'},
@@ -334,7 +346,10 @@ def make_train_step(model, tc: TrainConfig):
     ``model.loss``'s deterministic hook (it may carry ``visual_drop``).
     Metrics (0-d tensors): loss, loss_msm, loss_rel, loss_vid, grad_norm
     (the gradient's global norm before clipping); the parameters are
-    updated in place."""
+    updated in place.  ``dp``: the data-parallel ranks; the batch is this
+    rank's rows, ``generator`` and ``draws`` are the same on every rank
+    (the draws of the global batch), and the metrics are the global
+    batch's."""
     refuse_serving_only(model)
     opt = make_optimizer(tc)
 
@@ -357,7 +372,7 @@ def make_train_step(model, tc: TrainConfig):
             erase_visual=tc.rand_visual and not tc.fullvc,
             vc_mode=tc.vc_mode, visual_aug_mode=tc.visual_aug_mode,
             negvc=tc.negvc, visual_neg=batch.get('visual_neg'),
-            text_neg=batch.get('text_neg'), draws=draws)
+            text_neg=batch.get('text_neg'), draws=draws, dp=dp)
         total = tc.beta_msm * msm + tc.beta_rel * rel + tc.beta_vid * vid
         return total, {'loss': total, 'loss_msm': msm, 'loss_rel': rel,
                        'loss_vid': vid}
@@ -369,12 +384,18 @@ def make_train_step(model, tc: TrainConfig):
             total, [state.params[n] for n in names], allow_unused=True)
         grads = {n: torch.zeros_like(state.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
+        # the global batch's gradient and metrics: the ranks' shares summed
+        dp.all_reduce_(list(grads.values()))
+        keys = list(metrics)
+        summed = torch.stack([metrics[k].detach().float() for k in keys])
+        dp.all_reduce_([summed])
+        metrics = dict(zip(keys, summed.unbind()))
         updates, opt_state, norm = opt.update(grads, state.opt_state,
-                                              state.params, value=total)
+                                              state.params,
+                                              value=metrics['loss'])
         with torch.no_grad():
             torch._foreach_add_([state.params[n] for n in names],
                                 [updates[n] for n in names])
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics['grad_norm'] = norm
         return TrainState(state.step + 1, state.params, opt_state), metrics
 

@@ -110,16 +110,22 @@ def test_train_config_equal_jax(script, extra, tmp_path):
 
 
 def test_driver_refusals(tmp_path):
-    """One device: DDP and a multi-device mesh raise; a CUDA device that
-    is not there raises instead of falling back to the CPU."""
+    """One process: the ranks' flags raise there (``train.launch`` starts
+    ranks), as do a tensor-parallel mesh and a data-parallel one larger
+    than the one process; a CUDA device that is not there raises instead
+    of falling back to the CPU."""
     argv = script_argv(TRAIN[0], tmp_path)
     args = pconfig.process_args(train=True, argv=argv + [
         '--multiprocessing_distributed'])
-    with pytest.raises(NotImplementedError, match='DDP'):
+    with pytest.raises(NotImplementedError, match='launches the ranks'):
         ptrain.refuse_multi_device(args)
     args = pconfig.process_args(train=True, argv=argv + [
         '--mesh_shape', 'dp=4,tp=2'])
-    with pytest.raises(NotImplementedError, match='one device'):
+    with pytest.raises(NotImplementedError, match='tp > 1 is not ported'):
+        ptrain.refuse_multi_device(args)
+    args = pconfig.process_args(train=True, argv=argv + [
+        '--mesh_shape', 'dp=4'])
+    with pytest.raises(ValueError, match='needs 4 devices, have 1'):
         ptrain.refuse_multi_device(args)
     ptrain.refuse_multi_device(pconfig.process_args(
         train=True, argv=argv + ['--mesh_shape', 'dp=1,tp=1']))

@@ -177,8 +177,8 @@ def _patch_step(monkeypatch, after):
     n-th call (1-based)."""
     orig = training.make_train_step
 
-    def patched(model, tc):
-        step = orig(model, tc)
+    def patched(model, tc, *rest):
+        step = orig(model, tc, *rest)
         calls = {'n': 0}
 
         def wrapper(*a, **kw):
