@@ -5250,6 +5250,435 @@ def phase_vqgan_train():
             'iter_s': iter_s, 'wall_s': time.perf_counter() - t_phase}
 
 
+# Media I/O without Pillow, imageio or OpenCV (data/jpeg.py, data/bmp.py,
+# utils/gif.py, utils/mp4.py, generate.py's write overlap).
+MEDIA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests',
+                         'data', 'media')
+MEDIA_BATCHES, MEDIA_BATCH, MEDIA_STEPS = 3, 16, 20
+MEDIA_TRAIN_BATCH, MEDIA_TRAIN_ITERS = 8, 2
+MEDIA_LAYERS = 12
+
+
+def parse_gif(data: bytes) -> dict:
+    """A GIF's structure, read without a decoder: the logical screen, each
+    image descriptor's size, each graphic control extension's delay
+    (centiseconds), the NETSCAPE2.0 loop count."""
+    import struct
+    if data[:6] not in (b'GIF87a', b'GIF89a'):
+        raise ValueError('not a GIF')
+    w, h, flags = struct.unpack('<HHB', data[6:11])
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    frames, delays, loop = [], [], None
+
+    def blocks(pos):
+        body = bytearray()
+        while data[pos]:
+            body += data[pos + 1:pos + 1 + data[pos]]
+            pos += 1 + data[pos]
+        return bytes(body), pos + 1
+
+    while True:
+        kind = data[pos]
+        if kind == 0x3B:
+            break
+        if kind == 0x21:
+            label = data[pos + 1]
+            body, pos = blocks(pos + 2)
+            if label == 0xF9:
+                delays.append(struct.unpack('<H', body[1:3])[0])
+            elif label == 0xFF and body[:11] == b'NETSCAPE2.0':
+                loop = struct.unpack('<H', body[12:14])[0]
+        elif kind == 0x2C:
+            fw, fh, fflags = struct.unpack('<HHB', data[pos + 5:pos + 10])
+            pos += 10 + (3 << ((fflags & 7) + 1) if fflags & 0x80 else 0)
+            _, pos = blocks(pos + 1)
+            frames.append((fw, fh))
+        else:
+            raise ValueError(f'GIF block {kind:#x} at {pos}')
+    return {'size': (w, h), 'frames': frames, 'delays_cs': delays,
+            'loop': loop}
+
+
+def parse_mp4(data: bytes) -> dict:
+    """An MP4's structure: the sample count of ``stsz``, the ``avc1``
+    sample entry's size, its ``avcC`` profile and level, ``stts``."""
+    import struct
+    out = {}
+
+    def walk(pos, end):
+        while pos + 8 <= end:
+            n, kind = struct.unpack('>I4s', data[pos:pos + 8])
+            body = pos + 8
+            if kind in (b'moov', b'trak', b'mdia', b'minf', b'stbl'):
+                walk(body, pos + n)
+            elif kind == b'stsd':
+                walk(body + 8, pos + n)
+            elif kind == b'avc1':
+                out['size'] = struct.unpack('>HH', data[body + 24:body + 28])
+                walk(body + 78, pos + n)
+            elif kind == b'avcC':
+                out['avcC'] = {'profile': data[body + 1],
+                               'level': data[body + 3]}
+            elif kind == b'stsz':
+                out['samples'] = struct.unpack(
+                    '>I', data[body + 8:body + 12])[0]
+            elif kind == b'stts':
+                out['stts'] = struct.unpack('>III', data[body + 4:body + 16])
+            elif kind == b'mdhd':
+                out['timescale'] = struct.unpack(
+                    '>I', data[body + 12:body + 16])[0]
+            out.setdefault('boxes', []).append(kind.decode())
+            pos += n
+
+    walk(0, len(data))
+    return out
+
+
+def _check_media_file(tag, path, frames, size):
+    with open(path, 'rb') as f:
+        data = f.read()
+    if path.endswith('.gif'):
+        g = parse_gif(data)
+        ok = (len(g['frames']) == frames and g['size'] == size
+              and all(fr == size for fr in g['frames']) and g['loop'] == 0
+              and g['delays_cs'] == [25] * frames)
+        if not ok:
+            fail(f'{tag}: {path} parses as {g}')
+        return g
+    m = parse_mp4(data)
+    if not (m.get('samples') == frames and m.get('size') == size
+            and 'avcC' in m and m.get('stts') == (1, frames, 1000)
+            and m.get('timescale') == 4000):
+        fail(f'{tag}: {path} parses as {m}')
+    return m
+
+
+def _media_decoders() -> dict:
+    """Every committed JPEG and BMP fixture through ``png.read_rgb``
+    (which imports no Pillow), byte-equal to its committed Pillow decode;
+    the core's time a 128 x 128 4:2:0 JPEG frame; which of PIL, imageio
+    and cv2 this machine could import."""
+    import glob
+    import importlib.util
+
+    import numpy as np
+    from mmvid_tpu_torch.data import png
+    names = sorted(glob.glob(os.path.join(MEDIA_DIR, '*.jpg'))
+                   + glob.glob(os.path.join(MEDIA_DIR, '*.bmp')))
+    if len(names) < 20:
+        fail(f'media: {len(names)} fixtures under {MEDIA_DIR}')
+    for p in names:
+        got, want = png.read_rgb(p), png.read_rgb(p + '.png')
+        if not np.array_equal(got, want):
+            fail(f'media: {os.path.basename(p)} differs from its Pillow '
+                 f'decode ({np.abs(got.astype(int) - want).max()})')
+    p = os.path.join(MEDIA_DIR, 'baseline_q75_420_128.jpg')
+    with open(p, 'rb') as f:
+        data = f.read()
+    ms = _host_ms(lambda: png.decode(data), reps=200)
+    present = [m for m in ('PIL', 'imageio', 'cv2')
+               if importlib.util.find_spec(m) is not None]
+    res = {'fixtures': len(names), 'jpeg_128_ms': ms, 'cpu': host_cpu(),
+           'media_packages_present': present}
+    print(f'[media] {len(names)} JPEG and BMP fixtures byte-equal to their '
+          f'Pillow decodes; importable here of PIL, imageio, cv2: '
+          f'{present or "none"}; the C++ core {ms:.4f} ms a 128x128 4:2:0 '
+          f'JPEG frame (one thread of {os.cpu_count()}, {res["cpu"]})',
+          flush=True)
+    return res
+
+
+def host_cpu() -> str:
+    """The host CPU's model name, from /proc/cpuinfo."""
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                if line.startswith('model name'):
+                    return line.split(':', 1)[1].strip()
+    except OSError:
+        pass
+    return 'unknown'
+
+
+def _media_generate(tmp: str, fmt: str, dalle: str, prompts: str,
+                    frames: int, size: tuple, extra_argv) -> dict:
+    """``generate.main`` at full width (the flagship in fp32, batch 16, 20
+    rounds, 3 batches) to ``fmt``; the sampled batches recorded by
+    wrapping ``generate_videos``.  Gates: the launch counts, each file
+    parsed (8 frames of 128 x 128), and byte-equal to the writer called
+    afterwards on the recorded videos, in order."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from mmvid_tpu_torch import generate
+    from mmvid_tpu_torch.utils import html
+
+    out = os.path.join(tmp, fmt)
+    argv = ['--dalle_path', dalle, '--prompt_file', prompts, '--out_dir', out,
+            '--batch_size', str(MEDIA_BATCH), '--mask_predict_steps',
+            str(MEDIA_STEPS), '--no-bf16', '--format', fmt, '--seed', '3',
+            *extra_argv]
+    recorded, load = [], {}
+    real_videos, real_load = generate.generate_videos, generate.load_model
+
+    def recording(*a, **kw):
+        for batch in real_videos(*a, **kw):
+            recorded.append(batch)
+            yield batch
+
+    def timed_load(args):
+        t0 = time.perf_counter()
+        res = real_load(args)
+        torch.cuda.synchronize()
+        load['s'] = time.perf_counter() - t0
+        return res
+
+    generate.generate_videos, generate.load_model = recording, timed_load
+    text = io.StringIO()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            generate.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        generate.generate_videos, generate.load_model = real_videos, real_load
+    printed = text.getvalue()
+    print(''.join(f'[media {fmt}] | {ln}\n' for ln in printed.splitlines()),
+          end='', flush=True)
+    n_frames = MEDIA_BATCHES * MEDIA_BATCH * frames
+    want = expected(attention=MEDIA_LAYERS * MEDIA_STEPS * MEDIA_BATCHES,
+                    sample_head=TF32_HEAD_LAUNCHES * MEDIA_STEPS
+                    * MEDIA_BATCHES)
+    if counts != want:
+        fail(f'media {fmt}: launch counts {counts} != {want}')
+    if len(recorded) != MEDIA_BATCHES:
+        fail(f'media {fmt}: {len(recorded)} batches sampled')
+    loop_s = wall - load['s']
+    fps_io = float(printed.split('frames/sec incl. IO')[-2].split('(')[-1])
+    # the same writer afterwards on the recorded videos, in order, on the
+    # pool generate.main writes with
+    again = os.path.join(tmp, fmt + '_again')
+    os.makedirs(again)
+    writer = html.save_gif if fmt == 'gif' else html.save_mp4
+    threads = generate.WRITE_THREADS if fmt == 'gif' else 1
+    pool = ThreadPoolExecutor(threads)
+    write_s, n, names = [], 0, []
+    for batch in recorded:
+        vids = batch.videos.float().cpu().numpy()
+        stems = [f'{n + j:04d}_' + '_'.join(p.split()[:6])[:48]
+                 for j, p in enumerate(batch.prompts)]
+        t0 = time.perf_counter()
+        list(pool.map(lambda sv: writer(os.path.join(again, sv[0] + '.' + fmt),
+                                        sv[1], 4), zip(stems, vids)))
+        write_s.append(time.perf_counter() - t0)
+        n += len(stems)
+        names += stems
+    t0 = time.perf_counter()
+    for vid in recorded[0].videos.float().cpu().numpy():
+        writer(os.path.join(again, 'serial.' + fmt), vid, 4)
+    serial_s = time.perf_counter() - t0
+    pool.shutdown()
+    for stem in names:
+        with open(os.path.join(out, f'{stem}.{fmt}'), 'rb') as f:
+            got = f.read()
+        with open(os.path.join(again, f'{stem}.{fmt}'), 'rb') as f:
+            if f.read() != got:
+                fail(f'media {fmt}: {stem}.{fmt} differs from the writer '
+                     'called afterwards on the sampled videos')
+        if not os.path.isfile(os.path.join(out, f'{stem}.txt')):
+            fail(f'media {fmt}: {stem}.txt not written')
+    parsed = _check_media_file(f'media {fmt}', os.path.join(
+        out, f'{names[0]}.{fmt}'), frames, size)
+    for stem in names[1:]:
+        _check_media_file(f'media {fmt}', os.path.join(out, f'{stem}.{fmt}'),
+                          frames, size)
+    sizes = [os.path.getsize(os.path.join(out, f'{s}.{fmt}')) for s in names]
+    return {'wall_s': wall, 'load_s': load['s'], 'loop_s': loop_s,
+            'frames': n_frames, 'printed_fps_incl_io': fps_io,
+            'loop_fps': n_frames / loop_s, 'launches': counts,
+            'write_s_per_batch': write_s, 'threads': threads,
+            'serial_write_s_per_batch': serial_s,
+            'mean_file_bytes': sum(sizes) / len(sizes),
+            'parsed_first': {k: v for k, v in parsed.items()
+                             if k != 'boxes'}}
+
+
+def _media_sampling_alone(dalle: str, prompts: list, extra_argv) -> float:
+    """Seconds of ``generate_videos`` alone over the same prompts and
+    batches, as ``generate.main`` runs them (the model loaded anew),
+    synchronised at the end."""
+    import torch
+    from mmvid_tpu_torch import generate
+    args = generate.parse_args(['--dalle_path', dalle, '--no-bf16',
+                                *extra_argv])
+    model, tok = generate.load_model(args)
+    torch.cuda.synchronize()
+    gen = torch.Generator(device=args.device).manual_seed(3)
+    t0 = time.perf_counter()
+    for _ in generate.generate_videos(model, tok, prompts, MEDIA_BATCH, gen,
+                                      MEDIA_STEPS):
+        pass
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _media_train_driver(tmp: str) -> dict:
+    """``mmvid_tpu_torch.train`` with ``text_to_video/train.sh``'s flags
+    (batch 8, 2 iterations, the sample page at iteration 1, bf16) on a
+    video_text folder whose frames are the committed JPEG fixtures,
+    copied to fill the clips.  Gates: finite losses, the kernels
+    launched, ``index.html`` listing ``.gif`` media that parse."""
+    import glob
+    import re
+
+    import torch
+    from mmvid_tpu_torch import train as driver
+    from mmvid_tpu_torch.config import process_args
+
+    jpgs = sorted(glob.glob(os.path.join(MEDIA_DIR, '*.jpg')))
+    tree = os.path.join(tmp, 'jpeg_text')
+    clips = MEDIA_TRAIN_BATCH * 2
+    for i in range(clips):
+        key = f'id{i // 2}#v{i // 2}#{i % 2:03d}'
+        d = os.path.join(tree, 'video', key)
+        os.makedirs(d)
+        for j in range(DRIVER_CLIP_FRAMES):
+            shutil.copyfile(jpgs[(i + j) % len(jpgs)],
+                            os.path.join(d, f'{j:04d}.jpg'))
+        os.makedirs(os.path.join(tree, 'txt'), exist_ok=True)
+        with open(os.path.join(tree, 'txt', f'{key}.txt'), 'w') as f:
+            f.write('A person with glasses is speaking.\n')
+    write_vqgan_ckpt(os.path.join(tmp, 'vae.ckpt'), 7)
+    logs = os.path.join(tmp, 'logs')
+    argv = recipe_argv('text_to_video', 'train.sh', {
+        '--image_text_folder': tree,
+        '--vae_path': os.path.join(tmp, 'vae.ckpt')}) + [
+        '--log_root', logs, '--iters', str(MEDIA_TRAIN_ITERS),
+        '--save_every_n_steps', '1000', '--sample_every', '1',
+        '--log_every', '1', '--bf16', '--batch_size',
+        str(MEDIA_TRAIN_BATCH)]
+    args = process_args(train=True, argv=argv)
+    reset_counts()
+    t0 = time.perf_counter()
+    driver.main_worker(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    run_dir = os.path.join(logs, args.name)
+    losses = _driver_losses(run_dir)
+    with open(os.path.join(run_dir, 'web', 'index.html')) as f:
+        page = f.read()
+    media = re.findall(r'src="images/([^"]+)"', page)
+    if not media or not all(m.endswith('.gif') for m in media):
+        fail(f'media train driver: the page lists {media}')
+    for m in media:
+        _check_media_file('media train driver', os.path.join(
+            run_dir, 'web', 'images', m), args.num_targets,
+            (args.image_size, args.image_size))
+    for name in ('attention', 'sample_head'):
+        if counts[name] <= 0:
+            fail(f'media train driver: {name} launched no time')
+    if backward_launches() <= 0:
+        fail('media train driver: attention backward launched no time')
+    print(f'[media] train driver on {len(jpgs)} JPEG fixtures copied into '
+          f'{clips} clips of {DRIVER_CLIP_FRAMES} frames: losses {losses}, '
+          f'the page lists {len(media)} GIFs of {args.num_targets} frames '
+          f'at {args.image_size}x{args.image_size}, '
+          f'launches {counts}; {wall:.2f} s with the model build', flush=True)
+    return {'losses': losses, 'gifs': len(media), 'launches': counts,
+            'wall_s': wall}
+
+
+def phase_media(extra_argv=()):
+    """Media I/O on a host without Pillow, imageio or OpenCV: the JPEG and
+    BMP fixtures byte-equal to their Pillow decodes; ``generate.main`` at
+    full width to GIF and to MP4 with its write overlap (the files
+    byte-equal to the writers called afterwards on the sampled videos,
+    the loop's frames/s against sampling alone); the training driver on
+    JPEG frames, its page's GIFs parsed.  ``extra_argv`` is appended to
+    generate's flags (a CPU rehearsal: the tiny model's and ``--device
+    cpu``)."""
+    import tempfile
+
+    import torch
+    from mmvid_tpu_torch import breakdown, factories, generate
+
+    res = {'decoders': _media_decoders()}
+    tmp = tempfile.mkdtemp(prefix='mmvid_media_')
+    try:
+        t0 = time.perf_counter()
+        args = generate.parse_args(['--dalle_path', '-', '--no-bf16',
+                                    *extra_argv])
+        model = factories.get_dalle(
+            args, factories.get_vae_model(args, dtype=torch.float32,
+                                          device=args.device),
+            dtype=torch.float32, device=args.device)
+        factories.init_weights(model, torch.Generator().manual_seed(0))
+        dalle = os.path.join(tmp, 'dalle.pt')
+        torch.save({'iter': 0, 'hparams': {k: getattr(args, k) for k in
+                                           generate.HPARAM_KEYS},
+                    'weights': model.state_dict()}, dalle)
+        del model
+        torch.cuda.empty_cache()
+        prompt_list = (breakdown.PROMPTS * MEDIA_BATCHES * MEDIA_BATCH)[
+            :MEDIA_BATCHES * MEDIA_BATCH]
+        prompts = os.path.join(tmp, 'prompts.txt')
+        with open(prompts, 'w') as f:
+            f.write('\n'.join(prompt_list) + '\n')
+        print(f'[media] full-width fp32 dalle.pt written in '
+              f'{time.perf_counter() - t0:.2f} s', flush=True)
+        # sampling alone before and after the two runs, each in the same
+        # warm state (after a discarded first run, no cache emptied); the
+        # writes hidden are read against their mean
+        _media_sampling_alone(dalle, prompt_list, extra_argv)
+        alone = [_media_sampling_alone(dalle, prompt_list, extra_argv)]
+        runs = {}
+        for fmt in ('gif', 'mp4'):
+            runs[fmt] = _media_generate(tmp, fmt, dalle, prompts,
+                                        args.num_targets,
+                                        (args.image_size, args.image_size),
+                                        extra_argv)
+        alone.append(_media_sampling_alone(dalle, prompt_list, extra_argv))
+        alone_s = sum(alone) / 2
+        alone_fps = len(prompt_list) * args.num_targets / alone_s
+        for fmt in ('gif', 'mp4'):
+            r = runs[fmt]
+            write = sum(r['write_s_per_batch'])
+            r['sampling_alone_s'] = alone
+            r['sampling_fps'] = alone_fps
+            # the share of the writing the overlap took off the loop: the
+            # loop against sampling alone plus the writes
+            r['hidden_share'] = (alone_s + write - r['loop_s']) / write
+            res[fmt] = r
+            print(f'[media] generate --format {fmt} on {card()}: '
+                  f'{MEDIA_BATCHES} batches of {MEDIA_BATCH}, {MEDIA_STEPS} '
+                  f'rounds, fp32; the loop {r["loop_s"]:.4f} s, '
+                  f'{r["loop_fps"]:.2f} frames/s (printed incl. IO '
+                  f'{r["printed_fps_incl_io"]}); sampling alone '
+                  f'{alone[0]:.4f} s before, {alone[1]:.4f} s after, '
+                  f'{alone_fps:.2f} frames/s on their mean; the '
+                  f'write {[round(w, 4) for w in r["write_s_per_batch"]]} s '
+                  f'a batch as generate writes it ({r["threads"]} '
+                  f'thread(s); {r["serial_write_s_per_batch"]:.4f} s on '
+                  f'one); the '
+                  f'overlap hid {r["hidden_share"]:.4f} of the writing; '
+                  f'{r["mean_file_bytes"]:.0f} B a file; launches '
+                  f'{r["launches"]}; every file byte-equal to the writer '
+                  f'called afterwards and parsed as {args.num_targets} '
+                  f'frames of {args.image_size}x{args.image_size}',
+                  flush=True)
+        res['train_driver'] = _media_train_driver(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f'[media] {json.dumps(res)}', flush=True)
+    return res
+
+
 def _fp32_attention_entry(route, clip, flagship_fp32, driver_launches):
     """The kernels line's entry of attention's fp32 route: its numbers at
     the fp32 flagship's shape (B16 H12 D64 L565, packed views), its
@@ -5390,6 +5819,7 @@ def main():
     finally:
         shutil.rmtree(driver_tmp, ignore_errors=True)
     vqgan_train = timed(phase_vqgan_train)
+    media = timed(phase_media)
     sources = {'attention': 'mmvid_tpu/ops/attention.py:211',
                'attention_int8': 'mmvid_tpu/ops/attention.py:211',
                'sample_head': 'mmvid_tpu/ops/sample_head.py:97',
@@ -5450,7 +5880,11 @@ def main():
                                           'launches'][name],
                                       # VQGAN finetuning's driver run
                                       'vqgan_train': vqgan_train[
-                                          'launches'][name]}}
+                                          'launches'][name],
+                                      # the training driver on JPEG frames
+                                      'media_train_driver': media[
+                                          'train_driver']['launches'][
+                                          name]}}
         if name == 'attention':
             # the bf16 route (the bf16 paths'), the tensor-core kernel, on
             # packed views; the fp32 route is the next entry
@@ -5505,7 +5939,10 @@ def main():
                     'test_driver_clip': clip_run['launches'][name],
                     'text_augment_train': text_augment['launches'][name],
                     'text_augment_test': text_augment['test_launches'][
-                        name]}))
+                        name],
+                    # generate.main, 3 batches of 16 to GIF and to MP4
+                    'generate_gif': media['gif']['launches'][name],
+                    'generate_mp4': media['mp4']['launches'][name]}))
         if name == 'attention':
             kernels.append(_backward_entry(
                 'bfloat16', attention_bwd, {
@@ -5533,7 +5970,9 @@ def main():
                     'test_driver_clip': clip_run['launches'][name],
                     'text_augment_train': text_augment['launches'][name],
                     'text_augment_test': text_augment['test_launches'][
-                        name]}))
+                        name],
+                    'generate_gif': media['gif']['launches'][name],
+                    'generate_mp4': media['mp4']['launches'][name]}))
     # VQGAN finetuning's path record: the whole iteration's numbers (the
     # nearest-code kernel's own are in the kernels line)
     print('[vqgan train] path ' + json.dumps({k: vqgan_train[k] for k in (

@@ -9,9 +9,8 @@ Parity targets in mmvid_pytorch/loader.py:
   negative text sampling for REL (attr-dict by caption).
 * TextImageStackDataset (:852) — all frames tiled into one PNG strip.
 
-Frames are read by ``data/png.py`` (PNG, PPM and PGM without Pillow;
-other formats through Pillow where it imports) and resized as Pillow
-resizes them; every ``random`` draw is the JAX module's, in its order.
+Frames are read by ``data/png.py`` (PNG, PPM, PGM, JPEG and BMP, all
+without Pillow) and resized as Pillow resizes them; every ``random`` draw is the JAX module's, in its order.
 ``TextMP4Dataset`` (cv2) and the g++ loader core of ``mmvid_tpu/native``
 (``MMVID_NATIVE_LOADER``) are not ported yet (ROADMAP.md).
 

@@ -1,9 +1,11 @@
-"""Frame files without Pillow: PNG read and write, PPM/PGM read, and
+"""Frame files without Pillow: PNG read and write, PPM/PGM read, the
+readers' dispatch (JPEG in ``data/jpeg.py``, BMP in ``data/bmp.py``), and
 Pillow's bilinear resize.
 
 The datasets of ``mmvid_tpu`` open every frame with Pillow
 (``Image.open(path).convert('RGB')``, then ``resize(..., BILINEAR)``); the
-port reads the same files into the same uint8 RGB arrays without it:
+port reads the same files into the same uint8 RGB arrays without it.
+:func:`read_rgb` and :func:`image_size` go by the file's first bytes:
 
 * PNG: the stream inflated by the stdlib's ``zlib``, the five row filters
   undone, bit depth 8 in colour types 0 (grey, replicated), 2 (RGB), 3
@@ -12,17 +14,23 @@ port reads the same files into the same uint8 RGB arrays without it:
   files raise ``ValueError`` naming the file; a damaged one raises
   ``OSError``, as Pillow's open does.
 * binary PPM (P6) and PGM (P5) with maxval 255, read directly.
-* JPEG and other formats through Pillow where it imports; otherwise a
-  ``ValueError`` naming the file and the missing package.
+* JPEG (``FF D8``): baseline, extended sequential and progressive
+  Huffman-coded 8-bit files, byte-equal to libjpeg-turbo's defaults
+  (``data/jpeg.py``).
+* BMP (``BM``): uncompressed 1, 4, 8, 16, 24 and 32 bits and 16 / 32-bit
+  bitfields (``data/bmp.py``).
+* Any other format raises ``ValueError`` naming the file and the formats
+  read.
 
-The row unfiltering (Average and Paeth are a recurrence along each row)
-and the resize (Pillow's ``BILINEAR``: a triangle filter whose support
-widens with the downscale factor, in Pillow's fixed-point arithmetic) run
-in a small C++ core, ``_frames.cpp``, built by ``g++`` at first use into
-``mmvid_tpu_torch/_build`` and called through ctypes, which releases the
-GIL so the loader's threads decode in parallel.  There is no fallback: a
-failed build raises.  :func:`unfilter_plain` and :func:`resize_plain` are
-the plain numpy versions the tests hold the core against, byte for byte.
+The row unfiltering (Average and Paeth are a recurrence along each row),
+the resize (Pillow's ``BILINEAR``: a triangle filter whose support widens
+with the downscale factor, in Pillow's fixed-point arithmetic) and the
+JPEG and GIF stages run in a small C++ core, ``_frames.cpp``, built by
+``g++`` at first use into ``mmvid_tpu_torch/_build`` and called through
+ctypes, which releases the GIL so the loader's threads decode in
+parallel.  There is no fallback: a failed build raises.
+:func:`unfilter_plain` and :func:`resize_plain` are the plain numpy
+versions the tests hold the core against, byte for byte.
 
 :func:`write_png` writes 8-bit PNGs with a filter type chosen per row, so
 tests can make files that use every filter.
@@ -84,6 +92,21 @@ def library() -> ctypes.CDLL:
             lib.frames_resize.argtypes = [u8, i64, i64, ctypes.c_int, u8,
                                           i64, i64]
             lib.frames_resize.restype = None
+            p64 = ctypes.POINTER(ctypes.c_int64)
+            p16 = ctypes.POINTER(ctypes.c_int16)
+            lib.frames_jpeg_scan.argtypes = [u8, i64, p64, u8, p16]
+            lib.frames_jpeg_scan.restype = ctypes.c_int
+            lib.frames_jpeg_idct.argtypes = [
+                p16, i64, i64, ctypes.POINTER(ctypes.c_uint16), u8]
+            lib.frames_jpeg_idct.restype = None
+            lib.frames_jpeg_color.argtypes = [u8, p64, u8]
+            lib.frames_jpeg_color.restype = None
+            lib.frames_gif_palette.argtypes = [u8, i64, u8]
+            lib.frames_gif_palette.restype = ctypes.c_int
+            lib.frames_gif_map.argtypes = [u8, i64, u8, ctypes.c_int, u8]
+            lib.frames_gif_map.restype = None
+            lib.frames_gif_lzw.argtypes = [u8, i64, u8]
+            lib.frames_gif_lzw.restype = i64
             _lib = lib
     return _lib
 
@@ -317,44 +340,51 @@ def decode_pnm(data: bytes, name='<bytes>') -> np.ndarray:
     return px.copy() if ch == 3 else np.repeat(px, 3, axis=2)
 
 
-def _pillow(name):
-    try:
-        from PIL import Image
-    except ImportError:
-        raise ValueError(
-            f'{name}: only PNG, PPM and PGM frames are read without Pillow, '
-            'and the package Pillow is not installed') from None
-    return Image
+FORMATS = 'PNG, PPM, PGM, JPEG and BMP'
+
+
+def decode(data: bytes, name='<bytes>') -> np.ndarray:
+    """A frame file's bytes -> uint8 RGB [H, W, 3], by its first bytes."""
+    from mmvid_tpu_torch.data import bmp, jpeg
+    if data.startswith(SIGNATURE):
+        return decode_png(data, name)
+    if data[:2] in (b'P5', b'P6'):
+        return decode_pnm(data, name)
+    if jpeg.is_jpeg(data):
+        return jpeg.decode_jpeg(data, name)
+    if bmp.is_bmp(data):
+        return bmp.decode_bmp(data, name)
+    raise ValueError(f'{name}: not a frame format the port reads '
+                     f'({FORMATS})')
 
 
 def read_rgb(path: Union[str, os.PathLike]) -> np.ndarray:
-    """A frame file -> uint8 RGB [H, W, 3]: PNG, PPM and PGM directly,
-    other formats (JPEG, BMP) through Pillow where it imports."""
+    """A frame file -> uint8 RGB [H, W, 3], as Pillow's
+    ``Image.open(path).convert('RGB')`` gives it."""
     with open(path, 'rb') as f:
         data = f.read()
-    if data.startswith(SIGNATURE):
-        return decode_png(data, str(path))
-    if data[:2] in (b'P5', b'P6'):
-        return decode_pnm(data, str(path))
-    Image = _pillow(str(path))
-    with Image.open(path) as img:
-        return np.asarray(img.convert('RGB'))
+    return decode(data, str(path))
 
 
 def image_size(path: Union[str, os.PathLike]) -> Tuple[int, int]:
     """(width, height) from the file's header."""
+    from mmvid_tpu_torch.data import bmp, jpeg
     with open(path, 'rb') as f:
         head = f.read(64)
-    if head.startswith(SIGNATURE):
-        w, h = _header(head, str(path))[:2]
-        return w, h
-    if head[:2] in (b'P5', b'P6'):
-        with open(path, 'rb') as f:
+        if head.startswith(SIGNATURE):
+            w, h = _header(head, str(path))[:2]
+            return w, h
+        if head[:2] in (b'P5', b'P6'):
+            f.seek(0)
             _, w, h, _, _ = _pnm_header(f.read(1024), str(path))
-        return w, h
-    Image = _pillow(str(path))
-    with Image.open(path) as img:
-        return img.size
+            return w, h
+        if bmp.is_bmp(head):
+            return bmp.bmp_size(head, str(path))
+        if jpeg.is_jpeg(head):
+            f.seek(0)
+            return jpeg.jpeg_size(f.read(), str(path))
+    raise ValueError(f'{path}: not a frame format the port reads '
+                     f'({FORMATS})')
 
 
 # -- writing ---------------------------------------------------------------

@@ -10,7 +10,8 @@ embeds with a frozen TF-slim Inception pool_3 graph).  Embedders:
 * ``clip``: the CLIP image tower (``--clip_path ViT-B-32.pt``);
 * ``pixels``: raw pixels resized to 16x16 (a weight-free baseline).
 
-Images are read without Pillow (``data/transforms.py``: PNG and PPM/PGM)
+Images are read without Pillow (``data/transforms.py``: PNG, PPM/PGM,
+JPEG and BMP)
 and resized to 224x224 as Pillow's bilinear.  Runs on the card unless
 ``--device cpu``:
 

@@ -24,10 +24,19 @@ Usage:
         --prompts "a man is smiling"
 
 ``load_model`` and ``generate_videos`` need only torch and numpy;
-``main`` also writes files through ``mmvid_tpu_torch.utils.html``: PNG
-strips with numpy alone (``data/png.py``), GIF and MP4 through imageio
-(or OpenCV for MP4), whose import ``main`` checks before it loads the
-model.
+``main`` also writes files through ``mmvid_tpu_torch.utils.html``: GIFs
+(``utils/gif.py``), MP4s (``utils/mp4.py``) and PNG strips
+(``data/png.py``), none of them through Pillow, imageio or OpenCV.
+
+``main`` overlaps writing with sampling as the root ``generate.py`` does,
+one batch deep: batch i's videos are copied into pinned host memory
+right after its kernels are queued (an event marks the copy's end), batch
+i + 1 is dispatched, and only then does the host wait for batch i and
+write its files while the card samples batch i + 1.  With ``--dynamic``
+the sampler syncs the host every round, so the dispatch itself blocks;
+there the writes run on one worker thread beside it.  A batch's GIFs
+are encoded on a thread pool (their C++ core releases the GIL); MP4s and
+PNGs, whose encoders hold it in numpy and Python, one at a time.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterator, List, NamedTuple, Optional
 
@@ -45,7 +55,6 @@ from mmvid_tpu_torch.models.mmvid import DEFAULT_MP_CONFIG
 from mmvid_tpu_torch.ops.int8 import quantize_for_serving
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
 from mmvid_tpu_torch.utils.html import (
-    check_writer,
     save_gif,
     save_image_array,
     save_mp4,
@@ -196,10 +205,6 @@ def main(args=None):
     parse; the command line when None)."""
     if args is None or isinstance(args, (list, tuple)):
         args = parse_args(args)
-    try:
-        check_writer(args.format)
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
     # forced acceptance is a benchmark's ceiling, garbage by design: refused
     # in serving, as the JAX CLI refuses it
     if (os.environ.get('MMVID_ARTV_SPEC_FORCE') == '1'
@@ -237,42 +242,109 @@ def main(args=None):
             os.environ['MMVID_ARTV_SPEC'] = flag
 
 
+WRITE_THREADS = min(8, os.cpu_count() or 1)
+
+
+class _Staged(NamedTuple):
+    """A batch on its way to the host: ``videos`` (and ``steps``) are
+    host tensors that the copy fills; ``ready`` is recorded after the
+    copy on the card (None for CPU tensors, which are ready)."""
+    prompts: List[str]
+    videos: torch.Tensor
+    steps: Optional[torch.Tensor]
+    ready: Optional[torch.cuda.Event]
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def _stage(batch: Batch) -> _Staged:
+    """Queue the copy of ``batch``'s videos (and spec counts) into pinned
+    host memory behind its kernels, and mark its end."""
+    videos = _to_host(batch.videos)
+    steps = None if batch.steps is None else _to_host(batch.steps)
+    ready = None
+    if batch.videos.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record()
+    return _Staged(batch.prompts, videos, steps, ready)
+
+
 def _write_videos(args, model, tokenizer, prompts):
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     generator = torch.Generator(device=args.device).manual_seed(args.seed)
-
     t0 = time.time()
     n_done = 0
-    for batch in generate_videos(model, tokenizer, prompts, args.batch_size,
-                                 generator, args.mask_predict_steps,
-                                 args.dynamic,
-                                 int8=args.int8 and args.ar,
-                                 spec_stats=bool(args.spec)):
-        if batch.steps is not None:
+
+    def write_one(stem, prompt, vid):
+        if args.format == 'gif':
+            save_gif(str(out_dir / f'{stem}.gif'), vid, args.fps)
+        elif args.format == 'mp4':
+            save_mp4(str(out_dir / f'{stem}.mp4'), vid, args.fps)
+        else:
+            save_image_array(str(out_dir / f'{stem}.png'),
+                             tile_video_row(vid))
+        (out_dir / f'{stem}.txt').write_text(prompt)
+
+    def write(staged: _Staged):
+        """Wait for a staged batch and write its files."""
+        nonlocal n_done
+        if staged.ready is not None:
+            staged.ready.synchronize()
+        if staged.steps is not None:
             # tokens committed a chunk forward on these weights and
             # prompts (1.0: no gain; spec + 1: every draft accepted)
             n_loop = model.cfg.target_seq_len - 1
-            tpc = n_loop / batch.steps.clamp_min(1).double().cpu()
+            tpc = n_loop / staged.steps.clamp_min(1).double()
             print(f'  spec acceptance: {tpc.mean():.2f} tokens/chunk (min '
                   f'{tpc.min():.2f}, max {tpc.max():.2f}; ceiling '
                   f'{args.spec + 1})')
-        videos = batch.videos.float().cpu().numpy()
-        for j, (prompt, vid) in enumerate(zip(batch.prompts, videos)):
-            stem = (f'{n_done + j:04d}_'
-                    + '_'.join(prompt.split()[:6])[:48])
-            if args.format == 'gif':
-                save_gif(str(out_dir / f'{stem}.gif'), vid, args.fps)
-            elif args.format == 'mp4':
-                save_mp4(str(out_dir / f'{stem}.mp4'), vid, args.fps)
-            else:
-                save_image_array(str(out_dir / f'{stem}.png'),
-                                 tile_video_row(vid))
-            (out_dir / f'{stem}.txt').write_text(prompt)
-        n_done += len(batch.prompts)
+        videos = staged.videos.float().numpy()
+        stems = [f'{n_done + j:04d}_' + '_'.join(p.split()[:6])[:48]
+                 for j, p in enumerate(staged.prompts)]
+        list(pool.map(write_one, stems, staged.prompts, videos))
+        n_done += len(staged.prompts)
         fps = n_done * model.cfg.num_targets / (time.time() - t0)
         print(f'{n_done}/{len(prompts)} prompts ({fps:.1f} frames/sec '
               f'incl. IO)')
+
+    # --dynamic blocks the host in every round of the next batch's
+    # dispatch: its writes go to one worker thread, in order
+    worker = ThreadPoolExecutor(1) if args.dynamic else None
+    pool = ThreadPoolExecutor(WRITE_THREADS if args.format == 'gif' else 1)
+    done = []
+
+    def flush(staged: _Staged):
+        if worker is None:
+            write(staged)
+        else:
+            done.append(worker.submit(write, staged))
+
+    try:
+        pending = None
+        for batch in generate_videos(model, tokenizer, prompts,
+                                     args.batch_size, generator,
+                                     args.mask_predict_steps, args.dynamic,
+                                     int8=args.int8 and args.ar,
+                                     spec_stats=bool(args.spec)):
+            staged = _stage(batch)   # right behind batch i's kernels
+            if pending is not None:  # after batch i + 1's dispatch
+                flush(pending)
+            pending = staged
+        if pending is not None:
+            flush(pending)
+        for f in done:
+            f.result()
+    finally:
+        if worker is not None:
+            worker.shutdown(wait=True)
+        pool.shutdown(wait=True)
     print(f'wrote {n_done} videos to {out_dir}')
 
 

@@ -10,7 +10,7 @@ trainer, taming/models/vqgan.py:94-204), with its flags and defaults and
 
 Each iteration draws ``--batch_size`` images with
 ``np.random.RandomState(seed).randint`` over the sorted image files under
-``--image_folder``, read by ``data/transforms.py`` (PNG without Pillow)
+``--image_folder``, read by ``data/transforms.py`` (PNG, JPEG or BMP, without Pillow)
 and scaled to [-1, 1], then runs the generator step and the
 discriminator step of ``models/vqgan_losses.py::VQGanTrainer``.  The log
 line is JAX's.  LPIPS runs on ``--vgg_path``'s torchvision VGG16 weights,

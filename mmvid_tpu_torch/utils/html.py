@@ -1,16 +1,15 @@
 """Image, GIF and MP4 writers, grids and the HTML page (reference
 utils/utils_html.py:18-242).
 
-The port's copy of what it uses from ``mmvid_tpu/utils/html.py``.  PNGs
-are written by ``data/png.py`` (no Pillow).  GIF and MP4 need imageio (or
-OpenCV for MP4), imported inside the writer that needs them;
-:func:`check_writer` asks for them before any work is done.  The page
-(:class:`HTML`) shows each video as a PNG strip of its frames, so it is
-written with numpy alone (a GIF writer of the port's own is queued in
-ROADMAP.md).  Same artifact layout as the JAX module:
-<web_dir>/index.html + <web_dir>/images/*, one row per sample with
-captions, with a pickle cache so pages survive resumes
-(utils_html.py:18-120).
+The port's copy of what it uses from ``mmvid_tpu/utils/html.py``, with
+no Pillow, imageio or OpenCV: PNGs are written by ``data/png.py``, GIFs
+by ``utils/gif.py`` (a median-cut palette a frame, LZW in the C++ core)
+and MP4s by ``utils/mp4.py`` (H.264 of ``I_PCM`` macroblocks).  Same
+artifact layout as the JAX module: <web_dir>/index.html +
+<web_dir>/images/*.{png,gif,mp4}, one row per sample with captions, with
+a pickle cache so pages survive resumes (utils_html.py:18-120); a video
+is saved under the name the caller gives, as a GIF for ``.gif`` and an
+MP4 otherwise, so the port's pages list the same files as JAX's.
 """
 
 from __future__ import annotations
@@ -22,62 +21,15 @@ from typing import List, Sequence
 import numpy as np
 
 from mmvid_tpu_torch.data import png
-
-
-def _to_uint8(img: np.ndarray) -> np.ndarray:
-    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+from mmvid_tpu_torch.utils import gif
+# the writers of utils_html.py:157-190, re-exported for the callers
+from mmvid_tpu_torch.utils.gif import save_gif  # noqa: F401
+from mmvid_tpu_torch.utils.mp4 import save_mp4  # noqa: F401
 
 
 def save_image_array(path: str, img: np.ndarray):
     """HWC float [0,1] -> PNG."""
-    png.write_png(path, _to_uint8(img))
-
-
-def check_writer(fmt: str) -> None:
-    """Raise ``RuntimeError`` unless the writer of ``fmt`` ('png', 'gif'
-    or 'mp4') can run here."""
-    if fmt == 'png':
-        return
-    try:
-        import imageio  # noqa: F401
-        return
-    except ImportError:
-        pass
-    if fmt == 'mp4':
-        try:
-            import cv2  # noqa: F401
-            return
-        except ImportError:
-            pass
-    need = 'imageio' if fmt == 'gif' else 'imageio or OpenCV (cv2)'
-    raise RuntimeError(f'--format {fmt} needs {need}, which is not '
-                       'installed; --format png writes each video as a '
-                       'PNG strip without it')
-
-
-def save_gif(path: str, frames: np.ndarray, fps: int = 4):
-    """[T,H,W,3] float [0,1] -> animated GIF."""
-    import imageio
-    imageio.mimsave(path, [_to_uint8(f) for f in frames],
-                    duration=1000 / fps, loop=0)
-
-
-def save_mp4(path: str, frames: np.ndarray, fps: int = 4):
-    """[T,H,W,3] float [0,1] -> MP4 (imageio's ffmpeg, else OpenCV)."""
-    try:
-        import imageio
-        writer = imageio.get_writer(path, fps=fps)
-        for f in frames:
-            writer.append_data(_to_uint8(f))
-        writer.close()
-    except (ImportError, ValueError):
-        import cv2
-        h, w = frames.shape[1:3]
-        out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*'mp4v'), fps,
-                              (w, h))
-        for f in frames:
-            out.write(cv2.cvtColor(_to_uint8(f), cv2.COLOR_RGB2BGR))
-        out.release()
+    png.write_png(path, gif.to_uint8(img))
 
 
 def tile_video_row(frames: np.ndarray) -> np.ndarray:
@@ -126,13 +78,16 @@ class HTML:
         self.rows.append(('media', list(items), height))
 
     def save_media(self, name: str, array: np.ndarray, fps: int = 4) -> str:
-        """Save an image ([H,W,3]) or a video ([T,H,W,3], as the PNG strip
-        of its frames, under ``name`` with a .png suffix) under images/;
-        returns the file name written."""
+        """Save an image ([H,W,3]) or video ([T,H,W,3]: a GIF for a .gif
+        name, else an MP4) under images/; returns ``name``."""
+        path = os.path.join(self.img_dir, name)
         if array.ndim == 4:
-            name = os.path.splitext(name)[0] + '.png'
-            array = tile_video_row(array)
-        save_image_array(os.path.join(self.img_dir, name), array)
+            if name.endswith('.gif'):
+                save_gif(path, array, fps)
+            else:
+                save_mp4(path, array, fps)
+        else:
+            save_image_array(path, array)
         return name
 
     def save(self):
@@ -152,7 +107,13 @@ class HTML:
                 _, items, height = row
                 parts.append('<table><tr>')
                 for fname, caption in items:
-                    media = f'<img height="{height}" src="images/{fname}">'
+                    if fname.endswith('.mp4'):
+                        media = (f'<video height="{height}" controls '
+                                 f'autoplay loop muted>'
+                                 f'<source src="images/{fname}"></video>')
+                    else:
+                        media = (f'<img height="{height}" '
+                                 f'src="images/{fname}">')
                     parts.append(f'<td>{media}<br>{caption}</td>')
                 parts.append('</tr></table>')
         parts.append('</body></html>')

@@ -6,8 +6,9 @@ Pillow and the JAX package's (mmvid_tpu.data), on the CPU.
   pixels equal to Pillow's ``open().convert('RGB')``; the resize within
   1.1/255 of Pillow's ``resize(BILINEAR)`` with at least 70% exact (the
   bound tests/test_native.py holds the JAX native core to); PPM/PGM;
-  the refusals (16-bit, interlaced: ValueError; damaged: OSError; JPEG
-  without Pillow: ValueError naming the package).
+  the refusals (16-bit, interlaced: ValueError; damaged: OSError); a
+  JPEG read equal to Pillow's with Pillow's import blocked (the JPEG and
+  BMP readers in full: tests/test_torch_media.py).
 * The datasets on one temporary tree, ``random.seed(s)`` (and
   ``np.random.seed(s)``) before each ``__getitem__`` of both packages:
   keys, texts and descriptions equal, frames within 1.1/255 (they come
@@ -124,11 +125,12 @@ def test_png_refusals(tmp_path):
 
 
 def test_jpeg_through_pillow_or_refused(tmp_path, monkeypatch):
+    """A JPEG decodes equal to Pillow's with Pillow's import blocked (the
+    port reads JPEG itself; it refused it without Pillow before)."""
     rgb = np.random.RandomState(2).randint(0, 256, (24, 40, 3)).astype(
         np.uint8)
     Image.fromarray(rgb).save(tmp_path / 'f.jpg')
     want = np.asarray(Image.open(tmp_path / 'f.jpg').convert('RGB'))
-    np.testing.assert_array_equal(png.read_rgb(tmp_path / 'f.jpg'), want)
     real = builtins.__import__
 
     def no_pillow(name, *a, **kw):
@@ -137,29 +139,38 @@ def test_jpeg_through_pillow_or_refused(tmp_path, monkeypatch):
         return real(name, *a, **kw)
 
     monkeypatch.setattr(builtins, '__import__', no_pillow)
-    with pytest.raises(ValueError, match=r'f\.jpg.*Pillow'):
-        png.read_rgb(tmp_path / 'f.jpg')
+    np.testing.assert_array_equal(png.read_rgb(tmp_path / 'f.jpg'), want)
+    assert png.image_size(tmp_path / 'f.jpg') == (40, 24)
 
 
 def test_frame_pipeline_equals_jax(tmp_path):
     """open_rgb + resize_exact + VideoTransform of both packages on the
-    same files, deterministic and random-crop (resize_ratio 0.7)."""
+    same files, deterministic and random-crop (resize_ratio 0.7): PNG
+    frames, then JPEG and BMP frames (JAX's through Pillow)."""
     rng = np.random.RandomState(3)
-    paths = []
+    sets = {'png': [], 'jpg': [], 'bmp': []}
     for i, ctype in enumerate((2, 6, 0)):
+        img = _img(rng, 45, 61, ctype)
         p = tmp_path / f'{i}.png'
-        png.write_png(p, _img(rng, 45, 61, ctype), [y % 5 for y in
-                                                   range(45)])
-        paths.append(p)
-    for det, ratio in ((True, 1.0), (False, 1.0), (False, 0.7)):
-        random.seed(7)
-        j = jtf.VideoTransform(32, ratio, det)(
-            [jtf.resize_exact(jtf.open_rgb(p), (40, 36)) for p in paths])
-        random.seed(7)
-        g = ptf.VideoTransform(32, ratio, det)(
-            [ptf.resize_exact(ptf.open_rgb(p), (40, 36)) for p in paths])
-        assert g.dtype == j.dtype and g.shape == j.shape
-        assert np.abs(g - j).max() <= FRAME_TOL
+        png.write_png(p, img, [y % 5 for y in range(45)])
+        sets['png'].append(p)
+        rgb = Image.open(p).convert('RGB' if ctype != 0 else 'L')
+        rgb.save(tmp_path / f'{i}.jpg', quality=70 + 10 * i, subsampling=i,
+                 progressive=i == 1)
+        (rgb.quantize(40) if i == 1 else rgb).save(tmp_path / f'{i}.bmp')
+        sets['jpg'].append(tmp_path / f'{i}.jpg')
+        sets['bmp'].append(tmp_path / f'{i}.bmp')
+    for paths in sets.values():
+        for det, ratio in ((True, 1.0), (False, 1.0), (False, 0.7)):
+            random.seed(7)
+            j = jtf.VideoTransform(32, ratio, det)(
+                [jtf.resize_exact(jtf.open_rgb(p), (40, 36)) for p in paths])
+            random.seed(7)
+            g = ptf.VideoTransform(32, ratio, det)(
+                [ptf.resize_exact(ptf.open_rgb(p), (40, 36))
+                 for p in paths])
+            assert g.dtype == j.dtype and g.shape == j.shape
+            assert np.abs(g - j).max() <= FRAME_TOL
 
 
 # -- datasets ----------------------------------------------------------------

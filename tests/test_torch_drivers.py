@@ -14,9 +14,9 @@ those checkpoints crossing to and from the JAX package
   on an ``--ar`` run, ``--int8``, and the ``--spec`` refusals;
   ``--eval_mode eval`` with ``fvd_prd`` (every artifact, random I3D) and
   with ``clip`` (a tiny ViT-B-32.pt-format archive);
-* the repair of the writers (R1): without Pillow and imageio a PNG is
-  written (and Pillow reads it back equal), and ``generate --format gif``
-  exits before it loads a model.
+* the writers without Pillow, imageio and OpenCV: a PNG is written (and
+  Pillow reads it back equal), and ``generate`` writes every ``--format``
+  (gif, mp4, png) under JAX's file names, a ``.txt`` beside each video.
 """
 
 import builtins
@@ -427,10 +427,11 @@ def test_ar_run_and_samples(data_tree, tmp_path):
 
 @pytest.fixture
 def no_pillow_no_imageio(monkeypatch):
+    """Imports of PIL, imageio and cv2 raise."""
     real = builtins.__import__
 
     def patched(name, *a, **kw):
-        if name.split('.')[0] in ('PIL', 'imageio'):
+        if name.split('.')[0] in ('PIL', 'imageio', 'cv2'):
             raise ImportError(f'no module named {name!r}')
         return real(name, *a, **kw)
 
@@ -449,24 +450,45 @@ def test_writers_without_pillow_or_imageio(tmp_path, no_pillow_no_imageio,
 def test_generate_gif_refused_before_sampling(tmp_path,
                                               no_pillow_no_imageio,
                                               monkeypatch):
-    def no_model(args):
-        raise AssertionError('the model was loaded')
-
-    monkeypatch.setattr(generate, 'load_model', no_model)
-    try:
-        import cv2  # noqa: F401
-        has_cv2 = True
-    except ImportError:
-        has_cv2 = False
-    argv = ['--dalle_path', str(tmp_path / 'x.pt'), '--prompts', 'a man',
-            '--device', 'cpu', '--out_dir', str(tmp_path / 'out')]
-    with pytest.raises(SystemExit, match='--format png'):
-        generate.main(argv + ['--format', 'gif'])
-    if not has_cv2:
-        with pytest.raises(SystemExit, match='--format png'):
-            generate.main(argv + ['--format', 'mp4'])
-    with pytest.raises(AssertionError, match='model was loaded'):
-        generate.main(argv + ['--format', 'png'])
+    """``generate.main`` with PIL, imageio and cv2 unimportable writes
+    every ``--format`` (it refused gif, and mp4 without OpenCV, before):
+    JAX's names (``{i:04d}_`` and the prompt's first six words), one
+    ``.txt`` beside each video, the GIF and MP4 parsed back."""
+    from types import SimpleNamespace
+    hparams = {'dim': 64, 'text_seq_len': 12, 'num_targets': 2,
+               'num_visuals': 0, 'image_size': 32,
+               'which_transformer': 'custom:64:2:2'}
+    args = SimpleNamespace(**hparams, insert_sep=False,
+                           use_separate_visual_emb=False,
+                           fixed_language_model=None,
+                           text_emb_bottleneck=None)
+    model = factories.get_dalle(
+        args, factories.get_vae_model(args, device='cpu'), device='cpu')
+    factories.init_weights(model, torch.Generator().manual_seed(0))
+    torch.save({'iter': 1, 'hparams': hparams,
+                'weights': model.state_dict()}, tmp_path / 'dalle.pt')
+    prompts = ['a man', 'a woman with wavy hair is talking to someone now']
+    want = [f'{i:04d}_' + '_'.join(p.split()[:6])[:48]
+            for i, p in enumerate(prompts)]
+    for fmt in ('gif', 'mp4', 'png'):
+        out = tmp_path / fmt
+        generate.main(['--dalle_path', str(tmp_path / 'dalle.pt'),
+                       '--prompts', *prompts, '--device', 'cpu',
+                       '--no-bf16', '--mask_predict_steps', '2',
+                       '--batch_size', '1', '--out_dir', str(out),
+                       '--format', fmt])
+        assert sorted(os.listdir(out)) == sorted(
+            [f'{w}.{fmt}' for w in want] + [f'{w}.txt' for w in want])
+        for w, p in zip(want, prompts):
+            assert (out / f'{w}.txt').read_text() == p
+    monkeypatch.undo()
+    for w in want:
+        with Image.open(tmp_path / 'gif' / f'{w}.gif') as im:
+            assert (im.n_frames, im.size) == (2, (32, 32))
+        assert png.read_rgb(tmp_path / 'png' / f'{w}.png').shape == (
+            32, 64, 3)
+        data = (tmp_path / 'mp4' / f'{w}.mp4').read_bytes()
+        assert data[4:8] == b'ftyp' and b'avcC' in data
 
 
 # -- the text_augment recipe: the fixed language model -----------------------

@@ -178,9 +178,12 @@ def test_tokenizer_ids_match_jax_package():
 
 def test_card_path_imports_no_jax():
     """Every module of the port, and what generate.main imports lazily
-    (its file writers), import no jax, flax, regex, PIL, imageio, sklearn,
-    tensorflow, matplotlib, transformers, tokenizers or safetensors, and
-    nothing of mmvid_tpu at all."""
+    (its file writers), import no jax, flax, regex, PIL, imageio, cv2,
+    sklearn, tensorflow, matplotlib, transformers, tokenizers or
+    safetensors, and nothing of mmvid_tpu at all; and no import statement
+    of PIL, imageio or cv2 stands anywhere in the port's source or in
+    chip_smoke.py, inside functions included (the card's host has none of
+    them)."""
     code = (
         'import importlib, pkgutil, sys\n'
         'import mmvid_tpu_torch\n'
@@ -194,7 +197,7 @@ def test_card_path_imports_no_jax():
         "'mmvid_tpu_torch.utils.torch_compat'\n"
         "weights.bert_params_to_torch({'text_emb': {'embedding': [[0.0]]}})\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'regex', 'PIL', 'imageio', 'sklearn', "
+        "('jax', 'flax', 'regex', 'PIL', 'imageio', 'cv2', 'sklearn', "
         "'tensorflow', 'matplotlib', 'transformers', 'tokenizers', "
         "'safetensors', 'mmvid_tpu')]\n"
         'assert not bad, bad\n')
@@ -202,6 +205,30 @@ def test_card_path_imports_no_jax():
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    import ast
+    import glob
+    files = glob.glob(os.path.join(REPO, 'mmvid_tpu_torch', '**', '*.py'),
+                      recursive=True) + [os.path.join(REPO, 'chip_smoke.py')]
+    found = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ''] if isinstance(node, ast.ImportFrom)
+                     else [])
+            found += [f'{os.path.relpath(path, REPO)}:{node.lineno} {n}'
+                      for n in names
+                      if n.split('.')[0] in ('PIL', 'imageio', 'cv2')]
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, 'id', getattr(node.func, 'attr', '')) in (
+                    '__import__', 'import_module') and node.args and \
+                    isinstance(node.args[0], ast.Constant) and str(
+                        node.args[0].value).split('.')[0] in (
+                        'PIL', 'imageio', 'cv2'):
+                found.append(f'{os.path.relpath(path, REPO)}:{node.lineno}')
+    assert len(files) > 50 and not found, found
 
 
 def _flat(tree, prefix=()):

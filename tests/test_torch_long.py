@@ -44,6 +44,7 @@ from mmvid_tpu.models import bert as jbert
 from mmvid_tpu.models import mmvid as jmmvid
 from mmvid_tpu.models import sampler as js
 from mmvid_tpu.models.clip import ClipStackConfig as JaxClip
+from mmvid_tpu.utils import html as jhtml
 from mmvid_tpu.utils import viz as jviz
 from mmvid_tpu_torch import factories
 from mmvid_tpu_torch import test as ptest
@@ -54,6 +55,7 @@ from mmvid_tpu_torch.models import sampler as ps
 from mmvid_tpu_torch.models.bert import BertConfig
 from mmvid_tpu_torch.models.clip import ClipStackConfig
 from mmvid_tpu_torch.models.vqgan import VQGanConfig, VQGanVAE
+from mmvid_tpu_torch.utils import html as phtml
 from mmvid_tpu_torch.utils import viz as pviz
 from mmvid_tpu_torch.weights import load_jax_params
 from test_torch_encode import VQ_TINY, jax_vae
@@ -344,22 +346,63 @@ def _batch(cfg, seed, b=2, visuals=0):
     return batch
 
 
+def _same_pages(jweb, pweb, names):
+    """The web pages of both packages: the same images/ (each video a
+    GIF of the same frame count and size) and the same index.html."""
+    assert sorted(os.listdir(pweb / 'images')) == sorted(
+        os.listdir(jweb / 'images')) == names
+    for n in names:
+        with Image.open(pweb / 'images' / n) as p, \
+                Image.open(jweb / 'images' / n) as j:
+            assert (p.n_frames, p.size) == (j.n_frames, j.size), n
+    assert (pweb / 'index.html').read_text() == \
+        (jweb / 'index.html').read_text()
+
+
 def test_visualize_train_debug_matches_jax(pair, hook, tmp_path):
+    """The sample grids in out_dir and, on the web page, the same GIFs
+    and index.html as JAX's."""
     jmodel, pmodel = pair
     batch = _batch(jmodel.cfg, 10)
     kw = dict(n_per_sample=1, mask_predict_steps=STEPS, debug=True)
     jviz.visualize_train(jmodel, batch, jax.random.PRNGKey(0),
-                         str(tmp_path / 'j'), 3, **kw)
+                         str(tmp_path / 'j'), 3,
+                         webpage=jhtml.HTML(str(tmp_path / 'jweb'), 't'),
+                         **kw)
     pviz.visualize_train(pmodel, batch, torch.Generator(),
-                         str(tmp_path / 'p'), 3, **kw)
+                         str(tmp_path / 'p'), 3,
+                         webpage=phtml.HTML(str(tmp_path / 'pweb'), 't'),
+                         **kw)
     files = _same_grids(tmp_path / 'j', tmp_path / 'p')
     assert files == ['0000003_0.png', '0000003_1.png',
                      '0000003_captions.txt', '0000003_pnag']
+    _same_pages(tmp_path / 'jweb', tmp_path / 'pweb',
+                ['0000003_0.gif', '0000003_1.gif'])
     assert sorted(os.listdir(tmp_path / 'p' / '0000003_pnag')) == [
         '00.png', '01.png']
     # real, then the first decode and two rows a later step
     grid = _pixels(tmp_path / 'p' / '0000003_pnag' / '00.png')
     assert grid.shape == ((2 + 2 * (STEPS - 1)) * 18, 4 * 16, 3)
+
+
+def test_visualize_long_page_matches_jax(pair, hook, tmp_path):
+    """``--eval_mode long``'s writer: the same ``long_{i}.png`` strips and
+    the same page (``long_{i}.gif``, index.html) as JAX's."""
+    jmodel, pmodel = pair
+    batch = _batch(jmodel.cfg, 11)
+    kw = dict(long_mode='long', t_repeat=2, t_overlap=1,
+              mask_predict_steps=STEPS)
+    jviz.visualize_long(jmodel, batch, jax.random.PRNGKey(2),
+                        str(tmp_path / 'j'),
+                        webpage=jhtml.HTML(str(tmp_path / 'jweb'), 'long'),
+                        **kw)
+    pviz.visualize_long(pmodel, batch, torch.Generator(), str(tmp_path / 'p'),
+                        webpage=phtml.HTML(str(tmp_path / 'pweb'), 'long'),
+                        **kw)
+    assert _same_grids(tmp_path / 'j', tmp_path / 'p') == [
+        'long_0.png', 'long_1.png']
+    _same_pages(tmp_path / 'jweb', tmp_path / 'pweb',
+                ['long_0.gif', 'long_1.gif'])
 
 
 @pytest.fixture(scope='module')
