@@ -3663,36 +3663,15 @@ def phase_train_ddp_gloo():
     through host memory under gloo and are no scaling number."""
     import tempfile
 
-    import torch
-    import torch.multiprocessing as mp
-
     tmp = tempfile.mkdtemp(prefix='mmvid_ddp_')
-    torch.cuda.empty_cache()
-    ctx = mp.get_context('spawn')
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_ddp_rank, args=(
-        r, DDP_RANKS, os.path.join(tmp, 'store'), results))
-        for r in range(DDP_RANKS)]
+    free_card_memory('train ddp gloo')
     t0 = time.perf_counter()
     try:
-        for p in procs:
-            p.start()
-        outs = {}
-        for _ in range(DDP_RANKS):
-            r, out = results.get(timeout=DDP_TIMEOUT_S)
-            outs[r] = out
-        for p in procs:
-            p.join(timeout=60)
+        outs = _spawn_ranks(_ddp_rank, DDP_RANKS,
+                            (os.path.join(tmp, 'store'),))
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join()
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t0
-    for r, out in outs.items():
-        if isinstance(out, str):
-            fail(f'train ddp gloo: rank {r} failed:\n{out}')
     r0 = outs[0]
     res = {'wall_s': wall, 'params': r0['float32']['params'],
            'gradient_bytes': 4 * r0['float32']['params'],
@@ -3776,6 +3755,22 @@ def phase_train_ddp_cards():
     metrics equal, iteration 0 within ``DDP_CARDS_TOL`` of one card's;
     step ms and peak memory a rank (one call's reading, not a scaling
     number)."""
+    return _train_cards('train ddp cards', ())
+
+
+def phase_train_tp_cards(mesh_shape: str = 'dp=2,tp=2'):
+    """:func:`phase_train_ddp_cards` with ``--mesh_shape dp=2,tp=2
+    --seq_parallel``: the backbone split over each pair of cards, the
+    batch over the pairs (run alone on four cards: ``python -c "import
+    chip_smoke as c; c.phase_device(); c.phase_build();
+    c.phase_train_tp_cards()"``)."""
+    return _train_cards('train tp cards', ('--mesh_shape', mesh_shape,
+                                           '--seq_parallel'))
+
+
+def _train_cards(tag: str, extra) -> dict:
+    """The driver over NCCL, one rank a visible card with the flags
+    ``extra``, against one card (the two phases above)."""
     import tempfile
 
     import torch
@@ -3784,6 +3779,7 @@ def phase_train_ddp_cards():
     from mmvid_tpu_torch import train
     from mmvid_tpu_torch.config import process_args
     os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    print(f'[{tag}] on {card()}', flush=True)
     tmp = tempfile.mkdtemp(prefix='mmvid_cards_')
     try:
         tree = write_driver_data(os.path.join(tmp, 'vox_text'), 48 * 4,
@@ -3798,7 +3794,7 @@ def phase_train_ddp_cards():
         args = process_args(train=True, argv=base + [
             '--log_root', os.path.join(tmp, 'cards'),
             '--multiprocessing_distributed',
-            '--dist_url', f'file://{tmp}/store'])
+            '--dist_url', f'file://{tmp}/store', *extra])
         nprocs = train.spawn_count(args)
         results = mp.get_context('spawn').Queue()
         mp.start_processes(_ddp_card_rank, args=(nprocs, args, results),
@@ -3814,18 +3810,665 @@ def phase_train_ddp_cards():
     gaps = {i: {k: abs(ranks[0]['metrics'][i][k] - v) / abs(v)
                 for k, v in m.items()} for i, m in one['metrics'].items()}
     same = all(r['metrics'] == ranks[0]['metrics'] for r in ranks.values())
-    res = {'ranks': nprocs, 'rank_results': ranks, 'one_card': one,
-           'relative_gaps': gaps, 'same_metrics_on_every_rank': same}
-    print(f'[train ddp cards] {nprocs} ranks over NCCL at global batch '
-          f'{DDP_BATCH}: every rank logged the same metrics: {same}; '
+    res = {'ranks': nprocs, 'flags': list(extra), 'rank_results': ranks,
+           'one_card': one, 'relative_gaps': gaps,
+           'same_metrics_on_every_rank': same}
+    print(f'[{tag}] {nprocs} ranks over NCCL {" ".join(extra)} at global '
+          f'batch {DDP_BATCH}: every rank logged the same metrics: {same}; '
           f'against one card, iteration 0\'s relative gaps {gaps[0]}; step '
           f'{[r["step_ms"] for r in ranks.values()]} ms a rank (one card '
           f'{one["step_ms"]:.2f} ms), peak {ranks[0]["peak"]} B a rank '
           f'(one card {one["peak"]} B): one call, no scaling number',
           flush=True)
-    print(f'[train ddp cards] {json.dumps(res)}', flush=True)
+    print(f'[{tag}] {json.dumps(res)}', flush=True)
     if not same or max(gaps[0].values()) > DDP_CARDS_TOL:
-        fail('train ddp cards: the ranks disagree, or differ from one card')
+        fail(f'{tag}: the ranks disagree, or differ from one card')
+    return res
+
+# the shards' attention in phase_attention_tp: B16 H6 / H3 (the 12 heads
+# over tp 2 / 4) D64 on the packed views of a [B, L, 3 D / tp] projection,
+# at the flagship's L565 and text+mask's L629 (mask_prev) and ART-V's
+# L626 (causal); timed at L565, the flagship training step's shape
+ATTN_TP_HEADS = (6, 3)
+ATTN_TP_SHAPES = ((565, 'mask_prev', (51, 52)), (629, 'mask_prev', (115, 116)),
+                  (626, 'causal', None))
+ATTN_TP_TIMED_L = 565
+
+def phase_attention_tp():
+    """B1 and B1-bwd at a tp rank's heads (ATTN_TP_HEADS, ATTN_TP_SHAPES),
+    bf16 and fp32: the forward kernel against ``attention_reference``
+    within ATTN_TOL; through ``FusedAttention`` (the forward with its
+    statistics, then the backward kernels) against autograd through the
+    plain version, and the backward kernels alone against
+    ``attention_backward``, within ATTN_BWD_TOL and ATTN_BWD_NORM_TOL.  At
+    L565: the forward kernel, its plain version and SDPA's forward timed;
+    the backward kernels, their plain version and SDPA's forward and
+    backward timed; the bounds (4 B H L^2 D and 10 B H L^2 D operations at
+    the shard's H).  Returns rows by dtype and heads."""
+    import torch
+    from mmvid_tpu_torch.models.clip import build_attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f'[attention tp] on {card()}', flush=True)
+    b, d = 16, 64
+    rows = {}
+    for h in ATTN_TP_HEADS:
+        for l, kind, idx in ATTN_TP_SHAPES:
+            mask = build_attention_mask(l, kind, index=idx, device='cuda')
+            scale = d ** -0.5
+            for name in ('bfloat16', 'float32'):
+                dtype = getattr(torch, name)
+                g = torch.Generator(device='cuda').manual_seed(l * h)
+                qkv = torch.randn((b, l, 3 * h * d), generator=g,
+                                  device='cuda').to(dtype)
+                cot = torch.randn((b, l, h, d), generator=g,
+                                  device='cuda').to(dtype)
+                q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(
+                    b, l, h, d) for i in range(3))
+                before = A.launches
+                out = A.fused_attention_blhd(q, k, v, mask)
+                ref = A.attention_reference(q, k, v, mask, scale)
+                fwd_err = (out.float() - ref.float()).abs().max().item()
+                got = _packed_grads(A.fused_attention_blhd, qkv, cot, mask)
+                want = _packed_grads(lambda q_, k_, v_, m: A.
+                                     attention_reference(q_, k_, v_, m,
+                                                         scale),
+                                     qkv, cot, mask)
+                fn_rel, fn_norm = _bwd_errors((got,), (want,))
+                o, lse, out_lo = A._launch(q, k, v, mask, scale, False,
+                                           with_lse=True)
+                args = (q, k, v, mask, scale, cot, o, lse, out_lo)
+                kern = A.attention_backward_kernel(*args)
+                plain = A.attention_backward(q, k, v, mask, scale, cot)
+                torch.cuda.synchronize()
+                launched = A.launches - before
+                rel, norm = _bwd_errors(kern, plain)
+                bwd_err = max((x.float() - w.float()).abs().max().item()
+                              for x, w in zip(kern, plain))
+                key = f'B{b}_L{l}_H{h}_D{d}_{kind}'
+                row = {'forward': {'max_abs_err': fwd_err},
+                       'backward': {'max_abs_err': bwd_err,
+                                    'max_rel_err': rel,
+                                    'max_norm_rel_err': norm,
+                                    'function_max_rel_err': fn_rel,
+                                    'function_max_norm_rel_err': fn_norm}}
+                del got, want, kern, plain, out, ref
+                if l == ATTN_TP_TIMED_L:
+                    kind_ = 'bf16' if name == 'bfloat16' else 'fp32'
+                    item = 2 if name == 'bfloat16' else 4
+                    fb, fby = bound(4 * b * l * h * d * item + l * l * 4,
+                                    4 * b * h * l * l * d, kind_)
+                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                    mt = mask.to(dtype)
+                    with torch.no_grad():
+                        row['forward'].update(
+                            ms=cuda_time_ms(lambda: A.fused_attention_blhd(
+                                q, k, v, mask)),
+                            plain_ms=cuda_time_ms(lambda: A.
+                                                  attention_reference(
+                                                      q, k, v, mask, scale),
+                                                  calls=5, reps=3),
+                            library_ms=cuda_time_ms(
+                                lambda: torch.nn.functional.
+                                scaled_dot_product_attention(
+                                    qt, kt, vt, attn_mask=mt)),
+                            bound_ms=fb, bound_by=fby)
+                    bb, bby, _ = attention_backward_bound(b, l, h, d, name)
+                    qg, kg, vg = (t.detach().requires_grad_(True)
+                                  for t in (qt, kt, vt))
+                    ct = cot.transpose(1, 2)
+
+                    def sdpa():
+                        y = torch.nn.functional.scaled_dot_product_attention(
+                            qg, kg, vg, attn_mask=mt)
+                        return torch.autograd.grad(y, (qg, kg, vg), ct)
+
+                    row['backward'].update(
+                        ms=cuda_time_ms(lambda: A.attention_backward_kernel(
+                            *args)),
+                        plain_ms=cuda_time_ms(lambda: A.attention_backward(
+                            q, k, v, mask, scale, cot), calls=5, reps=3),
+                        library_ms=cuda_time_ms(sdpa),
+                        bound_ms=bb, bound_by=bby)
+                    del qg, kg, vg
+                rows.setdefault(name, {})[key] = row
+                f, w = row['forward'], row['backward']
+                print(f'[attention tp] {key} {name}: forward max abs err '
+                      f'{fwd_err:.3e} (tol {ATTN_TOL[(name, False)]}); '
+                      f'backward kernels vs plain {rel:.3e} / normwise '
+                      f'{norm:.3e}, through FusedAttention {fn_rel:.3e} / '
+                      f'{fn_norm:.3e} (tol {ATTN_BWD_TOL[name]} / '
+                      f'{ATTN_BWD_NORM_TOL[name]}); forward launches '
+                      f'{launched}' + (
+                          f'; forward kernel {f["ms"]:.4f} ms plain '
+                          f'{f["plain_ms"]:.4f} sdpa {f["library_ms"]:.4f} '
+                          f'bound {f["bound_ms"]:.4f} ({f["bound_by"]}); '
+                          f'backward kernels {w["ms"]:.4f} ms plain '
+                          f'{w["plain_ms"]:.4f} sdpa forward+backward '
+                          f'{w["library_ms"]:.4f} bound {w["bound_ms"]:.4f} '
+                          f'({w["bound_by"]})' if 'ms' in f else ''),
+                      flush=True)
+                if not fwd_err <= ATTN_TOL[(name, False)]:
+                    fail(f'attention tp {key} {name}: forward max abs err '
+                         f'{fwd_err}')
+                if not (_bwd_ok(rel, norm, name)
+                        and _bwd_ok(fn_rel, fn_norm, name)):
+                    fail(f'attention tp {key} {name}: backward {rel} / '
+                         f'{fn_rel}, normwise {norm} / {fn_norm}')
+                if launched != 3:
+                    fail(f'attention tp {key} {name}: {launched} forward '
+                         'launches, not 3')
+                del qkv, cot, q, k, v, o, lse, out_lo, args
+            torch.cuda.empty_cache()
+    return rows
+
+
+# two ranks on the one card over gloo at tp = 2: the flagship's training
+# step at batch 16 (both ranks hold all 16 rows) against the one-rank step
+# on the same weights (the backbone's biases drawn nonzero, so that a bias
+# added twice shows) and generator, held to DDP_TOL.  The tp step's
+# arithmetic is the one-rank step's but for the partial sums over the two
+# ranks in fp32: a row product keeps its fp32 result on each rank
+# (``parallel.tensor.row_product``), so the sum rounds once, as the
+# one-rank product does; the column products' input gradients are the
+# ranks' bf16 products summed.  Readings on the H100: fp32 losses 1.4e-7,
+# the gradient 2.9e-7; bf16 with each rank's row product rounded to bf16
+# before the sum, loss_vid 1.13e-3 (the reason for row_product); the
+# planted faults (fp32; predicted: grad_norm a fifth off, losses 1e-2,
+# the gradient a third off) read grad_norm 9.4e-2 (the norm counting the
+# replicated parameters twice), loss_rel 3.4e-2 (a row bias added on both
+# ranks), the gradient 2.4e-2 (the seq_parallel partial gradients left
+# unreduced), each out of DDP_TOL['float32'].
+TP_RANKS, TP_BATCH, TP_STEPS = 2, 16, 3
+# the three steps and the planted faults run on the batch's first rows
+# (each of the step's collectives moves a [B, L, D] tensor through host
+# memory under gloo: about 50 ms at batch 16)
+TP_EXTRA_BATCH = 4
+TP_FAULTS = (('norm', False), ('bias', False), ('seq_grads', True))
+
+
+def _tp_fault(kind):
+    """A TensorParallel class with one planted fault (tests/
+    test_torch_tensor_parallel.py's)."""
+    import torch
+    from mmvid_tpu_torch.parallel import tensor
+
+    class Fault(tensor.TensorParallel):
+        if kind == 'norm':
+            def norm_sq(self, split_sq, repl_sq):
+                return self.sum(split_sq + repl_sq)
+        elif kind == 'bias':
+            def leave(self, y, bias, dtype):
+                return super().leave(y + bias.to(y.dtype),
+                                     torch.zeros_like(bias), dtype)
+        else:
+            def reduce_seq_grads_(self, grads):
+                pass
+    return Fault
+
+
+def perturb_biases(model, seed):
+    """The backbone's biases and LayerNorm shifts drawn N(0, 0.1) (the
+    builds make them zero, which would hide a bias added twice)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.core.transformer.named_parameters():
+            if name.endswith('bias'):
+                p.copy_((torch.randn(p.shape, generator=gen) * 0.1).to(
+                    p.device))
+
+
+def _tp_hold(dp, dtype_name: str, planted: bool) -> dict:
+    """One rank of phase_train_tp_gloo at ``dtype_name``: the flagship's
+    training build from seed 0 (a spread codebook, nonzero biases), the
+    recipe's TrainConfig at a constant lr, ``breakdown.train_batch``'s
+    rows.  Step 1 at tp = 2 without and with seq_parallel at batch
+    TP_BATCH; with ``planted``, then at batch TP_EXTRA_BATCH TP_STEPS
+    seq_parallel steps, after which the replicated parameters are compared
+    bit for bit over the ranks, and step 1 under each planted fault.
+    Every run's launches are counted and captured (held against the plain
+    versions).  Then rank 0 alone takes the one-rank steps; the gaps
+    (``_ddp_gaps``) against them."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from mmvid_tpu_torch import breakdown, factories, training
+    from mmvid_tpu_torch.parallel import mesh, tensor
+    dev = dp.device
+    dtype = getattr(torch, dtype_name)
+    free, total = torch.cuda.mem_get_info()
+    print(f'[train tp rank {dp.tp.rank}] {dtype_name}: the card has {free} '
+          f'of {total} B free', flush=True)
+    full, _ = factories.flagship_train(dtype=dtype, device=dev, seed=0)
+    _spread_codebook([full], 3)
+    perturb_biases(full, 4)
+    tc = breakdown.train_config('train', lr_scheduler='none')
+    data = breakdown.train_batch(full, TP_BATCH, dev)
+    small = {k: v[:TP_EXTRA_BATCH] for k, v in data.items()}
+    group = dp.tp.group
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(i)
+
+    def first_step(tp, batch):
+        model = copy.deepcopy(full)
+        tensor.split_model(model, tp)
+        state = training.create_train_state(model, tc)
+        step = training.make_train_step(model, tc, mesh.LOCAL)
+        state, m = step(state, batch, gen(0))
+        mu = tensor.gather_state_dict(state.opt_state['mu'], tp)
+        # on the host: the phase keeps one a run
+        mu = torch.cat([t.reshape(-1) for t in mu.values()]).cpu()
+        return ({k: float(v) for k, v in m.items()}, mu), model, state, step
+
+    def counted(tag, sp, batch, steps):
+        """``steps`` steps of a fresh split at ``batch``: (step 1's
+        metrics and moment, the run's record, the last state)."""
+        tp = tensor.TensorParallel(group, seq_parallel=sp)
+        reset_counts()
+        with _LaunchCapture(CAPTURE_SITES[:1] + BACKWARD_SITES) as cap:
+            res, model, state, step = first_step(tp, batch)
+            for i in range(1, steps):
+                state, _ = step(state, batch, gen(i))
+            torch.cuda.synchronize()
+        run = {'batch': batch['text'].shape[0], 'steps': steps,
+               'launches': read_counts(),
+               'attention_backward_launches': backward_launches(),
+               'heads': sorted({key[1][2] for key in cap.calls})}
+        run['checked'] = check_captured(
+            f'train tp rank {tp.rank} {dtype_name} {tag}', cap,
+            {'attention': run['launches']['attention'],
+             'attention_backward': run['attention_backward_launches']})
+        out['runs'][tag] = run
+        del model, step, cap
+        torch.cuda.empty_cache()
+        return res, state
+
+    out = {'params': sum(p.numel() for p in training.trainable_parameters(
+        full).values()), 'runs': {}}
+    t0 = time.perf_counter()
+    tp_runs = {sp: counted(f'seq_parallel={sp}', sp, data, 1)[0]
+               for sp in (False, True)}
+    faults = {}
+    if planted:
+        _, state = counted('seq_parallel=True, 3 steps', True, small,
+                           TP_STEPS)
+        bits = torch.cat([p.detach().reshape(-1) for n, p in
+                          state.params.items()
+                          if tensor.split_dim(n) is None]).view(torch.int32)
+        hi, lo = bits.clone(), bits.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        out['replicated_bit_identical'] = torch.equal(hi, lo)
+        del bits, hi, lo, state
+        for kind, sp in TP_FAULTS:
+            faults[kind] = first_step(_tp_fault(kind)(
+                group, seq_parallel=sp), small)[0]
+    torch.cuda.empty_cache()
+    out['steps_s'] = time.perf_counter() - t0
+    dp.barrier()
+    if dp.tp.rank == 0:
+        one = first_step(tensor.LOCAL_TP, data)[0]
+        out['metrics'] = {'tp2': tp_runs[False][0],
+                          'tp2_seq_parallel': tp_runs[True][0],
+                          'one_rank': one[0]}
+        out['gaps'] = {'tp2': _ddp_gaps(tp_runs[False], one),
+                       'tp2_seq_parallel': _ddp_gaps(tp_runs[True], one)}
+        if planted:
+            one = first_step(tensor.LOCAL_TP, small)[0]
+            out['fault_gaps'] = {k: _ddp_gaps(v, one)
+                                 for k, v in faults.items()}
+    del full
+    torch.cuda.empty_cache()
+    dp.barrier()
+    return out
+
+
+def _tp_rank(rank: int, world: int, store: str, results):
+    """A rank of phase_train_tp_gloo (a spawned process): on cuda:0 over
+    gloo at tp = 2, fp32 with the planted faults, then bf16; TF32 off."""
+    import traceback
+    os.environ['GLOO_SOCKET_IFNAME'] = 'lo'
+    try:
+        import torch
+
+        from mmvid_tpu_torch.ops.precision import fp32_exact
+        from mmvid_tpu_torch.parallel import mesh
+        dp = mesh.init('gloo', torch.device('cuda', 0), rank, world,
+                       f'file://{store}', mesh_shape=f'tp={world}')
+        try:
+            with fp32_exact():
+                out = {'float32': _tp_hold(dp, 'float32', planted=True),
+                       'bfloat16': _tp_hold(dp, 'bfloat16', planted=False)}
+        finally:
+            mesh.shutdown()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def free_card_memory(tag: str):
+    """Before ranks start on the card: this process's unreachable tensors
+    collected and its cached blocks released; prints what it still holds
+    and the card's free memory."""
+    import gc
+    import threading
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    with open('/proc/meminfo') as f:
+        host = next(ln.split()[1] for ln in f if ln.startswith('MemAvailable'))
+    print(f'[{tag}] this process holds {torch.cuda.memory_allocated()} B '
+          f'and {threading.active_count()} threads; the card has {free} of '
+          f'{total} B free; the host {host} kB available', flush=True)
+
+
+def _spawn_ranks(target, n: int, args=(), timeout=DDP_TIMEOUT_S) -> dict:
+    """Start ``n`` spawned processes ``target(rank, n, *args, results)``
+    and collect each rank's result; a rank that fails or does not answer
+    fails the smoke, and every process is stopped."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, n, *args, results))
+             for r in range(n)]
+    try:
+        for p in procs:
+            p.start()
+        outs = {}
+        for _ in range(n):
+            r, out = results.get(timeout=timeout)
+            outs[r] = out
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    for r, out in outs.items():
+        if isinstance(out, str):
+            fail(f'{target.__name__}: rank {r} failed:\n{out}')
+    return outs
+
+
+def phase_train_tp_gloo():
+    """Two ranks on the one card over gloo (asked for; NCCL refuses two
+    ranks on one device) with the backbone split at tp = 2: the flagship's
+    training step at batch 16, fp32 and bf16 compute, without and with
+    seq_parallel, against the one-rank step on the same weights and
+    generator (:func:`_tp_hold`).  Gates: step 1 within DDP_TOL; after 3
+    fp32 seq_parallel steps (at TP_EXTRA_BATCH rows) the replicated
+    parameters bit-identical on the ranks; the planted faults (at
+    TP_EXTRA_BATCH, against the one-rank step there) out of the fp32
+    tolerance; each run's launches a rank those of as many flagship
+    training steps (B1 72, B1-bwd 36, B3 2 a step), every attention call
+    at H6, held against the plain versions.  The times go through host memory under gloo and
+    are no scaling number."""
+    import tempfile
+    print(f'[train tp gloo] on {card()}', flush=True)
+    tmp = tempfile.mkdtemp(prefix='mmvid_tp_')
+    free_card_memory('train tp gloo')
+    t0 = time.perf_counter()
+    try:
+        outs = _spawn_ranks(_tp_rank, TP_RANKS,
+                            (os.path.join(tmp, 'store'),))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = outs[0]
+    res = {'wall_s': wall, 'params': r0['float32']['params'],
+           'float32': {k: r0['float32'][k] for k in (
+               'metrics', 'gaps', 'fault_gaps', 'steps_s', 'runs',
+               'replicated_bit_identical')},
+           'bfloat16': {k: r0['bfloat16'][k] for k in (
+               'metrics', 'gaps', 'steps_s', 'runs')},
+           'rank1': {d: {k: outs[1][d][k] for k in ('runs', 'steps_s')}
+                     for d in ('float32', 'bfloat16')},
+           'tol': DDP_TOL}
+    res['rank1']['replicated_bit_identical'] = outs[1]['float32'][
+        'replicated_bit_identical']
+    f32 = res['float32']
+    runs = {(r, d, k): o[d]['runs'][k] for r, o in outs.items()
+            for d in ('float32', 'bfloat16') for k in o[d]['runs']}
+    print(f'[train tp gloo] {TP_RANKS} ranks on cuda:0 over gloo, tp='
+          f'{TP_RANKS}, batch {TP_BATCH}: step 1 against the one-rank step, '
+          f'relative gaps: fp32 {f32["gaps"]}, bf16 '
+          f'{res["bfloat16"]["gaps"]} (tolerances {DDP_TOL}); the planted '
+          f'faults (fp32) {f32["fault_gaps"]}; replicated parameters '
+          f'bit-identical after {TP_STEPS} fp32 seq_parallel steps at batch '
+          f'{TP_EXTRA_BATCH}: rank 0 '
+          f'{f32["replicated_bit_identical"]}, rank 1 '
+          f'{res["rank1"]["replicated_bit_identical"]}; launches by (rank, '
+          f'dtype, run): ' + '; '.join(
+              f'{key} {v["steps"]} steps {v["launches"]} backward '
+              f'{v["attention_backward_launches"]} heads {v["heads"]}'
+              for key, v in runs.items())
+          + f'; fp32 {f32["steps_s"]:.2f} s, bf16 '
+          f'{res["bfloat16"]["steps_s"]:.2f} s on rank 0 (gloo through host '
+          f'memory: no scaling number); wall {wall:.1f} s', flush=True)
+    print(f'[train tp gloo] {json.dumps(res)}', flush=True)
+    for dtype in ('float32', 'bfloat16'):
+        for sp, gaps in res[dtype]['gaps'].items():
+            bad = _ddp_out_of_tol(gaps, dtype)
+            if bad:
+                fail(f'train tp gloo: {dtype} {sp} step 1 off the one-rank '
+                     f'step in {bad}: {gaps}')
+    for kind, gaps in f32['fault_gaps'].items():
+        if not _ddp_out_of_tol(gaps, 'float32'):
+            fail(f'train tp gloo: the planted fault {kind} passed the '
+                 f'hold: {gaps}')
+    if not (f32['replicated_bit_identical']
+            and res['rank1']['replicated_bit_identical']):
+        fail('train tp gloo: the replicated parameters differ on the ranks')
+    heads = 12 // TP_RANKS
+    for key, v in runs.items():
+        want = expected(**{k: v['steps'] * n for k, n in
+                           TRAIN_LAUNCHES['train'].items()})
+        want_bwd = v['steps'] * TRAIN_BACKWARD_CALLS['train']
+        if (v['launches'] != want or v['attention_backward_launches']
+                != want_bwd or v['heads'] != [heads]):
+            fail(f'train tp gloo: {key} launched {v["launches"]}, backward '
+                 f'{v["attention_backward_launches"]} at heads {v["heads"]}; '
+                 f'want {want}, {want_bwd} at [{heads}]')
+    return res
+
+
+# the training driver under tp: two launched ranks on cuda:0 over gloo,
+# text_to_video/train.sh's flags at batch 4 in fp32 (the recipe's
+# precision), iterations 0 and 1, the grid at iteration 1 (after the
+# warm-up schedule's first update, whose lr is 0, so both runs sample from
+# the same weights); against the one-rank run of the same flags
+TP_DRIVER_BATCH, TP_DRIVER_ITERS = 4, 2
+# the grid's tokens, tp run against one rank: argmax sampling and the
+# confidence ranking of mask-predict decide on near-ties that the tp run's
+# fp32 sums in another order (about 1e-7 relative) can tip, and a tipped
+# choice changes the later steps of its sample; the share of equal tokens
+# must reach this (the reading is printed; exact equality is its aim)
+TP_GRID_TOKEN_SHARE = 0.95
+
+
+class _GridTokens:
+    """Installed (``with``): mask-predict sampling under the deterministic
+    hook (argmax, the most confident tokens kept), each ``generate_images``
+    call's tokens kept in ``seqs``."""
+
+    def __enter__(self):
+        import dataclasses
+
+        from mmvid_tpu_torch.models import mmvid as pmmvid
+        self.mod, self.seqs = pmmvid, []
+        self.spec, self.gen = pmmvid.build_spec, pmmvid.MMVIDBert.\
+            generate_images
+        spec, gen, seqs = self.spec, self.gen, self.seqs
+        pmmvid.build_spec = lambda *a, **k: dataclasses.replace(
+            spec(*a, **k), deterministic=True)
+
+        def generate(model, *a, **k):
+            videos, seq = gen(model, *a, **k)
+            seqs.append(seq.cpu())
+            return videos, seq
+        pmmvid.MMVIDBert.generate_images = generate
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_spec = self.spec
+        self.mod.MMVIDBert.generate_images = self.gen
+
+
+def _tp_driver_argv(tree, vae, logs):
+    return recipe_argv('text_to_video', 'train.sh', {
+        '--image_text_folder': tree, '--vae_path': vae}) + [
+        '--log_root', logs, '--iters', str(TP_DRIVER_ITERS),
+        '--save_every_n_steps', '100000', '--sample_every', '1',
+        '--log_every', '1', '--batch_size', str(TP_DRIVER_BATCH),
+        '--n_sample', '2', '--deterministic', '--device', 'cuda:0']
+
+
+def _tp_driver_rank(rank: int, world: int, port: int, argv, results):
+    """A rank of phase_train_driver_tp, as ``python -m
+    torch.distributed.run`` starts it: ``train.main`` on cuda:0 over gloo
+    at tp = 2 with --seq_parallel, TF32 off; its record and grid tokens."""
+    import traceback
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                      MASTER_PORT=str(port), GLOO_SOCKET_IFNAME='lo')
+    try:
+        from mmvid_tpu_torch import train
+        from mmvid_tpu_torch.ops.precision import fp32_exact
+        reset_counts()
+        with fp32_exact(), _GridTokens() as grid:
+            rec = train.main(argv + ['--dist_backend', 'gloo',
+                                     '--mesh_shape', f'tp={world}',
+                                     '--seq_parallel'])
+        results.put((rank, {'metrics': _driver_metrics(rec),
+                            # numpy: a tensor in the queue outlives no rank
+                            'tokens': [t.numpy() for t in grid.seqs],
+                            'launches': read_counts(),
+                            'attention_backward_launches':
+                                backward_launches()}))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+
+
+def phase_train_driver_tp():
+    """The training driver under tp: ``train.main`` in two ranks started
+    through the launcher's environment on cuda:0 over gloo with
+    ``--mesh_shape tp=2 --seq_parallel`` and text_to_video/train.sh's
+    flags (batch 4, fp32), against one rank on the same flags: every
+    iteration's metrics within DDP_TOL's fp32 losses, the grid's tokens
+    equal under the deterministic hook; the checkpoint the tp run writes
+    has the one-rank run's keys and shapes, and resumes in one process
+    at tp = 1 for one more iteration."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mmvid_tpu_torch import train
+    from mmvid_tpu_torch.config import process_args
+    from mmvid_tpu_torch.ops.precision import fp32_exact
+    print(f'[train driver tp] on {card()}', flush=True)
+    free_card_memory('train driver tp')
+    tmp = tempfile.mkdtemp(prefix='mmvid_tp_driver_')
+    t0 = time.perf_counter()
+    try:
+        tree = write_driver_data(os.path.join(tmp, 'vox_text'),
+                                 TP_DRIVER_BATCH * 4, DRIVER_CLIP_FRAMES,
+                                 distinct=TP_DRIVER_BATCH)
+        vae = os.path.join(tmp, 'vae.ckpt')
+        write_vqgan_ckpt(vae, 7)
+        with socket.socket() as s:
+            s.bind(('127.0.0.1', 0))
+            port = s.getsockname()[1]
+        t1 = time.perf_counter()
+        ranks = _spawn_ranks(_tp_driver_rank, TP_RANKS, (port, _tp_driver_argv(
+            tree, vae, os.path.join(tmp, 'tp'))))
+        tp_s = time.perf_counter() - t1
+        reset_counts()
+        t1 = time.perf_counter()
+        with fp32_exact(), _GridTokens() as grid:
+            one = train.main_worker(process_args(
+                train=True, argv=_tp_driver_argv(tree, vae, os.path.join(
+                    tmp, 'one'))))
+        one_s = time.perf_counter() - t1
+        name = process_args(train=True, argv=_tp_driver_argv(
+            tree, vae, tmp)).name
+        last = os.path.join(tmp, 'tp', name, 'weights', 'last')
+        a = torch.load(os.path.join(last, 'dalle.pt'), map_location='cpu',
+                       weights_only=False)
+        b = torch.load(os.path.join(tmp, 'one', name, 'weights', 'last',
+                                    'dalle.pt'), map_location='cpu',
+                       weights_only=False)
+        layout = all(list(a[p]) == list(b[p]) and all(
+            a[p][k].shape == v.shape for k, v in b[p].items())
+            for p in ('weights', 'opt_state'))
+        del a, b
+        with fp32_exact():
+            resumed = train.main_worker(process_args(train=True, argv=(
+                _tp_driver_argv(tree, vae, os.path.join(tmp, 'resume'))
+                + ['--dalle_path', last, '--iters',
+                   str(TP_DRIVER_ITERS + 1)])))
+        samples = sorted(os.listdir(os.path.join(tmp, 'tp', name,
+                                                 'samples')))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = _driver_metrics(one)
+    gaps = {r: {i: {k: abs(m[i][k] - v) / abs(v) for k, v in want[i].items()
+                    if v} for i in want}
+            for r, m in ((r, o['metrics']) for r, o in ranks.items())}
+    shares = {r: (float(np.mean(np.concatenate([
+        (x == y.numpy()).reshape(-1) for x, y in zip(o['tokens'],
+                                                      grid.seqs)])))
+        if len(o['tokens']) == len(grid.seqs) and grid.seqs else 0.0)
+        for r, o in ranks.items()}
+    same_tokens = all(v == 1.0 for v in shares.values())
+    res = {'tp_run_s': tp_s, 'one_rank_s': one_s,
+           'wall_s': time.perf_counter() - t0, 'relative_gaps': gaps,
+           'grid_calls': len(grid.seqs), 'same_grid_tokens': same_tokens,
+           'grid_token_share': shares,
+           'one_rank_layout': layout, 'samples': samples,
+           'resumed_start_iter': resumed['start_iter'],
+           'resumed_iters': [r['iter'] for r in resumed['iters']],
+           'rank_launches': {r: o['launches'] for r, o in ranks.items()},
+           'rank_attention_backward_launches': {
+               r: o['attention_backward_launches'] for r, o in ranks.items()}}
+    print(f'[train driver tp] {TP_RANKS} launched ranks on cuda:0 over gloo, '
+          f'--mesh_shape tp={TP_RANKS} --seq_parallel, batch '
+          f'{TP_DRIVER_BATCH} fp32: {TP_DRIVER_ITERS} iterations in '
+          f'{tp_s:.1f} s (one rank {one_s:.1f} s, gloo through host memory: '
+          f'no scaling number); relative gaps to one rank {gaps}; grid '
+          f'tokens equal {same_tokens} over {len(grid.seqs)} calls (share '
+          f'equal by rank {shares}); the '
+          f'checkpoint has the one-rank layout: {layout}; resumed at tp=1 '
+          f'from iteration {resumed["start_iter"]}; launches a rank '
+          f'{res["rank_launches"]}, attention backward '
+          f'{res["rank_attention_backward_launches"]}', flush=True)
+    print(f'[train driver tp] {json.dumps(res)}', flush=True)
+    tol = DDP_TOL['float32']
+    if any(v > (tol['grad_norm'] if k == 'grad_norm' else tol['loss'])
+           for g in gaps.values() for it in g.values()
+           for k, v in it.items()):
+        fail(f'train driver tp: the tp run is off the one-rank run: {gaps}')
+    if min(shares.values()) < TP_GRID_TOKEN_SHARE:
+        fail(f'train driver tp: the grid tokens differ from one rank\'s: '
+             f'{shares}')
+    if not layout:
+        fail('train driver tp: the checkpoint is not in the one-rank layout')
+    if resumed['start_iter'] != TP_DRIVER_ITERS or not resumed['iters']:
+        fail(f'train driver tp: resumed at {resumed["start_iter"]}')
+    if not any(s.endswith('.png') for s in samples):
+        fail(f'train driver tp: no grid written: {samples}')
+    if not all(n['attention'] and res['rank_attention_backward_launches'][r]
+               for r, n in res['rank_launches'].items()):
+        fail(f'train driver tp: a rank ran without the attention kernels: '
+             f'{res["rank_launches"]}')
     return res
 
 
@@ -5716,7 +6359,27 @@ def _fp32_head_entry(route, flagship_fp32, driver_launches):
                 'launches']['sample_head'], **driver_launches}}
 
 
-def _backward_entry(dtype, rows, launches_by_path):
+def _tp_entry(rows, dtype, part, tp_gloo, driver_tp) -> dict:
+    """The kernels line's record of one attention route (``part``:
+    'forward' or 'backward') at a tp rank's heads: its numbers at each
+    shape of phase_attention_tp (times at L565), its launches a tp = 2
+    training step on a rank (phase_train_tp_gloo's seq_parallel run of
+    that dtype) and, for fp32, in the driver's tp run (a rank's two
+    iterations and its grid)."""
+    run = tp_gloo[dtype]['runs']['seq_parallel=True']
+    kernel = 'attention' if part == 'forward' else None
+    per_step = (run['launches'][kernel] if kernel
+                else run['attention_backward_launches']) // run['steps']
+    out = {'launches_a_tp2_step': per_step,
+           'shapes': {key: r[part] for key, r in rows[dtype].items()}}
+    if dtype == 'float32':
+        out['train_driver_tp_rank'] = (
+            driver_tp['rank_launches'][0]['attention'] if kernel
+            else driver_tp['rank_attention_backward_launches'][0])
+    return out
+
+
+def _backward_entry(dtype, rows, launches_by_path, **tp_kw):
     """The kernels line's entry of one route of attention's backward
     (B1-bwd: JAX's XLA VJP of the kernel, ``_fused_attention_bwd``, which
     reaches no pallas_call): its numbers at the flagship's training shape
@@ -5738,7 +6401,9 @@ def _backward_entry(dtype, rows, launches_by_path):
             'max_norm_rel_err': r['max_norm_rel_err'],
             **{k: at[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
                                   'library_ms')},
-            'shapes': r['shapes'], 'launches_by_path': launches_by_path}
+            'shapes': r['shapes'], 'launches_by_path': launches_by_path,
+            'tp': _tp_entry(tp_kw['tp_rows'], dtype, 'backward',
+                            tp_kw['tp_gloo'], tp_kw['driver_tp'])}
 
 
 def _long_launches(name, long_runs, debug, shapes):
@@ -5771,6 +6436,12 @@ def main():
     timed(phase_build)
     attention, attention_fp32, attention_clip = timed(phase_attention)
     attention_bwd = timed(phase_attention_backward)
+    attention_tp = timed(phase_attention_tp)
+    # the tensor-parallel gloo phases run on a fresh card: after the
+    # driver phases their first backward failed in cublasCreate with the
+    # card's memory free (twice; alone, and here, they pass)
+    tp_gloo = timed(phase_train_tp_gloo)
+    driver_tp = timed(phase_train_driver_tp)
     attention_int8 = timed(phase_attention_int8)
     artv_decode, decode_by_pos = timed(phase_artv_decode)
     gridstep, probe = timed(phase_gridstep)
@@ -5889,6 +6560,8 @@ def main():
             # the bf16 route (the bf16 paths'), the tensor-core kernel, on
             # packed views; the fp32 route is the next entry
             entry['source'] = 'mmvid_tpu_torch/csrc/attention_sm90.cu'
+            entry['tp'] = _tp_entry(attention_tp, 'bfloat16', 'forward',
+                                    tp_gloo, driver_tp)
             entry['differ_share'] = attention[(629, False)]['differ_share']
             entry['at_flagship_L565'] = attention[(565, False)]
             entry['bf16_probs'] = {'L629': attention[(629, True)],
@@ -5944,6 +6617,8 @@ def main():
                     'generate_gif': media['gif']['launches'][name],
                     'generate_mp4': media['mp4']['launches'][name]}))
         if name == 'attention':
+            tp_kw = dict(tp_rows=attention_tp, tp_gloo=tp_gloo,
+                         driver_tp=driver_tp)
             kernels.append(_backward_entry(
                 'bfloat16', attention_bwd, {
                     'train': train['attention_backward_launches_per_step'],
@@ -5954,13 +6629,13 @@ def main():
                     'train_driver_text_mask': train_driver['text_mask'][
                         'attention_backward_launches'],
                     'train_driver_nccl': ddp_nccl[
-                        'attention_backward_launches']}))
+                        'attention_backward_launches']}, **tp_kw))
             kernels.append(_backward_entry(
                 'float32', attention_bwd, {
                     'text_augment_train': text_augment[
                         'attention_backward_launches'],
                     'train_ddp_gloo_rank': ddp_gloo['float32'][
-                        'attention_backward_launches']}))
+                        'attention_backward_launches']}, **tp_kw))
             kernels.append(_fp32_attention_entry(
                 attention_fp32, attention_clip, flagship_fp32, {
                     'test_driver': test_driver['launches'][name],
@@ -5973,6 +6648,8 @@ def main():
                         name],
                     'generate_gif': media['gif']['launches'][name],
                     'generate_mp4': media['mp4']['launches'][name]}))
+            kernels[-1]['tp'] = _tp_entry(attention_tp, 'float32', 'forward',
+                                          tp_gloo, driver_tp)
     # VQGAN finetuning's path record: the whole iteration's numbers (the
     # nearest-code kernel's own are in the kernels line)
     print('[vqgan train] path ' + json.dumps({k: vqgan_train[k] for k in (

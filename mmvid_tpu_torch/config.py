@@ -127,14 +127,17 @@ def get_args_base() -> argparse.ArgumentParser:
 
     # ----- the JAX package's additions (not in reference) -----
     add('--mesh_shape', type=str, default=None,
-        help='comma list e.g. "dp=8", "dcn=2,dp=4"; default: all devices '
-             'dp; the port trains over dcn x dp ranks (tp, pp > 1 raise)')
+        help='comma list e.g. "dp=8", "dcn=2,dp=4", "dp=2,tp=2"; default: '
+             'all devices dp; the port trains over dcn x dp x tp ranks, the '
+             'backbone split over tp (a tp must divide the heads; pp > 1 '
+             'raises)')
     add('--pp_microbatches', type=int, default=2,
         help='GPipe microbatches per step when the mesh has pp>1 '
              '(clamped to a divisor of the batch)')
     add('--seq_parallel', action='store_true',
         help='sequence-shard the residual stream over tp between blocks '
-             '(Megatron-SP style activation sharding; not ported: raises)')
+             '(Megatron-SP style activation sharding; at tp=1 the plain '
+             'stack)')
     add('--bf16', action='store_true', help='bfloat16 compute policy')
     add('--profile_dir', type=str, default=None,
         help='write a profiler trace of steps 10-15 here')

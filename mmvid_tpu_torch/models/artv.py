@@ -292,7 +292,13 @@ def _ln(x, ln: nn.LayerNorm):
 def _block_params(block):
     """One resblock's decode operands, cast once per call: the weights
     rounded to the compute dtype (JAX's ``cast_block``; a no-op on a
-    serving build's), then as fp32 copies [in, out]; fp32 biases."""
+    serving build's), then as fp32 copies [in, out]; fp32 biases.  The
+    decode holds whole layers: a block split over tp raises."""
+    if block.tp.size > 1:
+        raise NotImplementedError(
+            f'ART-V decoding of a backbone split over tp={block.tp.size}: '
+            'the decode step holds whole layers; gather the weights '
+            '(parallel.tensor.gather_state_dict) into a one-rank model')
     dt = block.dtype
 
     def lin(w, b):

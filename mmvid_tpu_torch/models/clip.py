@@ -55,6 +55,11 @@ from mmvid_tpu_torch.ops.attention import (
 )
 from mmvid_tpu_torch.ops.attention_int8 import CompactMask, pack_bits
 from mmvid_tpu_torch.ops.fused_ln_qkv import fused_ln_qkv
+from mmvid_tpu_torch.parallel.tensor import (
+    LOCAL_TP,
+    refuse_int8,
+    row_product,
+)
 
 NEG_INF = -1e9  # finite stand-in for -inf: keeps softmax NaN-free in bf16
 
@@ -131,6 +136,10 @@ class QuickGELU(nn.Module):
 
 
 class Mlp(nn.Module):
+    # the tensor-parallel context (parallel/tensor.py): c_fc holds 4D / tp
+    # hidden units and c_proj their input columns once the stack is split
+    tp = LOCAL_TP
+
     def __init__(self, width: int, dtype=torch.float32):
         """``dtype``: the parameters' dtype; the compute dtype is the
         input's."""
@@ -143,6 +152,7 @@ class Mlp(nn.Module):
         self.w8 = {}
 
     def freeze_int8(self):
+        refuse_int8(self.tp.size)
         self.w8 = {n: int8.quantize_weight(getattr(self, n).weight)
                    for n in ('c_fc', 'c_proj')}
 
@@ -154,7 +164,7 @@ class Mlp(nn.Module):
         h = self.gelu(h)
         int8.record(f'{site}/mlp/proj_in', h)
         return _linear(self.c_proj, h, None if scales is None else scales[1],
-                       self.w8.get('c_proj'))
+                       self.w8.get('c_proj'), self.tp)
 
 
 def linear(layer: nn.Linear, x):
@@ -175,15 +185,25 @@ def _cast(dtype, w, b):
     return w.to(dtype), b.to(dtype)
 
 
-def _linear(layer: nn.Linear, x, a_scale, w8=None):
+def _linear(layer: nn.Linear, x, a_scale, w8=None, tp=LOCAL_TP):
+    """``layer(x)``: int8 with an activation scale; under tp (a row-split
+    layer) its partial products summed over the ranks, then its bias."""
     if a_scale is None:
+        if tp.size > 1:
+            return tp.leave(row_product(x, layer.weight.to(x.dtype)),
+                            layer.bias, x.dtype)
         return linear(layer, x)
     return int8.quantized_dense(x, layer.weight, layer.bias, a_scale, w8)
 
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with torch ``nn.MultiheadAttention``'s parameter
-    layout: one packed ``in_proj_weight`` [3D, D] and ``out_proj``."""
+    layout: one packed ``in_proj_weight`` [3D, D] and ``out_proj``.  Once
+    the stack is split over tp it holds ``heads`` = H / tp heads: rows
+    [3D / tp, D] of the packed projection and columns [D, D / tp] of
+    out_proj."""
+
+    tp = LOCAL_TP
 
     def __init__(self, width: int, heads: int, dtype=torch.float32):
         """``dtype``: the parameters' dtype; the compute dtype is the
@@ -199,6 +219,7 @@ class MultiHeadAttention(nn.Module):
         self.w8 = {}
 
     def freeze_int8(self):
+        refuse_int8(self.tp.size)
         self.w8 = {'in_proj': int8.quantize_weight(self.in_proj_weight),
                    'out_proj': int8.quantize_weight(self.out_proj.weight)}
 
@@ -228,10 +249,12 @@ class MultiHeadAttention(nn.Module):
         int8.record(f'{site}/attn/out_in', out)
         return _linear(self.out_proj, out,
                        None if scales is None else scales[1],
-                       self.w8.get('out_proj'))
+                       self.w8.get('out_proj'), self.tp)
 
 
 class ResidualAttentionBlock(nn.Module):
+    tp = LOCAL_TP
+
     def __init__(self, width: int, heads: int, dtype=torch.float32,
                  param_dtype=None):
         super().__init__()
@@ -242,12 +265,21 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = Mlp(width, dtype=param_dtype)
         self.ln_2 = nn.LayerNorm(width, eps=1e-5)
 
-    def forward(self, x, mask=None, scales=None, site=''):
+    def forward(self, x, mask=None, scales=None, site='', length=None):
         """``scales``: the block's (qkv_in, out_in, fc_in, proj_in) for the
-        int8 path, else None; ``site``: its calibration path prefix."""
+        int8 path, else None; ``site``: its calibration path prefix;
+        ``length``: the sequence's rows (x's, unless seq_parallel split
+        them over tp)."""
+        tp = self.tp
+        length = x.shape[1] if length is None else length
         if (os.environ.get('MMVID_FUSED_LNQKV') == '1'
                 and self.attn.width % 128 == 0 and scales is None
                 and not int8.is_recording()):
+            if tp.size > 1:
+                raise NotImplementedError(
+                    f'MMVID_FUSED_LNQKV=1 with tp={tp.size}: the fused '
+                    'LN+QKV kernel is a serving gate of the whole block; '
+                    'unset it under tensor parallelism')
             # ln_1 and the QKV projection in one kernel (the JAX package's
             # gate, mmvid_tpu/models/clip.py ResidualAttentionBlock; the
             # int8 path and calibration go through the separate sites)
@@ -256,17 +288,22 @@ class ResidualAttentionBlock(nn.Module):
                                       self.attn.in_proj_bias))
             x = x + self.attn.attend(qkv, mask)
         else:
-            x = x + self.attn(layer_norm_fp32(self.ln_1, x, self.dtype),
-                              mask, None if scales is None else scales[:2],
-                              site)
-        return x + self.mlp(layer_norm_fp32(self.ln_2, x, self.dtype),
-                            None if scales is None else scales[2:], site)
+            x = x + self.attn(
+                tp.enter(layer_norm_fp32(self.ln_1, x, self.dtype), length),
+                mask, None if scales is None else scales[:2], site)
+        return x + self.mlp(
+            tp.enter(layer_norm_fp32(self.ln_2, x, self.dtype), length),
+            None if scales is None else scales[2:], site)
 
 
 class TransformerStack(nn.Module):
     """The resblock stack of the MMVID backbone; every block gets the same
     additive [L, L] mask (a tensor, or an ``AttentionMask`` with its
-    compact form)."""
+    compact form).  ``tp``: its tensor-parallel context
+    (``parallel.tensor.split_stack``); under seq_parallel the residual
+    stream between blocks holds this rank's rows."""
+
+    tp = LOCAL_TP
 
     def __init__(self, cfg: ClipStackConfig, dtype=torch.float32,
                  param_dtype=None):
@@ -289,14 +326,19 @@ class TransformerStack(nn.Module):
             raise RuntimeError(
                 'the int8 path is serving-only (rounding has no gradient): '
                 'run the quantized stack under torch.no_grad()')
+        if i8 is not None:
+            refuse_int8(self.tp.size)
         remat = self.cfg.remat and torch.is_grad_enabled()
-        x = x.to(self.dtype)
+        length = x.shape[1]
+        x = self.tp.split(x.to(self.dtype))
         for i, block in enumerate(self.resblocks):
             if remat:
-                x = checkpoint(block, x, mask, use_reentrant=False)
+                x = checkpoint(block, x, mask, length=length,
+                               use_reentrant=False)
             else:
-                x = block(x, mask, i8[i] if i8 else None, f'blocks_{i}')
-        return x.float()
+                x = block(x, mask, i8[i] if i8 else None, f'blocks_{i}',
+                          length)
+        return self.tp.join(x, length).float()
 
 
 def load_openai_clip_stack(model_path: str,

@@ -1,5 +1,7 @@
-"""Data-parallel training over ``torch.distributed`` (``mesh.py``), the
-counterpart of the ``dcn`` / ``dp`` axes of ``mmvid_tpu/parallel/``."""
+"""Training over ``torch.distributed``: the mesh of ranks and data
+parallelism (``mesh.py``) and tensor parallelism (``tensor.py``), the
+counterparts of the ``dcn`` / ``dp`` and ``tp`` axes of
+``mmvid_tpu/parallel/``."""
 
 from mmvid_tpu_torch.parallel.mesh import (
     LOCAL,

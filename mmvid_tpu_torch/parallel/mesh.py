@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed``: the port's counterpart of
-the ``dcn`` and ``dp`` axes of ``mmvid_tpu/parallel/mesh.py``.
+"""The mesh of ranks over ``torch.distributed``: the port's counterpart of
+the ``dcn``, ``dp`` and ``tp`` axes of ``mmvid_tpu/parallel/mesh.py``
+(data parallelism here, tensor parallelism in ``tensor.py``).
 
 JAX trains one SPMD program over a ``(dcn, dp, pp, tp)`` mesh; XLA shards
 the batch over ``(dcn, dp)`` and inserts the gradient ``psum``.  The port
@@ -17,9 +18,17 @@ NCCL, rank-0-only side effects), and writes the collectives out:
   generator, which is the same on every rank, and each rank keeps its rows
   (:meth:`DataParallel.rows`).
 
-Only ``all_reduce`` and ``broadcast`` are used, which both NCCL and gloo
-support on CUDA and CPU tensors.  ``tp``, ``pp`` and ``--seq_parallel``
-are not ported (ROADMAP.md, A6): they raise.
+The ranks are laid out as JAX's ``MESH_AXES`` (dcn, dp, pp, tp), tp
+innermost: rank = ((dcn * DP + dp) * PP + pp) * TP + t, so a tp group is
+consecutive ranks (one node).  With tp > 1 the batch is sharded over the
+dp group (the ranks of one tp index t): a tp group's ranks hold the same
+rows and draw the same noise, and :class:`DataParallel`'s data methods
+run over the dp group while ``any``, ``barrier`` and ``broadcast_`` span
+every rank.
+
+Only ``all_reduce`` and ``broadcast`` are used here, which both NCCL and
+gloo support on CUDA and CPU tensors.  ``pp`` is not ported (ROADMAP.md,
+A6): it raises.
 """
 
 from __future__ import annotations
@@ -31,6 +40,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from mmvid_tpu_torch.parallel.tensor import (
+    LOCAL_TP,
+    TensorParallel,
+    refuse_heads,
+    refuse_int8,
+)
 
 DCN_AXIS = 'dcn'
 DP_AXIS = 'dp'
@@ -70,30 +86,39 @@ def parse_mesh_shape(spec: Optional[str], n_devices: int) -> Dict[str, int]:
     return axes
 
 
-def refuse_model_parallel(args) -> None:
-    """``tp`` or ``pp`` above 1 and ``--seq_parallel`` raise: only the
-    data-parallel axes are ported."""
-    if getattr(args, 'seq_parallel', False):
-        raise NotImplementedError(
-            '--seq_parallel: sequence parallelism is not ported (ROADMAP.md, '
-            'A6: tp, then pp, then seq_parallel)')
-    spec = getattr(args, 'mesh_shape', None)
-    if not spec:
-        return
-    for part in spec.split(','):
+def spec_axes(spec: Optional[str]) -> Dict[str, int]:
+    """The sizes ``--mesh_shape`` names (1 for the others), unchecked
+    against a device count."""
+    axes = {name: 1 for name in MESH_AXES}
+    for part in (spec or '').split(','):
         name, _, val = part.partition('=')
-        if name.strip() in (TP_AXIS, PP_AXIS) and int(val) > 1:
-            raise NotImplementedError(
-                f'--mesh_shape {spec}: {name.strip()} > 1 is not ported '
-                '(ROADMAP.md, A6: tp, then pp, then seq_parallel); the '
-                'port trains data-parallel over dcn x dp ranks')
+        if name.strip() in axes:
+            axes[name.strip()] = int(val)
+    return axes
+
+
+def refuse_model_parallel(args) -> None:
+    """``pp`` above 1 raises (not ported), and so do a ``tp`` that does
+    not divide the backbone's heads and ``--int8`` with tp above 1."""
+    spec = getattr(args, 'mesh_shape', None)
+    axes = spec_axes(spec)
+    if axes[PP_AXIS] > 1:
+        raise NotImplementedError(
+            f'--mesh_shape {spec}: pp > 1 is not ported (ROADMAP.md, A6: '
+            'pp is next); the port trains over dcn x dp x tp ranks')
+    if getattr(args, 'int8', False):
+        refuse_int8(axes[TP_AXIS])
+    if axes[TP_AXIS] > 1:
+        from mmvid_tpu_torch.factories import build_clip_config
+        refuse_heads(build_clip_config(args.which_transformer).heads,
+                     axes[TP_AXIS])
 
 
 def mesh_ranks(spec: Optional[str], n_devices: int) -> int:
-    """The data-parallel world that ``--mesh_shape`` asks for over
-    ``n_devices``: dcn * dp (tp and pp must be 1)."""
+    """The ranks that ``--mesh_shape`` asks for over ``n_devices``: dcn *
+    dp * tp (pp must be 1)."""
     axes = parse_mesh_shape(spec, n_devices)
-    return axes[DCN_AXIS] * axes[DP_AXIS]
+    return axes[DCN_AXIS] * axes[DP_AXIS] * axes[TP_AXIS]
 
 
 def default_dp(n_devices: int, batch: int) -> int:
@@ -168,15 +193,31 @@ def rank_device(name: str, local_rank: int) -> torch.device:
 
 
 def init(backend: str, device: torch.device, rank_: int, world_: int,
-         init_method: str) -> 'DataParallel':
+         init_method: str, mesh_shape: Optional[str] = None,
+         seq_parallel: bool = False) -> 'DataParallel':
     """Join the process group (rank ``rank_`` of ``world_``) and return its
-    :class:`DataParallel`."""
+    :class:`DataParallel`, whose ``tp`` is its tensor-parallel group's
+    (``mesh_shape``'s tp axis; ``seq_parallel`` at tp = 1 is the plain
+    stack, as JAX's constraint is then a no-op)."""
     check_backend(backend, device.type)
     if device.type == 'cuda':
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world_, rank=rank_)
-    return DataParallel(device=device)
+    tp = spec_axes(mesh_shape)[TP_AXIS] if mesh_shape else 1
+    if tp == 1:
+        return DataParallel(device=device)
+    mesh_ranks(mesh_shape, world_)
+    # pp = 1: the dp index folds dcn and dp, dcn-major
+    dp_index, t = divmod(rank_, tp)
+    # every rank creates every group, in the same order
+    tp_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp)))
+                 for d in range(world_ // tp)]
+    dp_groups = [dist.new_group(list(range(i, world_, tp)))
+                 for i in range(tp)]
+    return DataParallel(device, group=dp_groups[t], span=dist.group.WORLD,
+                        tp=TensorParallel(tp_groups[dp_index],
+                                          seq_parallel=seq_parallel))
 
 
 def shutdown() -> None:
@@ -185,10 +226,12 @@ def shutdown() -> None:
 
 
 class LocalBatch:
-    """One process holds the whole batch: every method is the identity."""
+    """One process holds the whole batch: every method is the identity.
+    ``tp``: the tensor-parallel context of this rank's backbone."""
 
     rank = 0
     world = 1
+    tp = LOCAL_TP
 
     def rows(self, x):
         """This rank's rows of a global-batch tensor."""
@@ -229,15 +272,21 @@ LOCAL = LocalBatch()
 
 
 class DataParallel(LocalBatch):
-    """This process's rank in the default process group, whose tensors live
-    on ``device``.  Rank r holds rows ``[r * b, (r + 1) * b)`` of the
-    global batch."""
+    """This process's rank in the data-parallel group ``group`` (the
+    default group unless given), whose tensors live on ``device``.  Rank r
+    of the group holds rows ``[r * b, (r + 1) * b)`` of the global batch.
+    ``any``, ``barrier`` and ``broadcast_`` run over ``span`` (``group``
+    unless given; every rank under tp); ``tp``: the tensor-parallel
+    context."""
 
-    def __init__(self, device: torch.device, group=None):
+    def __init__(self, device: torch.device, group=None, span=None,
+                 tp=LOCAL_TP):
         self.group = group
+        self.span = group if span is None else span
         self.device = device
         self.rank = dist.get_rank(group)
         self.world = dist.get_world_size(group)
+        self.tp = tp
 
     def rows(self, x):
         b = x.shape[0] // self.world
@@ -269,8 +318,9 @@ class DataParallel(LocalBatch):
             flat, group=self.group))
 
     def broadcast_(self, tensors) -> None:
+        src = 0 if self.span is None else dist.get_global_rank(self.span, 0)
         self._bucketed(tensors, lambda flat: dist.broadcast(
-            flat, src=0, group=self.group))
+            flat, src=src, group=self.span))
 
     def _bucketed(self, tensors, op) -> None:
         """``op`` on flat fp32 buckets of ``tensors``, in their order,
@@ -303,14 +353,14 @@ class DataParallel(LocalBatch):
     def any(self, flag: bool) -> bool:
         t = torch.tensor([int(bool(flag))], dtype=torch.int32,
                          device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.span)
         return bool(t.item())
 
     def barrier(self) -> None:
-        if dist.get_backend(self.group) == 'nccl':
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+        if dist.get_backend(self.span) == 'nccl':
+            dist.barrier(group=self.span, device_ids=[self.device.index])
         else:
-            dist.barrier(group=self.group)
+            dist.barrier(group=self.span)
 
 
 class _Exchange(torch.autograd.Function):

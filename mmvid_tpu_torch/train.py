@@ -25,7 +25,8 @@ With ``--fixed_language_model roberta-large`` (the text_augment recipe)
 each step's text is the captions' RoBERTa features on the device
 (``factories.get_fixed_language_model``, weights from ``ROBERTA_PATH``).
 
-Data parallelism (``parallel/mesh.py``), one process a rank:
+Data and tensor parallelism (``parallel/mesh.py``, ``parallel/tensor.py``),
+one process a rank:
 
     # one rank a visible GPU, as the reference's mp.spawn (NCCL):
     python -m mmvid_tpu_torch.train <flags> --multiprocessing_distributed
@@ -44,6 +45,15 @@ make_train_step``); rank 0 alone writes ``args.txt``, ``log.txt``, the
 HTML page, the checkpoints, the sample grids and the profiler trace, and
 the other ranks wait for it at a barrier; a non-finite loss or a signal
 on any rank stops every rank at the same iteration.
+
+``--mesh_shape dp=a,tp=b`` (``dcn`` folds into dp) runs a * b ranks: the
+backbone split over each tp group of b consecutive ranks (``--seq_parallel``
+also splits the residual stream by sequence rows), the batch over the dp
+groups.  The model is built and loaded whole, rank 0's weights are
+broadcast, and then each rank keeps its shard; a save gathers the shards
+(every rank of rank 0's tp group takes part) and rank 0 writes the
+reference's one-rank layout, so a checkpoint resumes at any tp; rank 0's
+tp group samples the grids together and rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -128,7 +138,8 @@ def spawned_rank(local: int, nprocs: int, args):
 def _run_rank(args, rank: int, world: int, local: int, init_method: str):
     from mmvid_tpu_torch.parallel import mesh
     dp = mesh.init(args.dist_backend, mesh.rank_device(args.device, local),
-                   rank, world, init_method)
+                   rank, world, init_method, mesh_shape=args.mesh_shape,
+                   seq_parallel=args.seq_parallel)
     try:
         return main_worker(args, dp)
     finally:
@@ -148,8 +159,9 @@ def resolve_device(name: str) -> torch.device:
 
 def refuse_multi_device(args) -> None:
     """One process on one device: the flags that ask for more ranks raise
-    (:func:`launch` starts them), and so do ``tp``, ``pp`` and
-    ``--seq_parallel``, which are not ported."""
+    (:func:`launch` starts them), and so do ``pp``, a ``tp`` that does not
+    divide the heads and ``--int8`` with ``tp`` (``--seq_parallel`` alone
+    is the plain stack)."""
     from mmvid_tpu_torch.parallel import mesh
     mesh.refuse_model_parallel(args)
     if getattr(args, 'multiprocessing_distributed', False) or getattr(
@@ -205,16 +217,22 @@ def load_dalle_weights(model, weights) -> None:
     load_weights(model, full)
 
 
-def host_tree(model, state, idx: int) -> dict:
+def host_tree(model, state, idx: int, tp=None) -> dict:
     """The checkpoint of step ``idx``: the weights (fp32, the VQGANs'
-    included) and the optimizer's leaves, on the host."""
+    included) and the optimizer's leaves, on the host, in the one-rank
+    layout: a backbone split over ``tp`` is gathered first (every rank of
+    the tp group calls this)."""
+    from mmvid_tpu_torch.parallel import tensor
     from mmvid_tpu_torch.training import opt_state_leaves
+    tp = tp or tensor.LOCAL_TP
+    weights = tensor.gather_state_dict(model.state_dict(), tp)
+    opt_state = tensor.gather_opt_state(state.opt_state, tp)
     return {'step': idx,
             'weights': {k: (v.detach().float() if v.is_floating_point()
                             else v.detach()).cpu().clone()
-                        for k, v in model.state_dict().items()},
+                        for k, v in weights.items()},
             'opt_state': {k: v.detach().cpu().clone() for k, v in
-                          opt_state_leaves(state.opt_state).items()}}
+                          opt_state_leaves(opt_state).items()}}
 
 
 def main_worker(args, dp=None):
@@ -231,7 +249,7 @@ def main_worker(args, dp=None):
         Subset,
         infinite_batches,
     )
-    from mmvid_tpu_torch.parallel import mesh
+    from mmvid_tpu_torch.parallel import mesh, tensor
     from mmvid_tpu_torch.utils.checkpoint import (
         AsyncCheckpointWriter,
         load_checkpoint,
@@ -314,7 +332,6 @@ def main_worker(args, dp=None):
     batches = infinite_batches(loader, start=start_iter)
 
     tc = train_config(args)
-    step_fn = training.make_train_step(model, tc, dp)
     state = training.create_train_state(model, tc)
     if resume_opt_leaves is not None:
         state.opt_state = training.opt_state_from_leaves(state.opt_state,
@@ -322,6 +339,13 @@ def main_worker(args, dp=None):
     state.step = start_iter
     # rank 0's parameters on every rank, as DDP starts
     dp.broadcast_(list(state.params.values()))
+    if dp.tp.size > 1:
+        # each rank keeps its shard of the backbone and of its moments
+        tensor.split_model(model, dp.tp)
+        state = training.TrainState(
+            state.step, training.trainable_parameters(model),
+            tensor.shard_opt_state(state.opt_state, dp.tp))
+    step_fn = training.make_train_step(model, tc, dp)
 
     log_path = log_dir / 'log.txt'
     t0 = time.time()
@@ -340,14 +364,18 @@ def main_worker(args, dp=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
 
     def save(tag, idx, keep_last=True, wait=True):
-        """Rank 0 writes; every rank leaves once it has (or has handed
-        the write to the writer's thread)."""
+        """Rank 0 writes (its tp group gathers the shards); every rank
+        leaves once it has (or has handed the write to the writer's
+        thread)."""
         t = time.perf_counter()
         nbytes = None
+        if dp.tp.size > 1 and dp.rank == 0:
+            tree = host_tree(model, state, idx, dp.tp)
         if root:
             if ckpt_writer is not None and wait:
                 ckpt_writer.wait()
-            tree = host_tree(model, state, idx)
+            if dp.tp.size == 1:
+                tree = host_tree(model, state, idx)
             if ckpt_writer is not None and not wait:
                 ckpt_writer.submit(str(log_dir), tag, tree, hparams=hparams,
                                    keep_last=keep_last)
@@ -454,7 +482,8 @@ def main_worker(args, dp=None):
 
             if idx and idx % args.sample_every == 0 and not args.ar:
                 t = time.perf_counter()
-                if root:
+                # rank 0's tp group samples together; rank 0 writes
+                if dp.rank == 0:
                     from mmvid_tpu_torch.utils.viz import visualize_train
                     visualize_train(
                         model, dict(batch, text=feed['text']),
@@ -463,7 +492,8 @@ def main_worker(args, dp=None):
                         n_per_sample=min(args.n_per_sample, 2),
                         mask_predict_steps=args.mask_predict_steps[0],
                         vc_mode=args.vc_mode, rand_visual=args.rand_visual,
-                        webpage=webpage, mp_config=args.mp_config)
+                        webpage=webpage, mp_config=args.mp_config,
+                        write=root)
                 dp.barrier()
                 rec['viz_s'] = time.perf_counter() - t
             record['iters'].append(rec)

@@ -1,10 +1,10 @@
 """The training step: optimizer, LR schedules, gradient clipping and the
 MSM/REL/VID step, in PyTorch.
 
-Counterpart of ``mmvid_tpu/training.py``, on one device or data-parallel
-over ranks (``make_train_step(..., dp=)``, JAX's ``jit_train_step`` on a
-``dp`` / ``dcn`` mesh; its ``tp`` and ``pp`` shardings and the pipelined
-stack are not ported, ROADMAP.md A6).  The step computes the loss
+Counterpart of ``mmvid_tpu/training.py``, on one device or over ranks
+(``make_train_step(..., dp=)``, JAX's ``jit_train_step`` on a ``dp`` /
+``dcn`` / ``tp`` mesh; the ``pp`` sharding and the pipelined stack are not
+ported, ROADMAP.md A6).  The step computes the loss
 ``beta_msm * MSM + beta_rel * REL + beta_vid * VID`` (ART-V: its weighted
 segment cross-entropy, with beta_msm 1 as JAX's config forces in AR
 mode), its gradient with respect to the core's parameters (the VQGANs
@@ -32,6 +32,15 @@ gradient, feeds the plateau the global loss, and keeps parameters that
 are bit-identical to the other ranks'.  DDP is not used: its reducer does
 not serve ``torch.autograd.grad``, and it would average per-rank means.
 
+Under tensor parallelism (the model's backbone split by ``parallel.
+tensor.split_model``) the gradients are summed over the dp group only: a
+split parameter's gradient is its shard's whole gradient, and a
+replicated parameter's is already the same on a tp group's ranks, except
+under ``seq_parallel``, where the stack's LayerNorms and row-split biases
+saw only this rank's rows and are summed over tp.  The global norm counts
+every parameter once: the split ones' squares summed over tp, the
+replicated ones' taken once.
+
 The optimizer's state is a flat dict: the count as a host int
 (``count``), so a step reads nothing back to the host, and tensors on
 the parameters' device (``mu`` and ``nu`` by parameter name; the
@@ -50,6 +59,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from mmvid_tpu_torch.parallel import tensor
 from mmvid_tpu_torch.parallel.mesh import LOCAL
 
 
@@ -179,13 +189,16 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, grads, state, params, value=None):
+    def update(self, grads, state, params, value=None, norm=None):
+        """``norm``: the gradient's global norm where it is not this
+        process's gradients' (tensor parallelism)."""
         tc, names = self.tc, list(params)
         g = [grads[n] for n in names]
         p = [params[n] for n in names]
         # clip_by_global_norm, (t / norm) * max_norm where norm >= max_norm,
         # as two multi-tensor passes: t / 1 * 1 leaves t as it is
-        norm = global_norm(g)
+        if norm is None:
+            norm = global_norm(g)
         clip = norm >= tc.clip_grad_norm
         g = torch._foreach_mul(
             torch._foreach_div(g, torch.where(clip, norm, 1.0)),
@@ -263,6 +276,18 @@ def global_norm(tensors) -> torch.Tensor:
     from the tensors' norms in one multi-tensor pass."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
         [t.float() for t in tensors])))
+
+
+def split_global_norm(grads: Dict[str, torch.Tensor], tp) -> torch.Tensor:
+    """The global norm of a gradient whose backbone is split over ``tp``:
+    the split parameters' squares summed over the ranks, the replicated
+    ones' counted once."""
+    def sq(ts):
+        return global_norm(ts) ** 2 if ts else torch.zeros(
+            (), device=next(iter(grads.values())).device)
+    split = [g for n, g in grads.items() if tensor.split_dim(n) is not None]
+    repl = [g for n, g in grads.items() if tensor.split_dim(n) is None]
+    return torch.sqrt(tp.norm_sq(sq(split), sq(repl)))
 
 
 @dataclasses.dataclass
@@ -349,9 +374,12 @@ def make_train_step(model, tc: TrainConfig, dp=LOCAL):
     updated in place.  ``dp``: the data-parallel ranks; the batch is this
     rank's rows, ``generator`` and ``draws`` are the same on every rank
     (the draws of the global batch), and the metrics are the global
-    batch's."""
+    batch's.  A backbone split over tp (``parallel.tensor.split_model``)
+    runs its ranks' collectives; every rank of a tp group holds the same
+    rows."""
     refuse_serving_only(model)
     opt = make_optimizer(tc)
+    tp = tensor.stack_tp(model)
 
     def loss_fn(batch, generator, draws):
         visual = batch.get('visual')
@@ -385,14 +413,16 @@ def make_train_step(model, tc: TrainConfig, dp=LOCAL):
         grads = {n: torch.zeros_like(state.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
         # the global batch's gradient and metrics: the ranks' shares summed
+        # (seq_parallel's partial sums over tp first)
+        tp.reduce_seq_grads_(grads)
         dp.all_reduce_(list(grads.values()))
         keys = list(metrics)
         summed = torch.stack([metrics[k].detach().float() for k in keys])
         dp.all_reduce_([summed])
         metrics = dict(zip(keys, summed.unbind()))
-        updates, opt_state, norm = opt.update(grads, state.opt_state,
-                                              state.params,
-                                              value=metrics['loss'])
+        updates, opt_state, norm = opt.update(
+            grads, state.opt_state, state.params, value=metrics['loss'],
+            norm=split_global_norm(grads, tp) if tp.size > 1 else None)
         with torch.no_grad():
             torch._foreach_add_([state.params[n] for n in names],
                                 [updates[n] for n in names])

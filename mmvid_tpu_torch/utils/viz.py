@@ -144,7 +144,8 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
                     vc_mode=None, rand_visual: bool = False,
                     counterfactual: bool = False, debug: bool = False,
                     test_mode: Optional[str] = None,
-                    webpage: Optional[HTML] = None, mp_config=None):
+                    webpage: Optional[HTML] = None, mp_config=None,
+                    write: bool = True):
     """Real / recon / generated (/counterfactual-control) grids
     (reference visualize_train/visualize_test, utils_train.py:391-1217).
 
@@ -167,8 +168,12 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
     utils_train.py:1160-1196, gated at :1030): for each of the 3 visual
     control slots, swap ONLY that slot with the loader-provided negative
     (batch['visual_neg']) and render a per-slot counterfactual row
-    sampled at mask_predict_steps1."""
-    os.makedirs(out_dir, exist_ok=True)
+    sampled at mask_predict_steps1.
+
+    ``write=False`` samples every row and writes nothing: a tensor-parallel
+    rank sampling beside the rank that writes."""
+    if write:
+        os.makedirs(out_dir, exist_ok=True)
     dev = next(model.parameters()).device
     text = torch.as_tensor(batch['text'], device=dev)
     text = text if text.is_floating_point() else text.long()
@@ -212,15 +217,17 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
 
     if debug:
         pnag_dir = os.path.join(out_dir, f'{iteration:07d}_pnag')
-        os.makedirs(pnag_dir, exist_ok=True)
         _, _, step_decodes, step_keeps = model.generate_images_debug(
             generator, text, visual=visual, erase_visual=rand_visual,
             vc_mode=vc_mode, face_mode=face_mode,
             mask_predict_steps=steps_list[0], mp_config=mp_config)
-        for i in range(text.shape[0]):
-            save_pnag_debug_grid(
-                model, os.path.join(pnag_dir, f'{i:02d}.png'), target_h[i],
-                _host(step_decodes[:, i]), step_keeps[:, i].cpu().numpy())
+        if write:
+            os.makedirs(pnag_dir, exist_ok=True)
+            for i in range(text.shape[0]):
+                save_pnag_debug_grid(
+                    model, os.path.join(pnag_dir, f'{i:02d}.png'),
+                    target_h[i], _host(step_decodes[:, i]),
+                    step_keeps[:, i].cpu().numpy())
 
     if counterfactual and visual is not None:
         # counterfactual: the NEIGHBOUR sample's control
@@ -258,6 +265,9 @@ def visualize_train(model, batch: Dict, generator: torch.Generator,
                 mask_predict_steps=mask_predict_steps1, dynamic=True,
                 mp_config=mp_config)
             rows.append((_host(videos), cf_prompt))
+
+    if not write:
+        return
 
     def _row(i, frames, vis):
         if vis is None:

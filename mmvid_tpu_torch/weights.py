@@ -172,24 +172,31 @@ def train_state_from_jax(model: torch.nn.Module, tc, params: Dict,
     params' tree, so they take the same layout conversion
     (``bert_params_to_torch``); the counts and the plateau's scalars carry
     over as they are.  The VQGAN weights are left as the model has
-    them."""
+    them.  Where the model's backbone is split over tp
+    (``parallel.tensor.split_model``), the params and moments are sliced
+    to its rank's shard."""
     from mmvid_tpu_torch import training
+    from mmvid_tpu_torch.parallel import tensor
 
+    tp = tensor.stack_tp(model)
     state = training.create_train_state(model, tc)
     names = list(state.params)
-    core_sd = bert_params_to_torch(params)
-    if sorted(core_sd) != sorted(names):
-        raise KeyError(f'params do not match the trained parameters: '
-                       f'{sorted(set(core_sd) ^ set(names))}')
-    with torch.no_grad():
-        for n in names:
-            state.params[n].copy_(torch.as_tensor(np.array(core_sd[n])))
-    adam = _find_state(opt_state, 'nu')
-    dev = next(iter(state.params.values())).device
 
     def tensors(tree):
         sd = bert_params_to_torch(tree)
-        return {n: torch.as_tensor(np.array(sd[n])).to(dev) for n in names}
+        if sorted(sd) != sorted(names):
+            raise KeyError(f'params do not match the trained parameters: '
+                           f'{sorted(set(sd) ^ set(names))}')
+        return tensor.shard_state_dict(
+            {n: torch.as_tensor(np.array(sd[n])).to(dev) for n in names},
+            tp.size, tp.rank)
+
+    dev = next(iter(state.params.values())).device
+    core_sd = tensors(params)
+    with torch.no_grad():
+        for n in names:
+            state.params[n].copy_(core_sd[n])
+    adam = _find_state(opt_state, 'nu')
 
     count = int(np.asarray(adam.count))
     opt = {'count': count, 'mu': tensors(adam.mu),

@@ -27,6 +27,7 @@ from mmvid_tpu_torch.models import artv as partv
 from mmvid_tpu_torch.ops import artv_decode as AD
 from mmvid_tpu_torch.ops import codebook as C
 from mmvid_tpu_torch.weights import load_jax_params
+from test_torch_drivers import _one_thread  # noqa: F401 (module-wide)
 
 JCFG = jartv.ArtvConfig(dim=64, num_text_tokens=50, text_seq_len=6,
                         num_visuals=1, num_targets=2, num_image_tokens=1024,

@@ -35,6 +35,7 @@ from mmvid_tpu_torch.ops import artv_decode as AD
 from mmvid_tpu_torch.weights import load_jax_params
 from test_sampler_parity import _chi2_stat, _marginals, _tv
 from test_torch_artv import JCFG, jax_tiny_artv, port_tiny_artv
+from test_torch_drivers import _one_thread  # noqa: F401 (module-wide)
 
 N_LOOP = JCFG.target_seq_len - 1     # 127 tokens after the first
 

@@ -31,6 +31,7 @@ from mmvid_tpu_torch.models.vqgan import VQGanConfig, VQGanVAE
 from mmvid_tpu_torch.ops import codebook as C
 from mmvid_tpu_torch.utils import torch_compat as port_compat
 from mmvid_tpu_torch.weights import load_jax_params, load_weights
+from test_torch_drivers import _one_thread  # noqa: F401 (module-wide)
 
 TOL = 1e-4
 VQ_TINY = dict(resolution=16, ch=32, ch_mult=(1, 2), num_res_blocks=1,

@@ -40,6 +40,7 @@ from mmvid_tpu_torch.ops import sample_head as S
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
 from mmvid_tpu_torch.weights import read_dalle_checkpoint
 from test_torch_clip_bert import jax_tiny, port_tiny
+from test_torch_drivers import _one_thread  # noqa: F401 (module-wide)
 from test_torch_encode import jax_tiny_visual, port_tiny_visual
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

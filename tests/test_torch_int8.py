@@ -43,6 +43,7 @@ from mmvid_tpu_torch.ops import attention_int8 as A8
 from mmvid_tpu_torch.ops import int8 as pint8
 from mmvid_tpu_torch.weights import int8_scales_from_jax, load_weights
 from test_torch_clip_bert import jax_tiny, port_tiny
+from test_torch_drivers import _one_thread  # noqa: F401 (module-wide)
 
 SCALE_STEP = 1e-4 + 1e-9
 

@@ -596,9 +596,11 @@ def test_driver_two_ranks(clips, tmp_path):
 
 @pytest.mark.parametrize('extra,env,err,match', [
     (['--dist_backend', 'nccl'], True, RuntimeError, 'nccl runs on CUDA'),
-    (['--mesh_shape', 'tp=2'], True, NotImplementedError, 'tp > 1'),
+    (['--mesh_shape', 'tp=3'], True, NotImplementedError,
+     'does not divide'),
     (['--mesh_shape', 'dp=2,pp=2'], False, NotImplementedError, 'pp > 1'),
-    (['--seq_parallel'], False, NotImplementedError, 'seq_parallel'),
+    (['--seq_parallel', '--mesh_shape', 'tp=2,pp=2'], False,
+     NotImplementedError, 'pp > 1'),
     (['--mesh_shape', 'dp=2'], False, ValueError, 'needs 2 devices'),
     (['--multiprocessing_distributed'], False, RuntimeError,
      'one rank a visible GPU'),
