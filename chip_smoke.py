@@ -58,15 +58,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the fp32 mask alone; two launches a call; timed with the compact mask
    and with the fp32 mask, beside its plain version (and SDPA's bf16
    time, as context only).
-   Then attention's backward kernels (bf16 on wgmma, fp32 on the CUDA
-   cores; ``FusedAttention``: the forward kernel with its row statistics,
-   then the backward kernels) at B16 H12 D64, L 565 and 629 mask_prev and
-   causal, L 626 causal, L 516, B48 L 565 bf16 and the tiny D32, on the
-   packed views: through autograd against the plain version, the kernels
-   alone against ``attention_backward`` (ATTN_BWD_TOL), two calls
-   bitwise equal; timed beside the plain version and, at L 565 / 629 and
-   B48, ``F.scaled_dot_product_attention``'s forward and backward in the
-   same dtype.
+   Then attention's backward kernels (bf16 on wgmma, fp32 on wgmma in
+   split TF32; ``FusedAttention``: the forward kernel with its row
+   statistics, then the backward kernels) at B16 H12 D64, L 565 and 629
+   mask_prev and causal, L 626 causal, L 516, B48 L 565 bf16 and the tiny
+   D32, on the packed views, given the models' mask with its compact form
+   (which the fp32 kernel reads): through autograd against the plain
+   version, the kernels alone against ``attention_backward``
+   (ATTN_BWD_TOL), two calls bitwise equal and equal to a call given the
+   fp32 mask alone; timed beside the plain version and, at L 565 / 629
+   and B48, ``F.scaled_dot_product_attention``'s forward and backward in
+   the same dtype; with ``MMVID_BWD_OLD_SOURCE`` naming PR 20's two
+   backward sources, those kernels in turns with the routes.
 4. sample-head kernels vs their plain version: exact at temp 0 for Y
    given the chosen token (bf16 W and a genuinely fp32 W), token
    histograms in distribution (TV bounds); at temp 1 every route against
@@ -188,7 +191,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
     72, B3 2, B1-bwd 36 a step) and its captured backward held against
     the plain version at batch 24.  (``phase_train_ddp_cards``, which
     needs several cards and is not run here, takes the driver over NCCL
-    on every visible card against one card.)
+    on every visible card against one card.)  Then tensor parallelism at
+    tp = 2 on the same card: the training step over two gloo ranks
+    (``phase_train_tp_gloo``) and the driver's launcher path
+    (``phase_train_driver_tp``).  Before each spawn ``free_card_memory``
+    fails if another process holds the card or a loader thread of an
+    earlier run is still alive.
 19. the test driver (``mmvid_tpu_torch.test.main_worker``) on
     ``text_to_video/test.sh``'s flags, sampling the training run's latest
     checkpoint: videos finite in [0, 1], the grid written, the kernels
@@ -803,23 +811,27 @@ ATTN_BWD_SDPA_SHAPES = ((16, 565), (16, 629), (48, 565))
 
 
 def attention_backward_bound(b, l, h, d, dtype):
-    """(bound ms, what bounds it, the bf16 kernel's own products' bound)
-    of one backward call: the bytes of q, k, v, the cotangent, the
-    forward's output (and its rest in bf16) read once, the mask and the
-    row statistics, dq, dk, dv written once; the operations the function
-    needs, the five products' 10 B H L^2 D, at the peak of the inputs'
-    type (fp32 or bf16), as the forward's bound counts its four.  The
-    third value counts, for bf16, the three more products of the kernel's
-    hi/lo split (P and dS against their partner twice), 16 B H L^2 D, at
-    the bf16 peak; None for fp32."""
+    """(bound ms, what bounds it, the other bound) of one backward call:
+    the bytes of q, k, v, the cotangent, the forward's output (and its
+    rest in bf16) read once, the mask and the row statistics, dq, dk, dv
+    written once; the operations the function needs, the five products'
+    10 B H L^2 D, as the forward's bound counts its four.  bf16: at the
+    bf16 peak; the third value counts the three more products of the
+    kernel's hi/lo split (P and dS against their partner twice), 16 B H
+    L^2 D, at the bf16 peak.  fp32: the five products in split TF32, 3 x
+    10 B H L^2 D at the TF32 peak (the least time for fp32 accuracy on
+    this card); the third value the same five products on the CUDA cores'
+    fp32 FMAs, 10 B H L^2 D at 67 TFLOP/s."""
     bf16 = dtype == 'bfloat16'
     item = 2 if bf16 else 4
     tensors = 9 if bf16 else 8
     nbytes = tensors * b * l * h * d * item + l * l * 4 + b * h * l * 4
-    bms, by = bound(nbytes, 10 * b * h * l * l * d, 'bf16' if bf16 else
-                    'fp32')
-    split = bound(nbytes, 16 * b * h * l * l * d, 'bf16')[0] if bf16 else None
-    return bms, by, split
+    flops = 10 * b * h * l * l * d
+    if bf16:
+        bms, by = bound(nbytes, flops, 'bf16')
+        return bms, by, bound(nbytes, 16 * b * h * l * l * d, 'bf16')[0]
+    bms, by = bound(nbytes, 3 * flops, 'tf32')
+    return bms, by, bound(nbytes, flops, 'fp32')[0]
 
 
 def _bwd_errors(got, want) -> tuple:
@@ -845,16 +857,39 @@ def _unit_rms(g):
     return (g.float() / rms).to(g.dtype) if rms > 0 else g
 
 
+def _old_backward_in_turns():
+    """With ``MMVID_BWD_OLD_SOURCE`` naming a directory that holds PR 20's
+    two backward sources (attribution.py's ``--attention-bwd-source``):
+    those kernels against the route and SDPA in turns
+    (``attribution.attention_bwd``), {'ms': {shape: {call: ms}}, 'gap':
+    ...}; else None (the old sources are not in the repository)."""
+    import tempfile
+    from pathlib import Path
+
+    from mmvid_tpu_torch import attribution
+    src = os.environ.get('MMVID_BWD_OLD_SOURCE')
+    if not src:
+        return None
+    res = {'attention_bwd_ms': {}, 'attention_bwd_gap': {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = attribution.build(None, None, None, Path(tmp),
+                                attention_bwd_source=Path(src))
+        attribution.attention_bwd(fns[('old_bwd', 'as_is')], res)
+    return {'ms': res['attention_bwd_ms'], 'gap': res['attention_bwd_gap']}
+
+
 def phase_attention_backward():
     """Attention's backward on the card: the kernels of both routes (bf16
-    on wgmma, csrc/attention_bwd_sm90.cu; fp32 on the CUDA cores,
+    on wgmma, csrc/attention_bwd_sm90.cu; fp32 on wgmma in split TF32,
     csrc/attention_bwd_fp32_sm90.cu) at ATTN_BWD_SHAPES, on the packed
-    strided q, k, v views: through ``FusedAttention`` (the forward kernel
-    with its statistics, then the backward kernels once) against autograd
-    through ``attention_reference``, d qkv within ATTN_BWD_TOL; the
-    kernels alone (``attention_backward_kernel``) against their plain
-    version ``attention_backward`` on the same inputs within ATTN_BWD_TOL,
-    two calls equal bit for bit.  Times each route at each shape (the
+    strided q, k, v views, given the models' mask (the fp32 mask and its
+    compact form, which the fp32 kernel reads): through ``FusedAttention``
+    (the forward kernel with its statistics, then the backward kernels
+    once) against autograd through ``attention_reference``, d qkv within
+    ATTN_BWD_TOL; the kernels alone (``attention_backward_kernel``)
+    against their plain version ``attention_backward`` on the same inputs
+    within ATTN_BWD_TOL, two calls equal bit for bit, and equal to a call
+    given the fp32 mask alone.  Times each route at each shape (the
     backward alone, given the forward's output and statistics) beside the
     plain version, and at ATTN_BWD_SDPA_SHAPES beside
     ``F.scaled_dot_product_attention``'s forward and backward in the same
@@ -862,13 +897,15 @@ def phase_attention_backward():
     statistics; the bound (``attention_backward_bound``).  Returns the
     kernels line's rows, by dtype."""
     import torch
-    from mmvid_tpu_torch.models.clip import build_attention_mask
+    from mmvid_tpu_torch.models.clip import attention_mask
     from mmvid_tpu_torch.ops import attention as A
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = {'float32': {'shapes': {}}, 'bfloat16': {'shapes': {}}}
     for b, l, h, d, kind, idx, dtypes in ATTN_BWD_SHAPES:
-        mask = build_attention_mask(l, kind, index=idx, device='cuda')
+        # the models' mask: the fp32 mask and its compact form
+        both = attention_mask(l, kind, index=idx, device='cuda')
+        mask, compact = both
         scale = d ** -0.5
         for name in dtypes:
             dtype = getattr(torch, name)
@@ -878,7 +915,7 @@ def phase_attention_backward():
             cot = torch.randn((b, l, h, d), generator=g,
                               device='cuda').to(dtype)
             before, bwd = A.launches, A.backward_launches
-            got = _packed_grads(A.fused_attention_blhd, qkv, cot, mask)
+            got = _packed_grads(A.fused_attention_blhd, qkv, cot, both)
             launched = (A.launches - before, A.backward_launches - bwd)
             want = _packed_grads(lambda q, k, v, m: A.attention_reference(
                 q, k, v, m, scale), qkv, cot, mask)
@@ -889,14 +926,21 @@ def phase_attention_backward():
             out, lse, out_lo = A._launch(q, k, v, mask, scale, False,
                                          with_lse=True)
             args = (q, k, v, mask, scale, cot, out, lse, out_lo)
-            kern = A.attention_backward_kernel(*args)
-            again = A.attention_backward_kernel(*args)
+
+            def kernel():   # as FusedAttention calls it: with the bits
+                return A.attention_backward_kernel(*args, compact=compact)
+
+            kern = kernel()
+            again = kernel()
+            # fp32 reads the bits; the fp32 mask must give the same
+            dense = A.attention_backward_kernel(*args)
             plain = A.attention_backward(q, k, v, mask, scale, cot)
             torch.cuda.synchronize()
             rel, norm = _bwd_errors(kern, plain)
             err = max((x.float() - w.float()).abs().max().item()
                       for x, w in zip(kern, plain))
             same = all(torch.equal(x, y) for x, y in zip(kern, again))
+            same_dense = all(torch.equal(x, y) for x, y in zip(kern, dense))
             tol, norm_tol = ATTN_BWD_TOL[name], ATTN_BWD_NORM_TOL[name]
             # planted faults, which the checks must refuse: dq 2^-6 too
             # large (a systematic error, for the normwise check), and one
@@ -909,18 +953,24 @@ def phase_attention_backward():
             controls = {c: _bwd_errors(grads, plain) for c, grads in (
                 ('dq_scaled', (kern[0] * (1 + 2 ** -6), *kern[1:])),
                 ('key_zeroed', (kern[0], dk_j, dv_j)))}
-            del kern, again, plain, dk_j, dv_j
-            ms = cuda_time_ms(lambda: A.attention_backward_kernel(*args))
+            del kern, again, dense, plain, dk_j, dv_j
+            ms = cuda_time_ms(kernel)
             plain_ms = cuda_time_ms(lambda: A.attention_backward(
                 q, k, v, mask, scale, cot), calls=5, reps=3)
-            bms, by, bms_split = attention_backward_bound(b, l, h, d, name)
+            bms, by, bms_other = attention_backward_bound(b, l, h, d, name)
             row = {'max_abs_err': err, 'max_rel_err': rel,
                    'max_norm_rel_err': norm,
                    'function_max_rel_err': fn_rel,
                    'function_max_norm_rel_err': fn_norm,
                    'controls': controls, 'bitwise_repeat': same,
+                   'equal_with_fp32_mask': same_dense,
                    'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bms,
-                   'bound_by': by, 'bound_split_products_ms': bms_split}
+                   'bound_by': by}
+            if name == 'float32':   # the fp32 mask instead of the bits
+                row['ms_fp32_mask'] = cuda_time_ms(
+                    lambda: A.attention_backward_kernel(*args))
+            row['bound_split_products_ms' if name == 'bfloat16'
+                else 'bound_fp32_fma_ms'] = bms_other
             if (b, l) in ATTN_BWD_SDPA_SHAPES and kind == 'mask_prev':
                 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                               for t in (q, k, v))
@@ -949,11 +999,15 @@ def phase_attention_backward():
                   'must fail: ' + ', '.join(
                       f'{c} {cr:.3e} / {cn:.3e}'
                       for c, (cr, cn) in controls.items())
-                  + f'; two calls equal {same}; launches (forward, '
-                  f'backward) {launched}; kernel {ms:.4f} ms, plain '
-                  f'{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}'
-                  + (f'; the split\'s products at the bf16 peak '
-                     f'{bms_split:.4f}' if bms_split else '') + ')'
+                  + f'; two calls equal {same}, equal with the fp32 mask '
+                  f'{same_dense}; launches (forward, backward) {launched}; '
+                  f'kernel {ms:.4f} ms'
+                  + (f' (with the fp32 mask {row["ms_fp32_mask"]:.4f})'
+                     if 'ms_fp32_mask' in row else '')
+                  + f', plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; '
+                  + ("the split's products at the bf16 peak"
+                     if name == 'bfloat16' else 'on the fp32 FMAs')
+                  + f' {bms_other:.4f})'
                   + (f', sdpa forward+backward {row["library_ms"]:.4f} ms, '
                      f'forward kernel {row["forward_kernel_ms"]:.4f} ms, '
                      f'with statistics {row["forward_kernel_stats_ms"]:.4f} '
@@ -968,12 +1022,17 @@ def phase_attention_backward():
                          f'fault {c} passed the checks ({cr}, {cn})')
             if not same:
                 fail(f'attention backward {key} {name}: two calls differ')
+            if not same_dense:
+                fail(f'attention backward {key} {name}: the compact mask '
+                     'and the fp32 mask give different gradients')
             if launched != (1, 1):
                 fail(f'attention backward {key} {name}: launches (forward, '
                      f'backward) {launched}, not (1, 1)')
             del qkv, cot, q, k, v, out, lse, out_lo, args
         torch.cuda.empty_cache()
-    for name, r in rows.items():
+    rows['in_turns'] = _old_backward_in_turns()
+    for name in ('float32', 'bfloat16'):
+        r = rows[name]
         r['max_abs_err'] = max(x['max_abs_err'] for x in r['shapes'].values())
         r['max_rel_err'] = max(x['max_rel_err'] for x in r['shapes'].values())
         r['max_norm_rel_err'] = max(x['max_norm_rel_err']
@@ -4151,22 +4210,55 @@ def _tp_rank(rank: int, world: int, store: str, results):
         results.put((rank, traceback.format_exc()))
 
 
+def _cgroup_pids() -> str:
+    """The processes and threads this machine's cgroup counts against its
+    limit, 'current / max' (read only; 'not readable' where absent)."""
+    for d in ('/sys/fs/cgroup', '/sys/fs/cgroup/pids'):
+        try:
+            with open(f'{d}/pids.current') as f, open(f'{d}/pids.max') as m:
+                return f'{f.read().strip()} / {m.read().strip()}'
+        except OSError:
+            continue
+    return 'not readable'
+
+
 def free_card_memory(tag: str):
     """Before ranks start on the card: this process's unreachable tensors
-    collected and its cached blocks released; prints what it still holds
-    and the card's free memory."""
+    collected and its cached blocks released; prints what it still holds,
+    its threads, the cgroup's task count and the card's free memory.  The
+    guard of C8 (ROADMAP): fails if another process still holds the card
+    (a rank of an earlier phase) or a loader thread of an earlier run is
+    still alive in this one."""
     import gc
     import threading
 
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+    # a stopped loader's producer ends within its put timeout (0.1 s)
+    for t in threading.enumerate():
+        if 'produce' in t.name:
+            t.join(timeout=5)
+    left = sorted(t.name for t in threading.enumerate()
+                  if 'produce' in t.name)
     free, total = torch.cuda.mem_get_info()
     with open('/proc/meminfo') as f:
         host = next(ln.split()[1] for ln in f if ln.startswith('MemAvailable'))
+    with open('/proc/self/status') as f:
+        tasks = next(ln.split()[1] for ln in f if ln.startswith('Threads'))
+    apps = subprocess.run(
+        ['nvidia-smi', '--query-compute-apps=pid,used_memory',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
     print(f'[{tag}] this process holds {torch.cuda.memory_allocated()} B '
-          f'and {threading.active_count()} threads; the card has {free} of '
-          f'{total} B free; the host {host} kB available', flush=True)
+          f'and {threading.active_count()} Python threads ({tasks} tasks); '
+          f'the cgroup\'s tasks {_cgroup_pids()}; processes on the card '
+          f'{apps}; the card has {free} of {total} B free; the host {host} '
+          f'kB available', flush=True)
+    if len(apps) > 1:
+        fail(f'{tag}: another process holds the card: {apps}')
+    if left:
+        fail(f'{tag}: loader threads of an earlier run are alive: {left}')
 
 
 def _spawn_ranks(target, n: int, args=(), timeout=DDP_TIMEOUT_S) -> dict:
@@ -4619,10 +4711,13 @@ def _copy_inputs(kernel, a, kw):
     """A copy of a wrapper call's inputs that later calls cannot change."""
     from mmvid_tpu_torch.ops import attention as A
     if kernel == 'attention_backward':
-        q, k, v, mask, scale, g, out, lse, out_lo = a
+        q, k, v, mask, scale, g, out, lse, out_lo = a[:9]
+        # the mask's compact form (the models' masks are built once and
+        # kept, so its bits stay as they are)
+        compact = a[9] if len(a) > 9 else kw.get('compact')
         return (*_copy_qkv(q, k, v), mask.clone(), scale, g.clone(),
                 out.clone(), lse.clone(),
-                None if out_lo is None else out_lo.clone())
+                None if out_lo is None else out_lo.clone(), compact)
     if kernel == 'attention':
         q, k, v, mask = (tuple(a) + (None,))[:4]
         if isinstance(mask, A.AttentionMask):
@@ -6387,7 +6482,8 @@ def _backward_entry(dtype, rows, launches_by_path, **tp_kw):
     ``phase_attention_backward``; its launches on the main path of its
     dtype (bf16: the flagship's training step; fp32: the text_augment
     recipe's training run, fp32 as every released train.sh) and on the
-    others."""
+    others; with ``MMVID_BWD_OLD_SOURCE``, PR 20's kernel and the route
+    in turns (``old_in_turns``)."""
     r = rows[dtype]
     at = r['shapes']['B16_L565_H12_D64_mask_prev']
     bf16 = dtype == 'bfloat16'
@@ -6401,6 +6497,10 @@ def _backward_entry(dtype, rows, launches_by_path, **tp_kw):
             'max_norm_rel_err': r['max_norm_rel_err'],
             **{k: at[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
                                   'library_ms')},
+            # PR 20's kernel and this one in turns (None: not asked for)
+            'old_in_turns': None if rows['in_turns'] is None else {
+                k: v for k, v in rows['in_turns']['ms'].items()
+                if k.endswith(dtype)},
             'shapes': r['shapes'], 'launches_by_path': launches_by_path,
             'tp': _tp_entry(tp_kw['tp_rows'], dtype, 'backward',
                             tp_kw['tp_gloo'], tp_kw['driver_tp'])}
@@ -6437,11 +6537,6 @@ def main():
     attention, attention_fp32, attention_clip = timed(phase_attention)
     attention_bwd = timed(phase_attention_backward)
     attention_tp = timed(phase_attention_tp)
-    # the tensor-parallel gloo phases run on a fresh card: after the
-    # driver phases their first backward failed in cublasCreate with the
-    # card's memory free (twice; alone, and here, they pass)
-    tp_gloo = timed(phase_train_tp_gloo)
-    driver_tp = timed(phase_train_driver_tp)
     attention_int8 = timed(phase_attention_int8)
     artv_decode, decode_by_pos = timed(phase_artv_decode)
     gridstep, probe = timed(phase_gridstep)
@@ -6472,6 +6567,8 @@ def main():
     try:
         ddp_nccl = timed(phase_train_ddp_nccl, driver_tmp, train_driver)
         ddp_gloo = timed(phase_train_ddp_gloo)
+        tp_gloo = timed(phase_train_tp_gloo)
+        driver_tp = timed(phase_train_driver_tp)
         test_driver = timed(phase_test_driver, run_dir, driver_tmp)
         test_driver_long = timed(phase_test_driver_long, run_dir,
                                  driver_tmp)

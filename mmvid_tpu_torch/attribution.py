@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the int8 attention, fused LN+QKV, nearest-code, fp32 attention
-and fp32-W sample-head kernels spend their time: the first kernels
-(``csrc/attention_int8.cu`` and ``csrc/fused_ln_qkv.cu`` of
+"""Where the int8 attention, fused LN+QKV, nearest-code, fp32 attention,
+fp32-W sample-head and attention-backward kernels spend their time: the
+first kernels (``csrc/attention_int8.cu`` and ``csrc/fused_ln_qkv.cu`` of
 commit 3f73783) and the port's current ones (``csrc/attention_int8_sm90.cu``
 and ``csrc/fused_ln_qkv_sm90.cu``), each built as it is and as variants
 with one part of its work cut out, timed in turns on the card.  The
@@ -67,6 +67,20 @@ they are and with one part cut out (``NEW_HEAD_TF32``); each build that
 computes the function also reads its agreement with the plain version
 fed ``philox_gumbel`` (temp 1 and temp 0).
 
+Attention's backward (``--attention-bwd-source DIR``; DIR holds PR 20's
+``attention_bwd_sm90.cu`` and ``attention_bwd_fp32_sm90.cu``, the first
+hand-written kernels: a query pass and a key pass in bf16, FFMA on the
+CUDA cores in fp32): those kernels against the route
+(``ops/attention.py::attention_backward_kernel`` given the mask's
+compact form as the models give it, and fp32 also with the fp32 mask
+alone) and ``F.scaled_dot_product_attention``'s forward and backward in
+the same dtype, in turns, on the packed QKV views with ``mask_prev``
+rows: B16 H12 D64 at L 565 and 629 in both dtypes, B48 L565 in bf16;
+each old and new result's largest gap to the plain version, relative to
+1 + |plain|.  ``--attention-bwd-variants``: the current backward kernels
+as they are and with one part cut out (NEW_BWD_BF16, NEW_BWD_FP32) at
+B16 L565.
+
 Usage (needs nvcc and a CUDA card; the old sources from git history, e.g.
 ``git show 3f73783:mmvid_tpu_torch/csrc/attention_int8.cu > OLD8.cu``,
 ``git show 8e5084f:mmvid_tpu_torch/csrc/codebook.cu > OLDCB.cu``,
@@ -75,7 +89,12 @@ source is optional and names the families timed):
 
     python -m mmvid_tpu_torch.attribution --int8-source OLD8.cu \\
         --lnqkv-source OLDLN.cu --codebook-source OLDCB.cu \\
-        --attention-fp32-source OLDATT.cu [--sample-head] [--out FILE]
+        --attention-fp32-source OLDATT.cu [--sample-head] \\
+        [--attention-bwd-source OLDBWD/] [--attention-bwd-variants] \\
+        [--out FILE]
+
+(``mkdir OLDBWD; git show 0264c5c:mmvid_tpu_torch/csrc/attention_bwd_sm90.cu
+> OLDBWD/attention_bwd_sm90.cu``, likewise ``attention_bwd_fp32_sm90.cu``.)
 
 Prints the card, one line per (shape, variant) and one JSON object.
 """
@@ -221,6 +240,81 @@ ATTN_FP32_SHAPES = ((16, 565, 12, 'mask_prev', (51, 52)),
                     (16, 629, 12, 'mask_prev', (115, 116)),
                     (16, 50, 12, None, None),
                     (16, 77, 8, 'causal', None))
+# C entries of PR 20's two backward sources (their own signatures)
+OLD_BWD_STUB = """#include "common.cuh"
+namespace mmvid {
+cudaError_t attention_bwd_wgmma(int, const void* const*, const float*,
+                                const float*, float*, int, int, int, int,
+                                const long long*, float, cudaStream_t);
+cudaError_t attention_bwd_fp32(int, const void* const*, const float*,
+                               const float*, float*, float*, int, int, int,
+                               int, const long long*, float, cudaStream_t);
+}  // namespace mmvid
+extern "C" int mmvid_old_attention_bwd(
+    int dtype, int head_dim, const void* const* ptrs, const void* mask,
+    const void* lse, void* delta, void* scratch, int B, int L, int H,
+    int lse_ld, const long long* strides, float scale, void* stream) {
+  const float* m = static_cast<const float*>(mask);
+  const float* ls = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == mmvid::kBFloat16)
+    return mmvid::attention_bwd_wgmma(head_dim, ptrs, m, ls, dl, B, L, H,
+                                      lse_ld, strides, scale, s);
+  return mmvid::attention_bwd_fp32(head_dim, ptrs, m, ls, dl,
+                                   static_cast<float*>(scratch), B, L, H,
+                                   lse_ld, strides, scale, s);
+}
+"""
+OLD_BWD_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 4
+                + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+# the current backward kernels as they are and with one part cut out
+# (regex, replacement) of csrc/attention_bwd_sm90.cu (bf16) and
+# csrc/attention_bwd_fp32_sm90.cu (fp32); each built with the entry
+# (csrc/attention_bwd.cu) and the other route as it is
+NEW_BWD_BF16 = {
+    'as_is': [],
+    # one of the two passes alone
+    'no_query_pass': [(r'attention_bwd_query<D><<<grid, kThreads, smem, '
+                       r'stream>>>\(a\);', '')],
+    'no_key_pass': [(r'attention_bwd_key<D><<<grid, kThreads, smem, '
+                     r'stream>>>\(a\);', '')],
+}
+NEW_BWD_FP32 = {
+    'as_is': [],
+    'no_partial_store': [(r'if \(qr < L\)\n', 'if (false)\n')],
+    'no_dq_launch': [(r'attention_bwd_fp32_dq<D>\s*<<<[^;]*;', '')],
+    'no_dq_products': [(r'grp < 4', 'grp < 0')],
+    'no_dv_products': [(r'product_tile<D>\(acc, st, qt\(1, 0\), '
+                        r'qt\(1, 1\)\);', '')],
+    'no_dk_products': [(r'product_tile<D>\(acc, dp, qt\(0, 0\), '
+                        r'qt\(0, 1\)\);', '')],
+    'no_s_products': [(r'wgmma_ss_n32\(x, al, bh_, s > 0\);\s*'
+                       r'wgmma_ss_n32\(x, ah, bl, 1\);\s*'
+                       r'wgmma_ss_n32\(x, ah, bh_, 1\);', '')],
+    # the tile's Q and G split into shared memory (both layouts), or only
+    # the transposed copies
+    'no_tile_split': [(r'for \(int which = 0; which < 2; \+\+which\)'
+                       r'(\n#pragma unroll\n\s*for \(int c = 0; c < '
+                       r'T::kSlabs; \+\+c\) \{\n\s*const float4 x = which)',
+                       r'for (int which = 0; which < 0; ++which)\1')],
+    'no_transposed_store': [(r'st_f32\(qt\(which, 0\) \+ slab_off\(d, lp\), '
+                             r'hi\[u\]\);', ''),
+                            (r'st_f32\(qt\(which, 1\) \+ slab_off\(d, lp\), '
+                             r'lo\[u\]\);', '')],
+    # the tile loads a warp's 32 rows of one chunk: the transposed stores
+    # fall in 32 banks, not 8
+    'chunk_major_loads': [(r'const int lr = tid >> 3, lc = tid & 7;',
+                           'const int lr = tid & 31, lc = tid >> 5;')],
+    # the mask's bits read (as the models call it: the compact form)
+    'no_mask_bits': [(r'\(mb\[4 \* \(8 \* i \+ 2 \* t \+ e\) \+ \(kl >> 5\)\] '
+                      r'>> \(kl & 31\)\) & 1u', '0u')],
+}
+# (B, L, mask_prev rows, dtypes): the backward's timed shapes
+ATTN_BWD_SHAPES = ((16, 565, (51, 52), ('bfloat16', 'float32')),
+                   (16, 629, (115, 116), ('bfloat16', 'float32')),
+                   (48, 565, (51, 52), ('bfloat16',)))
 OLD_CODEBOOK_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p] * 2)
 NEW_CODEBOOK_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
@@ -244,16 +338,21 @@ def patch(src: str, subs) -> str:
 
 
 def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
-          attention_fp32_source=None, sample_head=False) -> dict:
+          attention_fp32_source=None, sample_head=False,
+          attention_bwd_source=None, bwd_variants=False) -> dict:
     """{(family, variant): C entry point}, one library each, all nvcc runs
     at once.  Families: old_int8, new_int8 (with ``int8_source``),
     old_lnqkv, new_lnqkv (``lnqkv_source``), old_codebook, new_codebook
     (``codebook_source``), old_attn_fp32, new_attn_fp32
     (``attention_fp32_source``), old_head, new_head_tf32
     (``sample_head``: the CUDA-core kernel and the split-TF32 one, both
-    from this tree)."""
+    from this tree), old_bwd (``attention_bwd_source``: PR 20's backward
+    kernels, both routes in one library), new_bwd_bf16 and new_bwd_fp32
+    (``bwd_variants``: the current backward kernels, NEW_BWD_BF16 and
+    NEW_BWD_FP32)."""
     nvcc = _build.find_nvcc()
-    for name in ('common.cuh', 'sm90.cuh', 'sample_head.cuh'):
+    for name in ('common.cuh', 'sm90.cuh', 'sample_head.cuh',
+                 'attention_sm90.cuh', 'attention_bwd.cuh'):
         (tmp / name).write_bytes((_build.CSRC_DIR / name).read_bytes())
 
     def current(name):
@@ -285,6 +384,31 @@ def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
         extra[('old_attn_fp32', 'as_is')] = [str(tmp / 'wgmma_stub.cu')]
         sources.update({('new_attn_fp32', n): patch(newfp, v)
                         for n, v in NEW_ATTN_FP32.items()})
+    if attention_bwd_source:
+        key = ('old_bwd', 'as_is')
+        sources[key] = OLD_BWD_STUB
+        extra[key] = []
+        for name in ('attention_bwd_sm90.cu', 'attention_bwd_fp32_sm90.cu'):
+            (tmp / f'old_{name}').write_bytes(
+                (attention_bwd_source / name).read_bytes())
+            extra[key].append(str(tmp / f'old_{name}'))
+    if bwd_variants:
+        # the entry and both routes as they are, compiled once
+        objs = {n: str(tmp / f'cur_{n}.o') for n in (
+            'attention_bwd.cu', 'attention_bwd_sm90.cu',
+            'attention_bwd_fp32_sm90.cu')}
+        _build._run_all([[nvcc, *_build.NVCC_FLAGS, f'-I{tmp}', '-c', '-o',
+                          o, str(_build.CSRC_DIR / n)]
+                         for n, o in objs.items()])
+        for route, other, variants in (
+                ('bf16', 'attention_bwd_fp32_sm90.cu', NEW_BWD_BF16),
+                ('fp32', 'attention_bwd_sm90.cu', NEW_BWD_FP32)):
+            mine = current('attention_bwd_sm90.cu' if route == 'bf16'
+                           else 'attention_bwd_fp32_sm90.cu')
+            for n, v in variants.items():
+                key = (f'new_bwd_{route}', n)
+                sources[key] = patch(mine, v)
+                extra[key] = [objs['attention_bwd.cu'], objs[other]]
     if sample_head:
         sources[('old_head', 'as_is')] = current('sample_head.cu')
         newh = current('sample_head_tf32_sm90.cu')
@@ -296,7 +420,8 @@ def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
         cu = tmp / f'{stem}.cu'
         cu.write_text(src)
         libs[key] = tmp / f'lib_{stem}.so'
-        ptxas = ['-Xptxas', '-v'] if key[0] == 'new_head_tf32' else []
+        ptxas = (['-Xptxas', '-v'] if key[0] in ('new_head_tf32', 'old_bwd')
+                 or key == ('new_bwd_fp32', 'as_is') else [])
         cmds.append([nvcc, *_build.NVCC_FLAGS, *ptxas, f'-I{tmp}', '-shared',
                      '-o', str(libs[key]), str(cu), *extra.get(key, [])])
     for key, out in zip(sources, _build._run_all(cmds)):
@@ -313,6 +438,11 @@ def build(int8_source, lnqkv_source, codebook_source, tmp: Path,
             fn, args = lib.mmvid_attention_fwd, ATTN_ARGS
         elif key[0] == 'new_attn_fp32':
             fn, args = lib.mmvid_attention_fp32_at, ATTN_ARGS
+        elif key[0] == 'old_bwd':
+            fn, args = lib.mmvid_old_attention_bwd, OLD_BWD_ARGS
+        elif key[0].startswith('new_bwd'):
+            from mmvid_tpu_torch.ops.attention import _BWD_ARGTYPES
+            fn, args = lib.mmvid_attention_bwd, _BWD_ARGTYPES
         elif key[0] == 'old_head':
             fn, args = lib.mmvid_sample_head, OLD_HEAD_ARGS
         elif key[0] == 'new_head_tf32':
@@ -523,6 +653,135 @@ def attention_fp32(fns, res):
                   f'{t:.4f} ms', flush=True)
 
 
+def bwd_variants(fns, res):
+    """The current backward kernels as they are and with one part cut out
+    (NEW_BWD_BF16, NEW_BWD_FP32), in turns, at B16 H12 D64 L565 mask_prev
+    on the packed views (fp32 given the mask's compact form, as the models
+    call it)."""
+    from mmvid_tpu_torch.models.clip import attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+    from mmvid_tpu_torch.ops.attention_int8 import mask_words
+    b, l, h, d = 16, 565, 12, 64
+    mask, compact = attention_mask(l, 'mask_prev', index=(51, 52),
+                                   device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+    for route, dtype in (('bf16', torch.bfloat16), ('fp32', torch.float32)):
+        g = torch.Generator(device='cuda').manual_seed(l + b)
+        qkv = torch.randn((b, l, 3 * h * d), generator=g,
+                          device='cuda').to(dtype)
+        cot = torch.randn((b, l, h, d), generator=g, device='cuda').to(dtype)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+                   for i in range(3))
+        out, lse, out_lo = A._launch(q, k, v, mask, d ** -0.5, False,
+                                     with_lse=True)
+        bf16 = dtype == torch.bfloat16
+        grads = [torch.empty((b, l, h, d), dtype=dtype, device='cuda')
+                 for _ in range(3)]
+        delta = torch.empty_like(lse)
+        scratch = torch.empty(-(-l // 128) * b * h * l * d, device='cuda')
+        ts = (q, k, v, out, cot, *grads)
+        ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in ts),
+                                     out_lo.data_ptr() if bf16 else None)
+        st = (ctypes.c_longlong * 24)(
+            *(x for t in ts for x in t.stride()[:3]))
+        calls = {}
+        for (family, name), fn in fns.items():
+            if family == f'new_bwd_{route}':
+                calls[name] = checked(
+                    fn, int(bf16), d, ptrs, mask.data_ptr(),
+                    None if bf16 else compact.bits.data_ptr(),
+                    0 if bf16 else mask_words(l), compact.c0, compact.c1,
+                    lse.data_ptr(), delta.data_ptr(),
+                    None if bf16 else scratch.data_ptr(), b, l, h,
+                    lse.shape[-1], st, d ** -0.5, stream)
+        res['attention_bwd_variants_ms'][route] = in_turns(calls)
+        for n, t in res['attention_bwd_variants_ms'][route].items():
+            print(f'[attribution] attention backward {route} B16 L565 {n}: '
+                  f'{t:.4f} ms', flush=True)
+        del qkv, cot, q, k, v, out, lse, out_lo, grads, scratch
+        torch.cuda.empty_cache()
+
+
+def attention_bwd(old_fn, res):
+    """PR 20's backward kernels (``old_fn``, their C entry) against the
+    route and SDPA, in turns, at ATTN_BWD_SHAPES; the old and new results'
+    gaps to the plain version."""
+    from mmvid_tpu_torch.models.clip import attention_mask
+    from mmvid_tpu_torch.ops import attention as A
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h, d = 12, 64
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, l, idx, dtypes in ATTN_BWD_SHAPES:
+        both = attention_mask(l, 'mask_prev', index=idx, device='cuda')
+        mask, compact = both
+        scale = d ** -0.5
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            g = torch.Generator(device='cuda').manual_seed(l + b)
+            qkv = torch.randn((b, l, 3 * h * d), generator=g,
+                              device='cuda').to(dtype)
+            cot = torch.randn((b, l, h, d), generator=g,
+                              device='cuda').to(dtype)
+            q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d)
+                       for i in range(3))
+            out, lse, out_lo = A._launch(q, k, v, mask, scale, False,
+                                         with_lse=True)
+            bf16 = dtype == torch.bfloat16
+            grads = [torch.empty((b, l, h, d), dtype=dtype, device='cuda')
+                     for _ in range(3)]
+            delta = torch.empty_like(lse)
+            scratch = torch.empty(-(-l // 128) * b * h * l * d,
+                                  device='cuda')
+            ts = (q, k, v, out, cot, *grads)
+            ptrs = (ctypes.c_void_p * 9)(*(t.data_ptr() for t in ts),
+                                         out_lo.data_ptr() if bf16 else None)
+            st = (ctypes.c_longlong * 24)(
+                *(x for t in ts for x in t.stride()[:3]))
+            old = checked(old_fn, int(bf16), d, ptrs, mask.data_ptr(),
+                          lse.data_ptr(), delta.data_ptr(),
+                          scratch.data_ptr(), b, l, h, lse.shape[-1], st,
+                          scale, stream)
+            args = (q, k, v, mask, scale, cot, out, lse, out_lo)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            mt, ct = mask.to(dtype), cot.transpose(1, 2)
+
+            def sdpa():
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mt)
+                return torch.autograd.grad(o, (qt, kt, vt), ct)
+
+            calls = {'old': old,
+                     'new': lambda: A.attention_backward_kernel(
+                         *args, compact=compact),
+                     'sdpa': sdpa}
+            if not bf16:   # the route reads the bits; the fp32 mask alone
+                calls['new_fp32_mask'] = (
+                    lambda: A.attention_backward_kernel(*args))
+            plain = A.attention_backward(q, k, v, mask, scale, cot)
+            old()
+            new = calls['new']()
+            torch.cuda.synchronize()
+
+            def gap(got):
+                return max(((x.float() - w.float()).abs()
+                            / (1 + w.float().abs())).max().item()
+                           for x, w in zip(got, plain))
+
+            tag = f'B{b}_L{l}_{name}'
+            res['attention_bwd_gap'][tag] = {'old': gap(grads),
+                                             'new': gap(new)}
+            del plain, new
+            res['attention_bwd_ms'][tag] = in_turns(calls)
+            for n, t in res['attention_bwd_ms'][tag].items():
+                print(f'[attribution] attention backward {tag} {n}: '
+                      f'{t:.4f} ms', flush=True)
+            print(f'[attribution] attention backward {tag}: gap to plain '
+                  f'{res["attention_bwd_gap"][tag]}', flush=True)
+            del qt, kt, vt, qkv, cot, q, k, v, out, lse, out_lo, grads
+            torch.cuda.empty_cache()
+
+
 def sample_head(fns, res):
     """The sample head with fp32 W at the main paths' M 8192 (16 videos of
     512 tokens), D 768, V 1024: every build in turns, the route, and
@@ -600,6 +859,8 @@ def main(argv=None):
     ap.add_argument('--codebook-source', type=Path, default=None)
     ap.add_argument('--attention-fp32-source', type=Path, default=None)
     ap.add_argument('--sample-head', action='store_true')
+    ap.add_argument('--attention-bwd-source', type=Path, default=None)
+    ap.add_argument('--attention-bwd-variants', action='store_true')
     ap.add_argument('--out', type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -611,12 +872,14 @@ def main(argv=None):
     res = {'device': smi, 'int8_attention_ms': {}, 'ln_qkv_ms': {},
            'codebook_ms': {}, 'attention_fp32_ms': {},
            'attention_fp32_route_rows': {}, 'sample_head_ms': {},
-           'sample_head_agreement': {}}
+           'sample_head_agreement': {}, 'attention_bwd_ms': {},
+           'attention_bwd_gap': {}, 'attention_bwd_variants_ms': {}}
     _build.library()
     with tempfile.TemporaryDirectory() as tmp:
         fns = build(args.int8_source, args.lnqkv_source,
                     args.codebook_source, Path(tmp),
-                    args.attention_fp32_source, args.sample_head)
+                    args.attention_fp32_source, args.sample_head,
+                    args.attention_bwd_source, args.attention_bwd_variants)
         with torch.no_grad():
             if args.int8_source:
                 int8_attention(fns, res)
@@ -628,6 +891,11 @@ def main(argv=None):
                 attention_fp32(fns, res)
             if args.sample_head:
                 sample_head(fns, res)
+        if args.attention_bwd_source:
+            attention_bwd(fns[('old_bwd', 'as_is')], res)
+        if args.attention_bwd_variants:
+            with torch.no_grad():
+                bwd_variants(fns, res)
     print(json.dumps(res), flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

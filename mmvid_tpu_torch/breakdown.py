@@ -31,8 +31,10 @@ call too): the flagship text-to-video recipe's step (MSM / REL / VID,
 beta 7 / 0.5 / 0.5, ``rel_no_fully_masked``; the frozen VQGAN tokenizing
 the 8 target frames and the warped frame inside it) or ART-V's, on the
 training build (fp32 parameters, bf16 compute, the flagship's blocks
-rematerialised), batch 16 of synthetic text ids and uniform frames from
-``np.random.RandomState(0)``: one warm-up step, then 5 timed steps on the
+rematerialised; with ``--fp32`` fp32 compute, TF32 off, the released
+``train.sh``'s precision), batch 16 of synthetic text ids and uniform
+frames from ``np.random.RandomState(0)``: one warm-up step, then 5 timed
+steps on the
 host clock ending in a sync; peak device memory over them; one profiled
 step (device time by kind, idle share, the kernels' launches and
 attention's backward calls and backward kernel launches a step).
@@ -49,6 +51,7 @@ the card unless ``MMVID_ARTV_FUSED=0``), ``MMVID_ATTN_BF16``):
     python -m mmvid_tpu_torch.breakdown --path artv_spec
     python -m mmvid_tpu_torch.breakdown --path train train_artv
     python -m mmvid_tpu_torch.breakdown --path train --batch 8
+    python -m mmvid_tpu_torch.breakdown --fp32 --path train
     python -m mmvid_tpu_torch.breakdown --fp32 --path flagship text_mask
 
 ``--path artv_spec`` prints two lines: the floor (random weights accept
@@ -59,6 +62,7 @@ draft accepted; its tokens are garbage by design).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -72,6 +76,7 @@ from mmvid_tpu_torch import factories, training
 from mmvid_tpu_torch.models.artv import fused_decode
 from mmvid_tpu_torch.ops import artv_decode, attention, attention_int8
 from mmvid_tpu_torch.ops import codebook, fused_ln_qkv, gridstep, sample_head
+from mmvid_tpu_torch.ops.precision import fp32_exact
 from mmvid_tpu_torch.tokenizer import SimpleTokenizer
 
 KERNELS = {'attention': attention, 'attention_int8': attention_int8,
@@ -83,7 +88,7 @@ KINDS = (
     ('attention kernel, int8', ('attention_int8_wgmma',
                                 'int8_operands_kernel')),
     ('attention kernel, tensor cores', ('attention_fwd_kernel_wgmma',)),
-    ('attention backward, CUDA cores', ('attention_bwd_fp32_',)),
+    ('attention backward, split TF32', ('attention_bwd_fp32_',)),
     ('attention backward, tensor cores', ('attention_bwd_',)),
     ('attention kernel, CUDA cores', ('attention_fwd_kernel',)),
     ('sample-head kernel', ('sample_head_kernel', 'sample_head_tf32_')),
@@ -373,14 +378,15 @@ def train_config(path: str, **changes) -> training.TrainConfig:
                                 rel_no_fully_masked=True, **changes)
 
 
-def build_train(path: str, device='cuda'):
+def build_train(path: str, device='cuda', dtype=torch.bfloat16):
     """The full-width training build on ``device``, weights from seed 0,
-    fp32 parameters computing in bf16: the flagship (each block
+    fp32 parameters computing in ``dtype``: the flagship (each block
     rematerialised) or ART-V."""
     if path == 'train':
-        model, _ = factories.flagship_train(device=device, seed=0)
+        model, _ = factories.flagship_train(dtype=dtype, device=device,
+                                            seed=0)
     elif path == 'train_artv':
-        model, _ = factories.artv_train(device=device, seed=0)
+        model, _ = factories.artv_train(dtype=dtype, device=device, seed=0)
     else:
         raise ValueError(f'unknown training path {path!r}')
     return model
@@ -464,9 +470,9 @@ def main(argv=None):
                             'train', 'train_artv'])
     p.add_argument('--batch', type=int, default=BATCH)
     p.add_argument('--fp32', action='store_true',
-                   help='build the sampling paths in fp32, the released '
-                        'recipes\' precision (none passes --bf16); the '
-                        'default is bf16')
+                   help='build the paths in fp32, the released recipes\' '
+                        'precision (none passes --bf16; training: fp32 '
+                        'compute, TF32 off); the default is bf16')
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('needs a CUDA device')
@@ -475,8 +481,12 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     for path in args.path:
         if path.startswith('train'):
-            res = measure_train(build_train(path), path, args.batch)
+            dtype = torch.float32 if args.fp32 else torch.bfloat16
+            with fp32_exact() if args.fp32 else contextlib.nullcontext():
+                res = measure_train(build_train(path, dtype=dtype), path,
+                                    args.batch)
             res['card'] = card
+            res['dtype'] = str(dtype).split('.')[-1]
             print(json.dumps(res), flush=True)
             continue
         model = build(path, torch.float32 if args.fp32 else torch.bfloat16)

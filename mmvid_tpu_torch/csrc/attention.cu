@@ -1,6 +1,6 @@
-// Full-sequence self-attention for the MMVID backbone: the C entry points
-// of both routes, forward (mmvid_attention_fwd) and backward
-// (mmvid_attention_bwd).
+// Full-sequence self-attention for the MMVID backbone: the C entry point
+// of both routes of the forward (mmvid_attention_fwd); the backward's is
+// csrc/attention_bwd.cu.
 //
 // Replaces the TPU kernel mmvid_tpu/ops/attention.py::_make_packed_kernel
 // (driven by fused_attention_blhd / _pallas_attention).  Both routes
@@ -24,12 +24,8 @@
 // softmax sums in a different order than the whole-row softmax of the TPU
 // kernel; the tests state the tolerance.
 //
-// The backward (the custom_vjp's, mmvid_tpu/ops/attention.py::
-// _fused_attention_bwd) takes the same two routes: bf16 on wgmma in
-// csrc/attention_bwd_sm90.cu, fp32 on the CUDA cores in
-// csrc/attention_bwd_fp32_sm90.cu.  It reads the row statistics that the
-// forward writes when grad is on (each row's log-sum-exp, and for bf16 the
-// rest of the fp32 output).
+// With grad on, the forward also writes the row statistics that the
+// backward (csrc/attention_bwd.cu) reads.
 
 #include "common.cuh"
 
@@ -47,19 +43,6 @@ cudaError_t attention_fp32(int head_dim, bool bf16_probs, const void* q,
                            void* out, float* lse, int lse_ld, int B, int L,
                            int H, const long long* strides, float scale,
                            cudaStream_t stream);
-// the backward's routes, csrc/attention_bwd_sm90.cu (bf16) and
-// csrc/attention_bwd_fp32_sm90.cu (fp32)
-cudaError_t attention_bwd_wgmma(int head_dim, const void* const* ptrs,
-                                const float* mask, const float* lse,
-                                float* delta, int B, int L, int H,
-                                int lse_ld, const long long* strides,
-                                float scale, cudaStream_t stream);
-cudaError_t attention_bwd_fp32(int head_dim, const void* const* ptrs,
-                               const float* mask, const float* lse,
-                               float* delta, float* scratch, int B, int L,
-                               int H, int lse_ld, const long long* strides,
-                               float scale, cudaStream_t stream);
-
 }  // namespace mmvid
 
 // q, k, v, out: [B, L, H, D] with unit stride over D and element strides
@@ -93,40 +76,4 @@ extern "C" int mmvid_attention_fwd(int dtype, int head_dim, int bf16_probs,
   if (dtype != kFloat32 || out_lo != nullptr) return cudaErrorInvalidValue;
   return attention_fp32(head_dim, bf16_probs != 0, q, k, v, m, out, ls,
                         lse_ld, B, L, H, strides, scale, s);
-}
-
-// Attention's backward (ops/attention.py::FusedAttention.backward): bf16
-// in two launches (the query pass: delta, dq; the key pass: dk, dv), fp32
-// in three (delta; the key pass: dk, dv and dq's partials; dq).
-// ptrs: q, k, v, out (the forward's output), g (the cotangent), dq, dk,
-// dv, each [B, L, H, D] with unit stride over D and element strides
-// (batch, position, head) in `strides` (24 values, in that order), then
-// (bf16) the forward's out_lo in out's layout (null for fp32); the
-// dtype's alignment as for mmvid_attention_fwd; mask as there; lse: the
-// forward's [B, H, lse_ld] statistics; delta: fp32 [B, H, lse_ld] scratch
-// (written, then read); lse_ld a multiple of 64 and >= L; scratch: fp32,
-// ceil(L / 128) * B * H * L * D floats for fp32 (dq's partials, one
-// [B, H, L, D] a block of 128 keys), null for bf16.  Returns cudaGetLastError() after the
-// launches.
-extern "C" int mmvid_attention_bwd(int dtype, int head_dim,
-                                   const void* const* ptrs, const void* mask,
-                                   const void* lse, void* delta,
-                                   void* scratch, int B, int L, int H,
-                                   int lse_ld, const long long* strides,
-                                   float scale, void* stream) {
-  using namespace mmvid;
-  const float* m = static_cast<const float*>(mask);
-  const float* ls = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || L <= 0 || H <= 0 || B > 65535 || H > 65535 || lse_ld < L ||
-      lse_ld % 64 != 0)
-    return cudaErrorInvalidValue;
-  if (dtype == kBFloat16)
-    return attention_bwd_wgmma(head_dim, ptrs, m, ls, dl, B, L, H, lse_ld,
-                               strides, scale, s);
-  if (dtype != kFloat32) return cudaErrorInvalidValue;
-  return attention_bwd_fp32(head_dim, ptrs, m, ls, dl,
-                            static_cast<float*>(scratch), B, L, H, lse_ld,
-                            strides, scale, s);
 }

@@ -73,6 +73,17 @@
 // 255 registers a thread (the key pass holds dK and dV, S^T and dP^T and
 // the split P^T and dS^T).
 //
+// Two redesigns were timed against this kernel in turns and lost
+// (mmvid_tpu_torch/attribution.py --attention-bwd-source; an NVIDIA H100
+// 80GB HBM3 at 700 W, B16 H12 D64 L565 mask_prev, PERF.md): one key pass
+// of 8 products (S and dP once) fed by a producer warpgroup's tensor
+// copies into an mbarrier ring, setmaxnreg 40 / 232, the mask's compact
+// form, dQ from per-key-block fp32 partials summed by a third launch:
+// 0.5028 ms against 0.3976 (the partials' stores and their sum 0.11 ms;
+// summed in the key pass by the tile's last block instead, 0.6246 ms);
+// and this kernel reading the mask's compact form from L2 instead of the
+// fp32 mask: 0.4421 against 0.3973.
+//
 // A key or query >= L: zero K/V (or Q/G) rows, logit -inf, P and dS
 // forced to 0, never stored.  Rows whose first key tile the mask wholly
 // masks (-1e9) get P = 2^(-1.4e9 - lse) = 0 there, as the plain version's
@@ -80,6 +91,7 @@
 
 #include <atomic>
 
+#include "attention_bwd.cuh"
 #include "attention_sm90.cuh"
 
 namespace mmvid {
@@ -492,35 +504,32 @@ cudaError_t launch(const BwdArgs& a, int B, int H, cudaStream_t stream) {
 
 }  // namespace
 
-// bf16 with mmvid_attention_bwd's arguments (csrc/attention.cu); the
+// bf16 with mmvid_attention_bwd's arguments (csrc/attention_bwd.cu); the
 // caller has checked 16-byte aligned bases and row/head/batch strides that
 // are multiples of 8, and lse_ld a multiple of 64 that is >= L.
-cudaError_t attention_bwd_wgmma(int head_dim, const void* const* ptrs,
-                                const float* mask, const float* lse,
-                                float* delta, int B, int L, int H,
-                                int lse_ld, const long long* strides,
-                                float scale, cudaStream_t stream) {
+cudaError_t attention_bwd_wgmma(int head_dim, const bwd::Args& args, int B,
+                                cudaStream_t stream) {
   BwdArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(ptrs[0]);
-  a.k = static_cast<const __nv_bfloat16*>(ptrs[1]);
-  a.v = static_cast<const __nv_bfloat16*>(ptrs[2]);
-  a.o = static_cast<const __nv_bfloat16*>(ptrs[3]);
-  a.g = static_cast<const __nv_bfloat16*>(ptrs[4]);
-  a.o_lo = static_cast<const __nv_bfloat16*>(ptrs[8]);
-  a.dq = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[5]));
-  a.dk = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[6]));
-  a.dv = static_cast<__nv_bfloat16*>(const_cast<void*>(ptrs[7]));
-  a.mask = mask;
-  a.lse = lse;
-  a.delta = delta;
+  a.q = static_cast<const __nv_bfloat16*>(args.q);
+  a.k = static_cast<const __nv_bfloat16*>(args.k);
+  a.v = static_cast<const __nv_bfloat16*>(args.v);
+  a.o = static_cast<const __nv_bfloat16*>(args.o);
+  a.g = static_cast<const __nv_bfloat16*>(args.g);
+  a.o_lo = static_cast<const __nv_bfloat16*>(args.o_lo);
+  a.dq = static_cast<__nv_bfloat16*>(args.dq);
+  a.dk = static_cast<__nv_bfloat16*>(args.dk);
+  a.dv = static_cast<__nv_bfloat16*>(args.dv);
+  a.mask = args.mask;
+  a.lse = args.lse;
+  a.delta = args.delta;
   for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
-  a.L = L;
-  a.lse_ld = lse_ld;
-  a.scale = scale;
-  a.scale_log2 = scale * kLog2e;
-  if (head_dim == 64) return launch<64>(a, B, H, stream);
-  if (head_dim == 32) return launch<32>(a, B, H, stream);
+    for (int j = 0; j < 3; ++j) a.st[i][j] = args.st[i][j];
+  a.L = args.L;
+  a.lse_ld = args.lse_ld;
+  a.scale = args.scale;
+  a.scale_log2 = args.scale * kLog2e;
+  if (head_dim == 64) return launch<64>(a, B, args.H, stream);
+  if (head_dim == 32) return launch<32>(a, B, args.H, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -123,6 +123,17 @@ class DataLoader:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        def put(item) -> bool:
+            # a consumer that stops early never drains the queue: give up
+            # then, so this thread ends instead of waiting on a full queue
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
         def produce():
             try:
                 for b in batches:
@@ -130,11 +141,12 @@ class DataLoader:
                         return
                     futures = [pool.submit(self.dataset.__getitem__, i)
                                for i in b]
-                    q.put(collate([f.result() for f in futures]))
+                    if not put(collate([f.result() for f in futures])):
+                        return
             except Exception as e:  # surface loader errors to the consumer
-                q.put(e)
+                put(e)
             finally:
-                q.put(None)
+                put(None)
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()
@@ -148,7 +160,7 @@ class DataLoader:
                 yield item
         finally:
             stop.set()
-            pool.shutdown(wait=False)
+            pool.shutdown(wait=False, cancel_futures=True)
 
 
 def infinite_batches(loader: DataLoader, start: int = 0

@@ -1,8 +1,9 @@
 """Full-sequence self-attention: the plain PyTorch version and the wrapper
 of the hand-written CUDA kernels (``csrc/attention.cu``'s entries: bf16 on
 the tensor cores in ``csrc/attention_sm90.cu``, fp32 on the CUDA cores in
-``csrc/attention_fp32_sm90.cu``; their backward in
-``csrc/attention_bwd_sm90.cu`` and ``csrc/attention_bwd_fp32_sm90.cu``).
+``csrc/attention_fp32_sm90.cu``; their backward on the tensor cores in
+``csrc/attention_bwd_sm90.cu`` and, in split TF32,
+``csrc/attention_bwd_fp32_sm90.cu``).
 
 Counterpart of ``mmvid_tpu/ops/attention.py``.  Both versions compute
 ``softmax(q * scale @ k^T + mask) @ v`` per (batch, head) with fp32 logits,
@@ -29,11 +30,13 @@ VJP of ``_attention_xla``.  On the card its forward is the kernel, which
 also writes each row's log-sum-exp ([B, H, L] fp32) and, for bf16, the
 rest of its fp32 output (bf16, [B, L, H, D]); it saves those and its
 output beside q, k, v and the mask (no [B, H, L, L] tensor), and its
-backward is the backward kernel pair of ``csrc/attention.cu``'s
+backward is the backward kernels of ``csrc/attention.cu``'s
 ``mmvid_attention_bwd`` (:func:`attention_backward_kernel`: bf16 on the
-tensor cores in ``csrc/attention_bwd_sm90.cu``, fp32 on the CUDA cores in
-``csrc/attention_bwd_fp32_sm90.cu``), or raises.  The mask takes no
-gradient.  The quantized variants refuse grad: the int8 one is serving
+tensor cores in ``csrc/attention_bwd_sm90.cu``, fp32 on the tensor cores
+in split TF32 in ``csrc/attention_bwd_fp32_sm90.cu``), or raises; the
+fp32 kernel reads the mask's compact form where the caller passed an
+:class:`AttentionMask`.  The mask takes no gradient.  The quantized
+variants refuse grad: the int8 one is serving
 only (C1), and ``MMVID_ATTN_BF16=1`` rounds the probabilities that the
 backward's fp32 softmax does not, so its gradients would not be the
 forward's.
@@ -59,7 +62,8 @@ launches = 0
 # (breakdown.measure_train reads them a training step)
 backward_calls = 0
 # Launches of the backward kernels since the last reset: one a backward
-# call on the card (its two launches, the query pass and the key pass)
+# call on the card (bf16: the query pass and the key pass; fp32: delta,
+# the key pass, dq)
 backward_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,13 +77,14 @@ _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
 _FWD_ARGTYPES = (_ARGTYPES[:8] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                  + _ARGTYPES[8:])
 # mmvid_attention_bwd's
-_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
                  + [ctypes.c_int] * 4
                  + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
 # the row statistics' row stride is L rounded up to a whole key tile
 _STAT_TILE = 64
 # the fp32 backward's key pass writes dq's partials, one [B, H, L, D] a
-# block of this many keys (kBlock, csrc/attention_bwd_fp32_sm90.cu)
+# block of this many keys (bwd::kKeyBlock, csrc/attention_bwd.cuh)
 _FP32_BWD_KEY_BLOCK = 128
 _fn = None
 _bwd_fn = None
@@ -271,15 +276,17 @@ def _fits_kernel(t, chunk: int) -> bool:
 
 
 def attention_backward_kernel(q, k, v, mask, scale, g, out, lse,
-                              out_lo=None):
+                              out_lo=None, compact=None):
     """(dq, dk, dv) in q's dtype, contiguous [B, L, H, D]: the backward
     kernels (``mmvid_attention_bwd``; bf16: a query pass writes each row's
-    delta = g . O and dq, a key pass dk and dv; fp32: delta, then a key
-    pass writes dk, dv and dq's partials a block of keys, then dq their
-    ordered sum) on CUDA tensors, from
-    the forward kernel's output ``out``, row statistics ``lse`` ([B, H,
-    stats_stride(L)] fp32, base 2) and, for bf16, ``out_lo``, the rest of
-    its fp32 output (O = out + out_lo).  The function of
+    delta = g . O and dq, a key pass dk and dv; fp32: delta, then one key
+    pass writes dk, dv and dq's partials a block of 128 keys, then dq their
+    ordered sum) on CUDA tensors, from the forward kernel's output
+    ``out``, row statistics ``lse`` ([B, H, stats_stride(L)] fp32, base 2)
+    and, for bf16, ``out_lo``, the rest of its fp32 output (O = out +
+    out_lo).  ``compact``: the mask's ``attention_int8.CompactMask``, which
+    the fp32 kernel reads instead of the fp32 mask (the bf16 kernel reads
+    the fp32 mask: faster there).  The function of
     :func:`attention_backward`, which is its plain version.  Raises on
     what the kernels do not take, before any launch."""
     global backward_launches
@@ -306,6 +313,14 @@ def attention_backward_kernel(q, k, v, mask, scale, g, out, lse,
             or out_lo.shape != out.shape or not _fits_kernel(out_lo, 8))):
         raise ValueError("out_lo: bf16 q's forward rest, in out's layout; "
                          'none for fp32')
+    bits = None if compact is None or bf16 else compact.bits
+    if bits is not None and (
+            bits.dtype != torch.int32 or not bits.is_contiguous()
+            or bits.shape != (l, attention_int8.mask_words(l))
+            or bits.device != q.device or bits.data_ptr() % 16):
+        raise ValueError(f'compact mask: int32 [L, '
+                         f'{attention_int8.mask_words(l)}] on q\'s device, '
+                         'contiguous and 16-byte aligned')
     dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     delta = torch.empty_like(lse)
@@ -317,10 +332,14 @@ def attention_backward_kernel(q, k, v, mask, scale, g, out, lse,
                                  out_lo.data_ptr() if bf16 else None)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in ts for s in t.stride()[:3]))
-    rc = _bwd_kernel()(_DTYPE_CODES[q.dtype], d, ptrs, mask.data_ptr(),
-                       lse.data_ptr(), delta.data_ptr(),
-                       None if bf16 else scratch.data_ptr(), b, l, h, ld,
-                       strides, float(scale), _build.stream_handle(q.device))
+    rc = _bwd_kernel()(
+        _DTYPE_CODES[q.dtype], d, ptrs, mask.data_ptr(),
+        None if bits is None else bits.data_ptr(),
+        0 if bits is None else bits.shape[1],
+        0.0 if bits is None else compact.c0,
+        0.0 if bits is None else compact.c1, lse.data_ptr(),
+        delta.data_ptr(), None if bf16 else scratch.data_ptr(), b, l, h, ld,
+        strides, float(scale), _build.stream_handle(q.device))
     _build.check(rc, 'attention backward kernel launch')
     backward_launches += 1
     return dq, dk, dv
@@ -329,11 +348,13 @@ def attention_backward_kernel(q, k, v, mask, scale, g, out, lse,
 class FusedAttention(torch.autograd.Function):
     """:func:`fused_attention_blhd` with a backward: on the CPU the plain
     forward and :func:`attention_backward`; on the card the forward kernel
-    (with the row statistics) and :func:`attention_backward_kernel`."""
+    (with the row statistics) and :func:`attention_backward_kernel`, given
+    the mask's compact form where the caller had one."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, scale):
+    def forward(ctx, q, k, v, mask, scale, compact=None):
         ctx.scale = scale
+        ctx.compact = compact
         if q.device.type == 'cuda':
             out, lse, out_lo = _launch(q, k, v, mask, scale, False,
                                        with_lse=True)
@@ -349,10 +370,10 @@ class FusedAttention(torch.autograd.Function):
         saved = ctx.saved_tensors
         if g.device.type == 'cuda':
             grads = attention_backward_kernel(*saved[:4], ctx.scale, g,
-                                              *saved[4:])
+                                              *saved[4:], ctx.compact)
         else:
             grads = attention_backward(*saved, ctx.scale, g)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def fused_attention_blhd(q, k, v, mask=None):
@@ -380,7 +401,7 @@ def fused_attention_blhd(q, k, v, mask=None):
                 'MMVID_ATTN_BF16=1 is serving only: its forward rounds the '
                 'probabilities, which the fp32 recompute of the backward '
                 'does not; unset it to train')
-        return FusedAttention.apply(q, k, v, mask, scale)
+        return FusedAttention.apply(q, k, v, mask, scale, compact)
     return _dispatch(q, k, v, mask, scale, compact, int8, bf16_p)
 
 

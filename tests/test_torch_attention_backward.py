@@ -2,18 +2,22 @@
 package's backward.
 
 The port's backward on the card (``ops/attention.py::
-attention_backward_kernel``) is two hand-written kernels a route: bf16 on
-the tensor cores (``csrc/attention_bwd_sm90.cu``) and fp32 on the CUDA
-cores (``csrc/attention_bwd_fp32_sm90.cu``).  Neither runs here, so each
-route's arithmetic is emulated with its tile sizes and order: the forward
-kernel's row statistics (64-key tiles, online max and sum, the log-sum-
-exp in base 2), delta = g . O from the forward's output; for bf16 the
-query pass (dQ summed over 64-key tiles in key order) and the key pass
-(dK, dV over 64-query tiles in query order), S and dP from bf16 operands
-with fp32 sums and P, dS split as hi = bf16(x), lo = bf16(x - hi) against
-their bf16 partner; for fp32 the key pass over blocks of 128 keys (dK,
-dV over 64-query tiles in order, a dQ partial a block) and dQ, the
-partials summed in block order.  Each emulation is held against ``jax.vjp`` through
+attention_backward_kernel``) is hand-written kernels a route: bf16 on the
+tensor cores (``csrc/attention_bwd_sm90.cu``) and fp32 on the tensor
+cores in split TF32 (``csrc/attention_bwd_fp32_sm90.cu``).  Neither runs
+here, so each route's arithmetic is emulated with its tile sizes and
+order: the forward kernel's row statistics (64-key tiles, online max and
+sum, the log-sum-exp in base 2), delta = g . O from the forward's output;
+for bf16 the query pass (dQ summed over 64-key tiles in key order) and
+the key pass (dK, dV over 64-query tiles in query order), S and dP from
+bf16 operands with fp32 sums and P, dS split as hi = bf16(x), lo = bf16(x
+- hi) against their bf16 partner; for fp32 the key pass over blocks of
+128 keys and 32-query tiles, each product in split TF32 (hi = tf32(x), lo
+= tf32(x - hi), lo.hi + hi.lo + hi.hi), a tile's dK and dV products
+summed apart and then added to the sums, dQ's partial of each 64 keys (a
+warpgroup's) summed, the first's plus the second's, a partial a block
+and tile, then dQ, the partials summed in block order.  Each emulation is
+held against ``jax.vjp`` through
 ``mmvid_tpu.ops.attention.fused_attention_blhd`` in interpret mode (its
 ``custom_vjp``, whose backward is XLA's VJP of ``_attention_xla``), on
 inputs from a numpy seed: D 32 and 64, ragged L (29, 130), mask_prev with
@@ -22,7 +26,9 @@ a wholly masked first key tile (rows 100 and 101 of L 130), causal.
 Tolerances, |got - want| <= tol * (1 + |want|) elementwise (the card's
 ``ATTN_BWD_TOL`` form):
 - fp32: 1e-5.  Sums in another order, exp2 of the base-2 logits, delta
-  from O instead of sum_j P dP; measured at most 1.1e-6 here.
+  from O instead of sum_j P dP, the products in split TF32 (about 2^-22
+  of a term).  The control, each product one TF32 pass (operands rounded
+  to TF32, no lo products), must exceed it.
 - bf16, the gradients rounded to bf16 as the kernel stores them, against
   JAX's bf16 gradients: 1e-2, as the card holds the kernel to its plain
   version (a last-bit difference flips one bf16 rounding, 2^-8 of |x|;
@@ -45,10 +51,13 @@ import jax.numpy as jnp
 from mmvid_tpu.models.clip import build_attention_mask as jax_mask
 from mmvid_tpu.ops.attention import fused_attention_blhd as jax_attention
 from mmvid_tpu_torch.ops import attention as A
+from mmvid_tpu_torch.ops.sample_head import round_tf32, split_tf32
 from test_torch_attention import LOG2E, kernel_emulation, one_thread  # noqa: F401
 
 TILE = 64
 KEY_BLOCK = 128   # the fp32 key pass's keys a block
+FP32_TILE = 32    # the fp32 key pass's queries a tile
+WARPGROUP = 64    # keys of a warpgroup, whose dQ parts the fp32 pass sums
 FP32_TOL = 1e-5
 BF16_TOL = 1e-2
 BF16_SPLIT_TOL = 5e-5
@@ -131,12 +140,26 @@ def bf16_backward_emulation(q, k, v, mask, g, out, lo=True):
     return tuple(t.permute(0, 2, 1, 3) for t in (dq * scale, dk * scale, dv))
 
 
-def fp32_backward_emulation(q, k, v, mask, g, out):
+def tf32x3(a, b):
+    """a @ b in split TF32, as the fp32 kernel's wgmma products: each
+    operand split, a_lo b_hi + a_hi b_lo + a_hi b_hi with fp32 sums."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def tf32x1(a, b):
+    """a @ b in one TF32 pass: the control without the lo products."""
+    return round_tf32(a) @ round_tf32(b)
+
+
+def fp32_backward_emulation(q, k, v, mask, g, out, mul=tf32x3):
     """The fp32 route's three launches: delta; per block of 128 keys, the
-    64-query tiles in order (S = q . k times scale, P, dS; dK, dV summed
-    over the tiles; each tile's dQ partial over the block's keys); dQ =
-    scale x the blocks' partials summed in block order.  (dq, dk, dv)
-    fp32 [B, L, H, D]."""
+    32-query tiles in order (S^T = K.Q^T, dP^T = V.G^T over D; P^T, dS^T;
+    each tile's dV and dK products summed apart, then added to the sums;
+    dQ^T's part of each 64 keys, the first's plus the second's, the
+    tile's partial); dQ = scale x the blocks' partials summed in block
+    order.  Every product through ``mul`` (split TF32; the control passes
+    ``tf32x1``).  (dq, dk, dv) fp32 [B, L, H, D]."""
     d, n = q.shape[-1], q.shape[1]
     scale = np.float32(d ** -0.5)
     lse = forward_lse(q, k, mask, False)
@@ -145,18 +168,24 @@ def fp32_backward_emulation(q, k, v, mask, g, out):
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     parts = []
     for k0 in range(0, n, KEY_BLOCK):
-        kt, vt = kf[..., k0:k0 + KEY_BLOCK, :], vf[..., k0:k0 + KEY_BLOCK, :]
+        kb = slice(k0, k0 + KEY_BLOCK)
+        kt, vt = kf[..., kb, :], vf[..., kb, :]
         part = torch.zeros_like(qf)
-        for q0 in range(0, n, TILE):
-            qt, gt = qf[..., q0:q0 + TILE, :], gf[..., q0:q0 + TILE, :]
-            x = (qt @ kt.transpose(-1, -2) * scale
-                 + mask[q0:q0 + TILE, k0:k0 + KEY_BLOCK]) * LOG2E
-            p = torch.exp2(x - lse[..., q0:q0 + TILE, None])
-            ds = p * (gt @ vt.transpose(-1, -2)
-                      - delta[..., q0:q0 + TILE, None])
-            dv[..., k0:k0 + KEY_BLOCK, :] += p.transpose(-1, -2) @ gt
-            dk[..., k0:k0 + KEY_BLOCK, :] += ds.transpose(-1, -2) @ qt
-            part[..., q0:q0 + TILE, :] = ds @ kt
+        for q0 in range(0, n, FP32_TILE):
+            qs = slice(q0, q0 + FP32_TILE)
+            qt, gt = qf[..., qs, :], gf[..., qs, :]
+            x = (mul(kt, qt.transpose(-1, -2)) * scale
+                 + mask[qs, kb].t()) * LOG2E
+            p = torch.exp2(x - lse[..., None, qs])
+            ds = p * (mul(vt, gt.transpose(-1, -2)) - delta[..., None, qs])
+            dv[..., kb, :] += mul(p, gt)
+            dk[..., kb, :] += mul(ds, qt)
+            dqt = None
+            for w0 in range(0, kt.shape[-2], WARPGROUP):
+                ws = slice(w0, w0 + WARPGROUP)
+                y = mul(kt[..., ws, :].transpose(-1, -2), ds[..., ws, :])
+                dqt = y if dqt is None else dqt + y
+            part[..., qs, :] = dqt.transpose(-1, -2)
         parts.append(part)
     dq = parts[0]
     for part in parts[1:]:
@@ -204,6 +233,10 @@ def test_fp32_route_emulation_matches_jax(one_thread, b, l, h, d, kind, idx):
     want = jax_grads(xs, mask, jnp.float32)
     errs = [_rel(x, w) for x, w in zip(got, want)]
     assert max(errs) <= FP32_TOL, errs
+    # one TF32 pass a product is not enough
+    control = fp32_backward_emulation(q, k, v, m, g, out, mul=tf32x1)
+    errs_c = [_rel(x, w) for x, w in zip(control, want)]
+    assert max(errs_c) > FP32_TOL, errs_c
 
 
 @pytest.mark.parametrize('b,l,h,d,kind,idx', CASES, ids=IDS)

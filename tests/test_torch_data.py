@@ -339,6 +339,31 @@ def test_loader_order_and_shards_equal_jax(n):
             assert got == seq[start:]
 
 
+def test_loader_thread_ends_when_the_consumer_stops():
+    """A run that stops reading mid-epoch (a training run's last step)
+    leaves no producer thread behind, blocked on the full prefetch queue
+    (chip_smoke.py's free_card_memory fails on one: ROADMAP C8)."""
+    import gc
+    import threading
+    import time
+
+    def producers():
+        return [t for t in threading.enumerate() if 'produce' in t.name]
+
+    before = set(producers())
+    p = ploader.DataLoader(_Ids(40), batch_size=2, num_workers=1, seed=0,
+                           prefetch=1)
+    batches = ploader.infinite_batches(p)
+    assert next(batches)['i'].shape == (2,)
+    time.sleep(0.2)   # the producer fills the queue and waits on it
+    assert set(producers()) - before
+    del batches
+    gc.collect()
+    for t in set(producers()) - before:
+        t.join(timeout=5)
+    assert not set(producers()) - before
+
+
 def test_loader_surfaces_errors():
     class Broken(_Ids):
         def __getitem__(self, i):

@@ -335,6 +335,29 @@ def test_attention_backward_kernel_matches_plain(cuda_device, dtype, b, l, h,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['fp32', 'bf16'])
+@pytest.mark.parametrize('l,kind,idx', [(130, 'mask_prev', (100, 101)),
+                                        (139, 'causal', None),
+                                        (565, 'mask_prev', (51, 52))])
+def test_attention_backward_kernel_compact_mask(cuda_device, dtype, l, kind,
+                                                idx):
+    """Given the mask's compact form, as FusedAttention passes the models'
+    mask (the fp32 kernel reads the bits, the bf16 kernel the fp32 mask),
+    the gradients equal a call given the fp32 mask alone, bit for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, mask, cot, out, lse, out_lo = _backward_inputs(
+        cuda_device, 2, l, 2, 64, dtype, kind, idx, l)
+    both = attention_mask(l, kind, index=idx, device=cuda_device)
+    assert torch.equal(both.dense, mask)
+    args = (q, k, v, mask, 0.125, cot, out, lse, out_lo)
+    got = A.attention_backward_kernel(*args, compact=both.compact)
+    want = A.attention_backward_kernel(*args)
+    for x, w in zip(got, want):
+        assert torch.equal(x, w)
+
+
+@pytest.mark.cuda
 def test_attention_backward_kernel_rejects_bad_inputs(cuda_device):
     """What the backward kernels do not take raises before a launch: a
     head dim other than 32 or 64, statistics of the wrong shape, bf16
